@@ -14,6 +14,12 @@ Phases, in order (any failure raises and the script exits non-zero):
               normalised outputs, 1e-2 on m / lse) and timed: the kernel
               alone (its launcher on arguments prepared once), the whole
               wrapper, its plain version, its bound and, for D, SDPA;
+              then the training shapes: D, and the backward kernels E (dq)
+              and F (dk, dv) at Llama-3.2-1B's B=4 T=2048 H=32 K=8 d=64
+              (causal) and at d=128 (B=1), dq/dk/dv held per 64-row tile
+              (each batch row and head: max abs error <= 2e-2 x that
+              tile's max |plain|), timed likewise beside one SDPA backward
+              (its backend named);
 4. serve   -- ``InferenceEngineV2`` on ``llama3-8b`` at full width and depth
               (random bf16 weights from seed 0, rescaled so attention
               weighs in the residual stream; max_seq_len cut to 2048,
@@ -25,7 +31,25 @@ Phases, in order (any failure raises and the script exits non-zero):
               ``decode_batch`` call of kernel A whose rows have moved past
               the pool frontier, are replayed through the plain versions;
               the 1100-token prompt's chunked last-token logits must match
-              a whole-prompt ``put`` of it (relative L2 <= 2e-2, bf16).
+              a whole-prompt ``put`` of it (relative L2 <= 2e-2, bf16);
+              the engine is freed afterwards;
+5. train   -- ``deepspeed_tpu_torch.initialize`` on ``llama3-1b`` at full
+              width and depth (max_seq_len 2048; random fp32 master weights
+              from seed 0, bf16 compute): micro-batch 4 x 2048 tokens, GA 2,
+              AdamW (lr 1e-4, wd 0.1), gradient clipping 1.0; four
+              ``train_batch`` steps on one fixed numpy-seeded batch, then one
+              ``fused_train_step``. Every loss and grad norm must be finite,
+              the last loss below the first, and kernels D, E and F must
+              launch; the first launch of each is replayed through its plain
+              version. Then a gradient cross-check at 2 layers of the same
+              width: the gradients of wq, wk, wv, wo and the embedding
+              through the kernels against those through the plain attention
+              (this script swaps it in), relative L2 <= 2e-2 per leaf.
+              Prints step ms, tokens/s and the model-FLOPs share of
+              989 TFLOP/s (6 N + 12 L T D FLOPs per token). The model
+              configuration, the engine config and the batch come from
+              ``deepspeed_tpu_torch/tools/train_profile.py``, which
+              profiles the same step.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
@@ -34,8 +58,11 @@ limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
 
 from __future__ import annotations
 
+import gc
 import inspect
+import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,7 +73,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 ATOL = RTOL = 2e-2             # normalised outputs, bf16 inputs
 STAT_TOL = 1e-2                # m / lse
+BWD_REL = 2e-2                 # dq/dk/dv, per tile: max abs err / max |plain|
+TILE = 64                      # rows of a kernel tile
 CROSS_PATH_REL_L2 = 2e-2       # chunked vs whole-prompt last-token logits
+GRAD_REL_L2 = 2e-2             # per-leaf grads, kernels vs plain attention
+SERVE_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -93,6 +125,32 @@ def close(name: str, got, want, atol: float, rtol: float) -> float:
 def normalised(acc, l):
     """acc / l where l > 0 (rows with nothing visible compare as zero)."""
     return acc / l.clamp_min(1e-30)[..., None]
+
+
+def close_tiles(name: str, got, want, rel: float = BWD_REL):
+    """A gradient ``[B, T, heads, d]`` against its plain version, per
+    ``TILE``-row tile of the sequence axis for each batch row and head:
+    max |got - want| <= rel x max |want| over that tile (in fp32). Causal
+    gradients shrink along the sequence, so one tensor-wide max would let
+    late tiles off lightly. Returns ``(max abs error, max |want|, worst
+    tile's max abs error / its max |want|)``."""
+    import torch
+
+    got, want = got.float(), want.float()
+    B, T, H, d = want.shape
+    pad = (0, 0, 0, 0, 0, -T % TILE)
+    err = torch.nn.functional.pad((got - want).abs(), pad)
+    ref = torch.nn.functional.pad(want.abs(), pad)
+    e, s = (x.view(B, -1, TILE, H, d).amax(dim=(2, 4)) for x in (err, ref))
+    bad = (e > rel * s).nonzero()
+    if len(bad):
+        b, t, h = bad[0].tolist()
+        raise AssertionError(
+            f"{name}: {len(bad)} tiles over the gate, first (batch {b}, rows "
+            f"{t * TILE}.., head {h}): max abs err {float(e[b, t, h]):.3e} > "
+            f"{rel} x tile max |plain| {float(s[b, t, h]):.3e}")
+    worst = torch.where(s > 0, e / s.clamp_min(1e-30), 0.0).max()
+    return float(err.max()), float(ref.max()), float(worst)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +295,112 @@ def kernel_checks(torch, pa, fa, KERNELS):
     return rows
 
 
+def sdpa_backward_ms(torch, q, k, v, do):
+    """One SDPA backward (dq, dk, dv) at the shape of ``q`` [B,T,H,d] /
+    ``k``, ``v`` [B,S,K,d], causal GQA: ``(ms, backend name)``, trying the
+    flash, cuDNN and memory-efficient backends in turn."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dot = do.transpose(1, 2).contiguous()
+    xs = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = sdpa(*xs, is_causal=True, enable_gqa=True)
+        except RuntimeError:          # this backend does not take the call
+            continue
+        return time_ms(lambda: torch.autograd.grad(
+            out, xs, dot, retain_graph=True)), backend.name
+    raise RuntimeError("no SDPA backend takes a causal GQA call")
+
+
+def backward_checks(torch, fa, KERNELS):
+    """Kernel D at the training shape, and kernels E and F at the training
+    shape (d = 64) and at d = 128, against their plain versions."""
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_SEQ
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rows = {}
+    for tag, (B, T, H, K, d) in (("train", (4, TRAIN_SEQ, 32, 8, 64)),
+                                 ("d128", (1, TRAIN_SEQ, 32, 8, 128))):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+        q, do, k, v = rnd(B, T, H, d), rnd(B, T, H, d), rnd(B, T, K, d), \
+            rnd(B, T, K, d)
+        shape = f"B={B} T=S={T} H={H} K={K} d={d}, causal"
+        pairs = B * H * T * (T + 1) // 2          # live (row, col) per head
+        out, lse = fa.flash_forward(q, k, v, causal=True)
+        if tag == "train":
+            pout, plse = fa.plain_flash_forward(q, k, v, causal=True)
+            err = close("D out (train shape)", out, pout, ATOL, RTOL)
+            close("D lse (train shape)", lse, plse, STAT_TOL, STAT_TOL)
+            del pout, plse
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True))
+            del qt, kt, vt
+            args, _ = fa.flash_kernel_args(q, k, v, causal=True)
+            rows["flash_fwd/train"] = dict(
+                err=err, library_ms=lib, shape=shape,
+                bound=bound((q.numel() + k.numel() + v.numel()
+                             + out.numel()) * 2 + lse.numel() * 4,
+                            4 * d * pairs),
+                **timings(KERNELS["flash_fwd"], args,
+                          lambda: fa.flash_forward(q, k, v, causal=True),
+                          lambda: fa.plain_flash_forward(q, k, v,
+                                                         causal=True)))
+        delta = fa.flash_delta(out, do)
+        ins = (q, k, v, do, lse, delta)
+        dq = fa.flash_bwd_dq(*ins, causal=True)
+        dk, dv = fa.flash_bwd_dkv(*ins, causal=True)
+        tiles_dq = {"dq": close_tiles(f"E dq ({tag})", dq,
+                                      fa.plain_flash_bwd_dq(*ins,
+                                                            causal=True))}
+        pdk, pdv = fa.plain_flash_bwd_dkv(*ins, causal=True)
+        tiles_dkv = {"dk": close_tiles(f"F dk ({tag})", dk, pdk),
+                     "dv": close_tiles(f"F dv ({tag})", dv, pdv)}
+        del pdk, pdv
+        lib, backend = sdpa_backward_ms(torch, q, k, v, do)
+        in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+            + (lse.numel() + delta.numel()) * 4
+        args_e, _ = fa.flash_bwd_kernel_args(*ins, part="dq", causal=True)
+        args_f, _ = fa.flash_bwd_kernel_args(*ins, part="dkv", causal=True)
+        rows[f"flash_bwd_dq/{tag}"] = dict(
+            err=tiles_dq["dq"][0], tiles=tiles_dq, library_ms=lib,
+            library=backend, shape=shape,
+            bound=bound(in_bytes + dq.numel() * 2, 6 * d * pairs),
+            **timings(KERNELS["flash_bwd_dq"], args_e,
+                      lambda: fa.flash_bwd_dq(*ins, causal=True),
+                      lambda: fa.plain_flash_bwd_dq(*ins, causal=True)))
+        rows[f"flash_bwd_dkv/{tag}"] = dict(
+            err=max(t[0] for t in tiles_dkv.values()), tiles=tiles_dkv,
+            library_ms=lib, library=backend, shape=shape,
+            bound=bound(in_bytes + (dk.numel() + dv.numel()) * 2,
+                        8 * d * pairs),
+            **timings(KERNELS["flash_bwd_dkv"], args_f,
+                      lambda: fa.flash_bwd_dkv(*ins, causal=True),
+                      lambda: fa.plain_flash_bwd_dkv(*ins, causal=True)))
+        del q, k, v, do, out, lse, delta, ins, dq, dk, dv, args_e, args_f
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f"kernel {name}: max_abs_err {r['err']:.3e}, kernel "
+            f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}, library {r['library_ms']} "
+            f"{r.get('library', 'SDPA')}) [{r['shape']}]")
+        for t, (err, scale, worst) in r.get("tiles", {}).items():
+            log(f"kernel {name} {t}: max abs err {err:.3e}, max |plain| "
+                f"{scale:.3e}, worst {TILE}-row tile err / tile max |plain| "
+                f"{worst:.3e} (gate {BWD_REL})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve Llama-3-8B through the engine
 # ---------------------------------------------------------------------------
@@ -258,12 +422,18 @@ class Replay:
         self.torch = torch
         self.stage = None
         self.captured = {}
-        self.targets = {
+        self.tiles = {}        # backward kernels: close_tiles' readings
+        self.targets = self.make_targets(pa, fa)
+
+    @staticmethod
+    def make_targets(pa, fa):
+        """kernel name -> (module, wrapper attribute, plain version)"""
+        return {
             "paged_decode": (pa, "decode_pool_partials",
                              pa.plain_decode_partials),
             "paged_past": (pa, "past_partials", pa.plain_past_partials),
             "chunk_self": (pa, "self_attention", pa.plain_self_attention),
-            "flash_fwd": (fa, "flash_attention_lse", fa.plain_flash_forward),
+            "flash_fwd": (fa, "flash_forward", fa.plain_flash_forward),
         }
 
     def __enter__(self):
@@ -314,7 +484,7 @@ class Replay:
     def check(self):
         missing = self.REQUIRED - set(self.captured)
         if missing:
-            raise AssertionError(f"serve phase: no launch captured for "
+            raise AssertionError(f"no launch captured for "
                                  f"{sorted(missing)}")
         errs = {}
         for (name, stage), (x, out) in sorted(self.captured.items()):
@@ -330,11 +500,38 @@ class Replay:
                       STAT_TOL)
             elif name == "chunk_self":
                 errs[f"{name}/{stage}"] = close(tag, out[0], ref, ATOL, RTOL)
+            elif name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                grads = ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
+                refs = ref if isinstance(ref, tuple) else (ref,)
+                for t, got, want in zip(grads, out, refs):
+                    self.tiles[f"{name}/{stage} {t}"] = close_tiles(
+                        f"{tag} {t}", got, want)
+                errs[f"{name}/{stage}"] = max(
+                    self.tiles[f"{name}/{stage} {t}"][0] for t in grads)
             else:
                 errs[f"{name}/{stage}"] = close(tag, out[0], ref[0], ATOL,
                                                 RTOL)
                 close(f"{tag} lse", out[1], ref[1], STAT_TOL, STAT_TOL)
         return errs
+
+
+class TrainReplay(Replay):
+    """The train phase's :class:`Replay`: kernels D, E and F, the first
+    launch of each (stage ``train``)."""
+
+    REQUIRED = {("flash_fwd", "train"), ("flash_bwd_dq", "train"),
+                ("flash_bwd_dkv", "train")}
+
+    def __init__(self, torch, fa):
+        super().__init__(torch, None, fa)
+
+    @staticmethod
+    def make_targets(pa, fa):
+        return {
+            "flash_fwd": (fa, "flash_forward", fa.plain_flash_forward),
+            "flash_bwd_dq": (fa, "flash_bwd_dq", fa.plain_flash_bwd_dq),
+            "flash_bwd_dkv": (fa, "flash_bwd_dkv", fa.plain_flash_bwd_dkv),
+        }
 
 
 def attention_heavy(params) -> None:
@@ -406,7 +603,7 @@ def serve(torch, pa, fa, KERNELS, reset_counts):
         t = time.perf_counter()
         toks = eng.decode_batch(list(range(6)), nxt, steps=32)
         dt_decode = time.perf_counter() - t
-    counts = {name: k.launches for name, k in KERNELS.items()}
+    counts = {name: KERNELS[name].launches for name in SERVE_KERNELS}
     for u, tk in toks.items():
         if tk.shape != (32,) or tk.min() < 0 or tk.max() >= V:
             raise AssertionError(f"uid {u}: bad decoded tokens {tk}")
@@ -442,7 +639,151 @@ def serve(torch, pa, fa, KERNELS, reset_counts):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train Llama-3.2-1B through initialize
+# ---------------------------------------------------------------------------
+
+class plain_attention:
+    """Swaps kernels D, E and F's wrappers for their plain versions (module
+    attributes, restored on exit): the attention of the gradient
+    cross-check's reference run."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.saved = {}
+
+    def __enter__(self):
+        for mod, attr, plain in TrainReplay.make_targets(None,
+                                                         self.fa).values():
+            self.saved[attr] = getattr(mod, attr)
+            setattr(mod, attr, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.fa, attr, fn)
+
+
+def grad_rel_l2(torch, fa, model, params, batch):
+    """Relative L2, per leaf, of the gradients of wq, wk, wv, wo and the
+    embedding through the kernels' wrappers against those through the plain
+    attention (``params`` gain ``requires_grad``)."""
+    attn = params["layers"]["attn"]
+    leaves = {n: attn[n] for n in ("wq", "wk", "wv", "wo")}
+    leaves["embed"] = params["embed"]["tokens"]
+    for t in leaves.values():
+        t.requires_grad_()
+
+    def grads():
+        loss = model.loss_fn(params, batch)
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    got = grads()
+    with plain_attention(fa):
+        want = grads()
+    return {n: float((g.float() - w.float()).norm() / w.float().norm())
+            for n, g, w in zip(leaves, got, want)}
+
+
+def grad_cross_check(torch, fa, batch):
+    """The gradient cross-check at 2 layers of Llama-3.2-1B's width."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import TransformerLM
+    from deepspeed_tpu_torch.tools.train_profile import train_model_config
+
+    model = TransformerLM(dataclasses.replace(train_model_config(),
+                                              num_layers=2))
+    params = model.init(seed=0, device="cuda")
+    ids = {"input_ids": torch.from_numpy(batch["input_ids"]).cuda()}
+    rel = grad_rel_l2(torch, fa, model, params, ids)
+    log(f"train: gradient cross-check at 2 layers, kernels vs plain "
+        f"attention, rel L2 {rel}")
+    bad = {n: r for n, r in rel.items() if not r <= GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"gradient cross-check: rel L2 {bad} > "
+                             f"{GRAD_REL_L2}")
+    return rel
+
+
+def train(torch, fa, KERNELS, reset_counts):
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch import TransformerLM
+    from deepspeed_tpu_torch.models.spec import num_params
+    from deepspeed_tpu_torch.tools.train_profile import (TRAIN_CONFIG,
+                                                         TRAIN_SEQ,
+                                                         fixed_batch,
+                                                         train_model_config)
+
+    cfg = train_model_config()
+    t0 = time.perf_counter()
+    eng, *_ = tds.initialize(TransformerLM(cfg), dict(TRAIN_CONFIG))
+    torch.cuda.synchronize()
+    n = num_params(eng.params)
+    log(f"train: llama3-1b D={cfg.hidden_size} L={cfg.num_layers} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} F={cfg.intermediate_size} "
+        f"V={cfg.vocab_size}: {n / 1e9:.3f}B params (fp32 master, "
+        f"{cfg.dtype} compute), built in {time.perf_counter() - t0:.1f} s")
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    ga = TRAIN_CONFIG["gradient_accumulation_steps"]
+    batch = fixed_batch(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    reset_counts()
+    with TrainReplay(torch, fa) as replay:
+        replay.stage = "train"
+        for _ in range(4):
+            t = time.perf_counter()
+            losses.append(eng.train_batch(itertools.repeat(batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            norms.append(eng.get_global_grad_norm())
+        t = time.perf_counter()
+        losses.append(float(eng.fused_train_step(
+            {"input_ids": np.concatenate([batch["input_ids"]] * ga)})))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        norms.append(eng.get_global_grad_norm())
+    counts = {name: KERNELS[name].launches for name in TRAIN_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train: losses {losses}, grad norms {norms}, launches {counts}, "
+        f"peak memory {peak_gb:.1f} GB")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"train: non-finite loss or grad norm: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: last loss {losses[-1]} not below the "
+                             f"first {losses[0]}")
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the train phase: "
+                             f"{missing} (counts {counts})")
+    replay_errs = replay.check()
+    log(f"train: captured launches replayed vs plain, max abs err "
+        f"{replay_errs}; (max abs err, max |plain|, worst {TILE}-row tile "
+        f"err / tile max |plain|) {replay.tiles} (gate {BWD_REL})")
+    tokens = micro * ga * TRAIN_SEQ
+    flops_per_token = 6 * n + 12 * cfg.num_layers * TRAIN_SEQ \
+        * cfg.hidden_size
+    steady = float(np.median(step_s[1:]))
+    tps = tokens / steady
+    log(f"train [{torch.cuda.get_device_name(0)}]: step ms "
+        f"{[round(s * 1e3, 1) for s in step_s]} (4 train_batch, then "
+        f"fused_train_step; the first includes warm-up), median of the "
+        f"last four {steady * 1e3:.1f} ms = {tps:.1f} tokens/s "
+        f"({tokens} tokens/step), model-FLOPs share "
+        f"{tps * flops_per_token / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s "
+        f"({flops_per_token / 1e9:.3f} GFLOP/token)")
+    del eng, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_cross_check(torch, fa, batch)
+    return counts
+
+
 def main() -> int:
+    # the train phase follows the 8B serve phase in one process
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -465,18 +806,38 @@ def main() -> int:
         f"{_build.build_dir()}")
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
-    counts = serve(torch, pa, fa, _build.KERNELS, _build.reset_counts)
+    rows.update(backward_checks(torch, fa, _build.KERNELS))
+    served = serve(torch, pa, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train(torch, fa, _build.KERNELS, _build.reset_counts)
+
+    def entry(r):
+        e = {"max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+             "wrapper_ms": r["wrapper_ms"], "shape": r["shape"]}
+        if "tiles" in r:
+            e["worst_tile_rel"] = {t: x[2] for t, x in r["tiles"].items()}
+            e["tile_rel_gate"] = BWD_REL
+        return e
 
     kernels = []
     for name, k in _build.KERNELS.items():
-        r = rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": counts[name],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "wrapper_ms": r["wrapper_ms"],
-            "shape": r["shape"]})
+        by_phase = {p: c[name] for p, c in (("serve", served),
+                                             ("train", trained)) if name in c}
+        e = {"name": name, "route": "cuda", "source": k.source,
+             "replaces": k.replaces, "launches": sum(by_phase.values()),
+             "launches_by_phase": by_phase}
+        if name in rows:                     # A-D at the serving shapes
+            e.update(entry(rows[name]))
+            if f"{name}/train" in rows:
+                e["at_train_shape"] = entry(rows[f"{name}/train"])
+        else:                                # E, F: training shape, d=128
+            e.update(entry(rows[f"{name}/train"]))
+            e["library"] = rows[f"{name}/train"]["library"]
+            e["at_d128"] = entry(rows[f"{name}/d128"])
+        kernels.append(e)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ use from ``csrc/``, with a plain PyTorch version beside it. Entry points run
 on the card unless a caller passes ``device="cpu"``.
 
 Ported so far: the serving path of ``InferenceEngineV2`` (bf16 weights and
-KV pool, one device, greedy decoding).
+KV pool, one device, greedy decoding) and the single-device training path
+of :func:`initialize` (fp32 master weights, bf16 or fp32 compute, flash
+attention forward and backward on the card).
 """
 
 from deepspeed_tpu_torch.inference import (CapacityError,  # noqa: F401
@@ -16,4 +18,37 @@ from deepspeed_tpu_torch.inference import (CapacityError,  # noqa: F401
 from deepspeed_tpu_torch.models import (TransformerConfig,  # noqa: F401
                                         TransformerLM, get_preset)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+def initialize(model=None, config=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, device="cuda",
+               collate_fn=None):
+    """Build the training engine (counterpart of
+    ``deepspeed_tpu.initialize``).
+
+    Args:
+        model: an object with ``init(seed, device) -> params`` and
+            ``loss_fn(params, batch) -> loss`` (e.g. :class:`TransformerLM`).
+        config: dict, path to a JSON file, or a ``DeepSpeedTpuConfig``.
+        model_parameters: optional parameter tree (tensors or numpy arrays,
+            e.g. from :mod:`deepspeed_tpu_torch.bridge`) to start from
+            instead of ``model.init(config.seed)``; the engine copies it.
+        training_data: optional dataset for the engine-managed data loader.
+        lr_scheduler: optional schedule fn ``step -> lr`` (overrides the
+            config's scheduler).
+        device: ``"cuda"`` (default) or ``"cpu"`` for the plain versions.
+
+    Returns:
+        ``(engine, optimizer, training_dataloader, lr_scheduler)``, the
+        reference's 4-tuple.
+    """
+    from deepspeed_tpu_torch.config import from_config
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedTpuEngine
+
+    engine = DeepSpeedTpuEngine(
+        model=model, config=from_config(config),
+        model_parameters=model_parameters, training_data=training_data,
+        lr_scheduler=lr_scheduler, collate_fn=collate_fn, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

@@ -25,12 +25,18 @@ def _leaf(a, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":            # ml_dtypes: no numpy bridge
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
+    if not arr.flags.writeable:                 # e.g. jax.device_get output
+        arr = arr.copy()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays (e.g. ``jax.device_get(params)``) -> the
-    same nested dict of tensors on ``device``."""
+    same nested dict of tensors on ``device`` (the card unless the caller
+    asks for the CPU; raises where there is no card)."""
+    from deepspeed_tpu_torch.utils import resolve_device
+
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _leaf(tree, device)

@@ -6,12 +6,18 @@ Parameters are a plain nested dict of tensors with the JAX package's tree
 and orientation: per-layer weights STACKED on a leading layer axis
 (``layers.attn.wq [L, D, H*hd]``, ...) and every matmul weight stored
 ``[Din, Dout]`` so a layer computes ``x @ w``. Layers run as a Python loop
-over ``w[i]`` views. Norms, rope and softmax statistics are computed in fp32
-and cast back, as the reference does.
+over per-layer views of the stacks (:func:`_unstack`). Norms, rope and
+softmax statistics are computed in fp32 and cast back, as the reference
+does.
+
+The training forward (:meth:`TransformerLM.loss_fn`) casts fp32 master
+leaves to the compute dtype inside the forward, so autograd lands the
+gradients in fp32, and wraps each layer in the ``remat_policy``'s
+activation checkpointing.
 
 Not ported yet (they raise ``NotImplementedError``): MoE layers,
 ``act_quant_bits``, the fpdt/ring/ulysses attention impls, random-LTD,
-progressive layer drop and the training loss.
+progressive layer drop and the tiled loss (``loss_tiling > 1``).
 """
 
 from __future__ import annotations
@@ -257,11 +263,13 @@ def mlp_block(x: torch.Tensor, w: Params, cfg: TransformerConfig
 
 
 def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
-                  freqs: Optional[torch.Tensor], positions: torch.Tensor,
+                  freqs: Optional[torch.Tensor],
+                  positions: Optional[torch.Tensor],
                   attn_cache_fn: Callable) -> torch.Tensor:
-    """One decoder block of the serving paths: ``attn_cache_fn(q, k, v)``
-    owns the KV bookkeeping and returns [B, t, H, hd]. Parallel residual,
-    shared norm and biases as the reference's block."""
+    """One pre-norm decoder block: ``attn_cache_fn(q, k, v)`` owns the KV
+    bookkeeping (serving) or is plain flash attention (training) and returns
+    [B, t, H, hd]. Parallel residual, shared norm and biases as the
+    reference's block; ``positions`` None means ``arange(T)``."""
     hn1 = _norm(h, wc["ln1"], cfg.norm, cfg.norm_eps)
     q, k, v = qkv_proj(hn1, wc["attn"], cfg)
     if cfg.use_rope:
@@ -277,13 +285,60 @@ def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
     return h + mlp_block(hn2, wc["mlp"], cfg)
 
 
-def _layer(layers: Params, i: int, dt: torch.dtype) -> Params:
-    """Layer ``i`` of a stacked tree as views, fp32 leaves cast to ``dt``."""
-    out = {}
-    for grp, sub in layers.items():
-        out[grp] = {n: (p[i].to(dt) if p.dtype == torch.float32 else p[i])
-                    for n, p in sub.items()}
-    return out
+def transformer_block(x: torch.Tensor, w: Params, cfg: TransformerConfig,
+                      freqs: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decoder block of the training forward over the whole sequence:
+    the counterpart of ``transformer_block`` (:526) and ``attention_block``
+    (:413, without the fpdt tier), causal flash attention with the layer's
+    window. ``w`` holds one layer's weights in the compute dtype."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+    def attend(q, k, v):
+        return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+
+    return _decode_block(x, w, cfg, freqs, None, attend)
+
+
+def lm_loss(cfg: TransformerConfig, logits: torch.Tensor,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token / labeled cross-entropy with masking and optional z-loss,
+    in fp32 (the reference's ``lm_loss`` :568)."""
+    ids = batch["input_ids"]
+    if "labels" in batch:
+        labels = batch["labels"]
+        lmask = labels >= 0
+        labels = labels.clamp_min(0)
+        lg = logits
+    else:                                           # next-token LM loss
+        labels, lg = ids[:, 1:], logits[:, :-1]
+        lmask = (batch["attention_mask"][:, 1:].bool()
+                 if "attention_mask" in batch
+                 else torch.ones_like(labels, dtype=torch.bool))
+    lg = lg.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if cfg.z_loss > 0.0:
+        nll = nll + cfg.z_loss * logz.square()
+    denom = lmask.sum().clamp_min(1)
+    return torch.where(lmask, nll, 0.0).sum() / denom
+
+
+def _unstack(layers: Params, dt: torch.dtype) -> Dict[str, Dict[str, tuple]]:
+    """Every stacked leaf cast to ``dt`` once (fp32 masters; the cast's
+    backward returns fp32 gradients) and split into its per-layer views
+    with ``unbind``, whose backward stacks the layers' gradients into one
+    tensor (indexing ``p[i]`` per layer would allocate a full-size gradient
+    per layer)."""
+    return {grp: {n: (p.to(dt) if p.dtype == torch.float32 else p).unbind(0)
+                  for n, p in sub.items()}
+            for grp, sub in layers.items()}
+
+
+def _layer(layers: Dict[str, Dict[str, tuple]], i: int) -> Params:
+    """Layer ``i``'s weights from :func:`_unstack`'s views."""
+    return {grp: {n: ts[i] for n, ts in sub.items()}
+            for grp, sub in layers.items()}
 
 
 class TransformerLM:
@@ -422,29 +477,47 @@ class TransformerLM:
             for i in range(lo, hi):
                 yield i, cseg
 
-    # ---- plain full-sequence forward --------------------------------------
-    def logits(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-        """[B, T] ids -> [B, T, V] logits: the reference's ``logits`` without
-        random-LTD, layer drop or remat (the parity oracle of the serving
-        paths)."""
+    # ---- full-sequence forward and the training loss ---------------------
+    def hidden_states(self, params: Params,
+                      input_ids: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states [B, T, D] (the reference's
+        ``hidden_states`` :745, dense path): each layer runs under the
+        ``remat_policy``'s activation checkpointing, with its window
+        segment's config."""
+        from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+            checkpoint_wrapper)
+
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, T = input_ids.shape
         pos = torch.arange(T, device=input_ids.device)[None].expand(B, T)
-        from deepspeed_tpu_torch.ops.flash_attention import flash_attention
-
         x = self._embed(params, input_ids, pos)
         freqs = self.freqs(input_ids.device)
+        layers = _unstack(params["layers"], dt)
+        block = checkpoint_wrapper(transformer_block, cfg.remat_policy)
         for i, cseg in self._layers():
-            wc = _layer(params["layers"], i, dt)
-            w = cseg.sliding_window
+            x = block(x, _layer(layers, i), cseg, freqs)
+        return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
-            def attend(q, k, v, _w=w):
-                return flash_attention(q, k, v, causal=True, window=_w)
+    def logits(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+        """[B, T] ids -> [B, T, V] logits (the parity oracle of the serving
+        paths)."""
+        return self._head_proj(params, self.hidden_states(params, input_ids))
 
-            x = _decode_block(x, wc, cseg, freqs, pos, attend)
-        x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-        return self._head_proj(params, x)
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                rng=None) -> torch.Tensor:
+        """Scalar training loss of one micro-batch (the reference's
+        ``loss_fn`` :914, untiled): ``batch`` holds ``input_ids`` [B, T] and
+        optionally ``labels`` / ``attention_mask``."""
+        cfg = self.cfg
+        if "ltd_seed" in batch or "pld_theta" in batch:
+            raise NotImplementedError("random-LTD and progressive layer drop "
+                                      "are not ported yet")
+        if cfg.loss_tiling > 1:
+            raise NotImplementedError("loss_tiling > 1 (the tiled logits "
+                                      "loss) is not ported yet")
+        logits = self.logits(params, batch["input_ids"])
+        return lm_loss(cfg, logits, batch)
 
     # ---- paged serving path ----------------------------------------------
     def init_paged_kv_cache(self, num_blocks: int, block_size: int = 128,
@@ -480,8 +553,9 @@ class TransformerLM:
         K, hd = cfg.num_kv_heads, cfg.head_dim
         kr = torch.empty(cfg.num_layers, B, T, K, hd, dtype=dt, device=dev)
         vr = torch.empty_like(kr)
+        layers = _unstack(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(params["layers"], i, dt)
+            wc = _layer(layers, i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 kr[_i], vr[_i] = k, v
@@ -535,8 +609,9 @@ class TransformerLM:
         krows = torch.empty(cfg.num_layers, N, K, hd, dtype=dt,
                             device=token_ids.device)
         vrows = torch.empty_like(krows)
+        layers = _unstack(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(params["layers"], i, dt)
+            wc = _layer(layers, i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 q2, k2, v2 = q[:, 0], k[:, 0], v[:, 0]           # [N, H|K, d]
@@ -597,8 +672,9 @@ class TransformerLM:
         S_tail = tail["k"].shape[2]
         col = torch.arange(S_tail, device=toks.device)
         tk, tv = tail["k"], tail["v"]
+        layers = _unstack(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(params["layers"], i, dt)
+            wc = _layer(layers, i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 q2, k2, v2 = q[:, 0], k[:, 0], v[:, 0]           # [B, H|K, d]

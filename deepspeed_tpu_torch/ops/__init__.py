@@ -1,4 +1,4 @@
-"""Attention ops of the serving path, each a hand-written Hopper kernel with a
+"""Attention ops of the ported paths, each a hand-written Hopper kernel with a
 plain PyTorch version beside it (counterpart of ``deepspeed_tpu/ops``).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA

@@ -9,7 +9,7 @@ named by a hash of the sources and flags so an edited source rebuilds.
 ``ctypes`` and ``subprocess`` are imported lazily: importing this module on a
 CPU-only machine does nothing.
 
-Every kernel of the serving path has a :class:`Kernel` record in
+Every kernel of the ported paths has a :class:`Kernel` record in
 :data:`KERNELS`. :meth:`Kernel.launch` is the one place a kernel is launched:
 it calls the launcher, raises on a non-zero return code and adds one to
 ``launches``.
@@ -28,7 +28,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
-            "flash_attention": "flash_attention.cu"}
+            "flash_attention": "flash_attention.cu",
+            "flash_backward": "flash_backward.cu"}
 _HEADERS = ("flash_tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,6 +74,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "deepspeed_tpu/ops/paged_attention.py:891"),
     Kernel("flash_fwd", "flash_attention",
            "deepspeed_tpu/ops/flash_attention.py:66"),
+    Kernel("flash_bwd_dq", "flash_backward",
+           "deepspeed_tpu/ops/flash_attention.py:173"),
+    Kernel("flash_bwd_dkv", "flash_backward",
+           "deepspeed_tpu/ops/flash_attention.py:208"),
 )}
 
 
@@ -184,6 +189,16 @@ def _declare(lib, name: str) -> None:
             # q k v out lse B T S H K hd causal window rel scale stream
             "dst_flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
                               P],
+        },
+        "flash_backward": {
+            # q k v dout lse delta dq B T S H K hd causal window rel scale
+            # stream
+            "dst_flash_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                 I, F, P],
+            # q k v dout lse delta dk dv B T S H K hd causal window rel
+            # scale stream
+            "dst_flash_bwd_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                  I, I, I, F, P],
         },
     }[name]
     for fn, args in sigs.items():

@@ -63,6 +63,13 @@ def profile_phase(name, fn, steps_per_call: int, top: int = 12) -> None:
         print(f"[{name}]   {us / 1e3 / steps_per_call:8.3f} ms/step "
               f"{count / steps_per_call:7.1f} calls/step  {key[:90]}",
               flush=True)
+    return prof
+
+
+def print_card() -> None:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
 
 
 def main(argv=None) -> int:
@@ -97,9 +104,7 @@ def main(argv=None) -> int:
         eng.flush([spare])
 
     profile_phase(f"mixed put B={args.batch}+256", mixed, 1)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print_card()
     return 0
 
 

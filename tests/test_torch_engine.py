@@ -68,8 +68,8 @@ def runs():
     params = _perturbed(jm, seed=11)
     jeng = JaxEngine(jm, params=jax.tree_util.tree_map(jnp.asarray, params),
                      decode_kernel="xla", **ENGINE_KW)
-    teng = InferenceEngineV2(tm, params_from_numpy(params), device="cpu",
-                             **ENGINE_KW)
+    teng = InferenceEngineV2(tm, params_from_numpy(params, device="cpu"),
+                             device="cpu", **ENGINE_KW)
     rng = np.random.default_rng(12)
     prompts = [rng.integers(1, 256, n).astype(np.int32)
                for n in (3, 8, 11, 16, 21)]

@@ -1,7 +1,8 @@
-"""Kernels A-D of the PyTorch port against their plain versions on the card
-(bf16; atol = rtol = 2e-2 on normalised outputs, 1e-2 on m and lse). Every
-test here is marked ``cuda`` and skips without a card. The file imports
-neither JAX nor the JAX package, so it runs on the machine with the card:
+"""Kernels A-F of the PyTorch port against their plain versions on the card
+(bf16; atol = rtol = 2e-2 on normalised outputs, 1e-2 on m and lse; the
+backward's dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs). Every test here is
+marked ``cuda`` and skips without a card. The file imports neither JAX nor
+the JAX package, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -9,6 +10,7 @@ neither JAX nor the JAX package, so it runs on the machine with the card:
 import pytest
 import torch
 
+from chip_smoke import close_tiles      # dq, dk, dv per 64-row tile
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 
@@ -38,6 +40,71 @@ def test_kernel_d_matches_plain_on_card(cuda_device, T, window, rel):
                                            window=window, rel_offset=rel)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,K,d,causal,window,rel", [
+    (2, 1024, 1024, 32, 8, 64, True, None, 0),
+    (1, 333, 333, 32, 8, 128, True, None, 0),
+    (2, 256, 256, 8, 2, 64, True, 64, 0),
+    (1, 128, 192, 8, 8, 128, True, None, 64),
+    (1, 200, 200, 8, 2, 64, True, 50, -20),
+    (2, 100, 130, 4, 1, 128, False, None, 0)])
+def test_kernels_e_f_match_plain_on_card(cuda_device, B, T, S, H, K, d,
+                                         causal, window, rel):
+    """E (dq) and F (dk, dv) at d = 64 and 128, GQA, window, rel_offset
+    (negative: the first rows see nothing and get zeros), ragged T and S,
+    with an lse cotangent folded into delta."""
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    g = torch.Generator(device=cuda_device).manual_seed(T + S + d)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+
+    q, do = rnd(B, T, H, d).bfloat16(), rnd(B, T, H, d).bfloat16()
+    k, v = rnd(B, S, K, d).bfloat16(), rnd(B, S, K, d).bfloat16()
+    kw = dict(causal=causal, window=window, rel_offset=rel)
+    out, lse = tfa.flash_forward(q, k, v, **kw)
+    delta = tfa.flash_delta(out, do, 0.1 * rnd(B, H, T))
+    n = {name: KERNELS[name].launches
+         for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert {name: KERNELS[name].launches - c for name, c in n.items()} == \
+        {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    close_tiles("dq", dq,
+               tfa.plain_flash_bwd_dq(q, k, v, do, lse, delta, **kw))
+    rdk, rdv = tfa.plain_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    close_tiles("dk", dk, rdk)
+    close_tiles("dv", dv, rdv)
+    if rel < 0:
+        assert float(dq[:, :-rel].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card_launches_d_e_f(cuda_device):
+    """Differentiating flash_attention_lse in both outputs goes through
+    kernels D, E and F and agrees with the plain backward."""
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(2, 300, h, 64, generator=g, device=cuda_device)
+               .bfloat16().requires_grad_() for h in (16, 4, 4))
+    w = torch.randn(2, 300, 16, 64, generator=g,
+                    device=cuda_device).bfloat16()
+    u = torch.randn(2, 16, 300, generator=g, device=cuda_device)
+    n = {name: KERNELS[name].launches
+         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out, lse = tfa.flash_attention_lse(q, k, v, causal=True)
+    ((out.float() * w).sum() + (lse * u).sum()).backward()
+    torch.cuda.synchronize()
+    assert all(KERNELS[name].launches == c + 1 for name, c in n.items())
+    want = tfa.plain_flash_backward(q.detach(), k.detach(), v.detach(),
+                                    out.detach(), lse.detach(), w, u)
+    for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
+        close_tiles(f"d{name}", got, ref)
 
 
 def _card_pools(dev, nbp1=65, bs=128, lanes=8 * 128):
@@ -174,5 +241,44 @@ def test_engine_on_card_matches_plain_cpu_engine(cuda_device, window):
                     f"uid {uid} step {s}: tokens differ with a CPU top-2 gap "
                     f"of {hi - lo:.3e}")
                 break
-    assert all(k.launches > 0 for k in KERNELS.values()), \
+    serving = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
+    assert all(KERNELS[n].launches > 0 for n in serving), \
         {n: k.launches for n, k in KERNELS.items()}
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_the_cpu_engine(cuda_device):
+    """Two ``train_batch`` steps of the same engine on the card (attention
+    through kernels D, E and F) and on the CPU (plain versions), bf16
+    compute from the same fp32 weights: losses within 2e-2 and grad norms
+    within 5e-2 relative (bf16 rounding in different places), and each
+    kernel launched."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+    from deepspeed_tpu_torch.ops._build import KERNELS, reset_counts
+
+    model = TransformerLM(get_preset("tiny", hidden_size=256, num_heads=4,
+                                     num_kv_heads=2, max_seq_len=256))
+    params = model.init(seed=0, device="cpu")
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+              "gradient_clipping": 1.0, "steps_per_print": 100}
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 256, (2, 200)).astype(np.int32)}
+               for _ in range(4)]
+    reset_counts()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = tds.initialize(model, dict(config), model_parameters=params,
+                             device=dev)[0]
+        it = iter(batches)
+        runs[dev] = [(eng.train_batch(it), eng.get_global_grad_norm())
+                     for _ in range(2)]
+    (cl, cn), (gl, gn) = (np.array(runs[d]).T for d in ("cpu", "cuda"))
+    np.testing.assert_allclose(gl, cl, rtol=2e-2)
+    np.testing.assert_allclose(gn, cn, rtol=5e-2)
+    assert all(KERNELS[n].launches > 0
+               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))

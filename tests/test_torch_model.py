@@ -151,7 +151,8 @@ def test_full_logits_match(name):
     ids = np.random.default_rng(7).integers(0, 256, (2, 40)).astype(np.int32)
     want = jm.logits(jax.tree_util.tree_map(jnp.asarray, params),
                      jnp.asarray(ids))
-    got = tm.logits(params_from_numpy(params), torch.from_numpy(ids))
+    got = tm.logits(params_from_numpy(params, device="cpu"),
+                    torch.from_numpy(ids))
     assert got.shape == (2, 40, 256)
     _close(got, want)
 

@@ -1,7 +1,10 @@
 """``chip_smoke.py`` on a machine without a card, the sensitivity of its
 cross-path check (chunked vs whole-prompt prefill logits, relative L2 gate
-``CROSS_PATH_REL_L2``), measured on the CPU with a tiny bf16 model, and its
-serve-phase ``Replay`` driven through a tiny CPU engine."""
+``CROSS_PATH_REL_L2``), measured on the CPU with a tiny bf16 model, its
+serve-phase ``Replay`` driven through a tiny CPU engine, and its train
+phase's ``TrainReplay`` and gradient cross-check (``GRAD_REL_L2``) driven
+through a tiny CPU training engine, and its per-tile gate of the
+backward kernels (``close_tiles``)."""
 
 import functools
 import os
@@ -110,10 +113,10 @@ def tiny_engine():
 
 def test_replay_captures_each_stage_and_restores_the_wrappers(tiny_engine):
     originals = (tpa.decode_pool_partials, tpa.past_partials,
-                 tpa.self_attention, tfa.flash_attention_lse)
+                 tpa.self_attention, tfa.flash_forward)
     replay = _replay_run(tiny_engine)
     assert (tpa.decode_pool_partials, tpa.past_partials, tpa.self_attention,
-            tfa.flash_attention_lse) == originals
+            tfa.flash_forward) == originals
     assert set(replay.captured) == chip_smoke.Replay.REQUIRED
     x, _ = replay.captured[("paged_decode", "decode_batch")]
     assert bool((x["row_pos"] != x["atom_pos0"]).any())
@@ -139,3 +142,107 @@ def test_replay_sees_a_faulty_decode_loop_launch(tiny_engine, monkeypatch):
     replay = _replay_run(tiny_engine)
     with pytest.raises(AssertionError, match="paged_decode .decode_batch."):
         replay.check()
+
+
+@pytest.fixture
+def tiny_trainer():
+    import deepspeed_tpu_torch as tds
+
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    model = TransformerLM(get_preset("tiny", num_kv_heads=2))
+    cfg = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2)
+    return tds.initialize(model, cfg, device="cpu")[0]
+
+
+def _train_batch(seed=0):
+    ids = np.random.default_rng(seed).integers(0, 256, (2, 64))
+    return {"input_ids": ids.astype(np.int32)}
+
+
+def test_train_replay_captures_d_e_f_and_restores_the_wrappers(tiny_trainer):
+    originals = (tfa.flash_forward, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    with chip_smoke.TrainReplay(torch, tfa) as replay:
+        replay.stage = "train"
+        tiny_trainer.train_batch(iter([_train_batch()] * 2))
+    assert (tfa.flash_forward, tfa.flash_bwd_dq, tfa.flash_bwd_dkv) == \
+        originals
+    assert set(replay.captured) == chip_smoke.TrainReplay.REQUIRED
+    errs = replay.check()
+    assert max(errs.values()) == 0.0          # plain against plain on CPU
+
+
+def test_train_replay_sees_a_faulty_backward_launch(tiny_trainer,
+                                                    monkeypatch):
+    real = tfa.flash_bwd_dkv
+
+    @functools.wraps(real)
+    def faulty(*args, **kw):
+        dk, dv = real(*args, **kw)
+        return dk, dv * 1.05
+
+    monkeypatch.setattr(tfa, "flash_bwd_dkv", faulty)
+    with chip_smoke.TrainReplay(torch, tfa) as replay:
+        replay.stage = "train"
+        tiny_trainer.train_batch(iter([_train_batch()] * 2))
+    with pytest.raises(AssertionError, match="flash_bwd_dkv .train. dv"):
+        replay.check()
+
+
+@pytest.mark.parametrize("fault", [None, "dq", "dkv"])
+def test_gradient_cross_check_sees_a_faulty_backward(fault, monkeypatch):
+    """The per-leaf gradient gate (rel L2 <= GRAD_REL_L2) passes the plain
+    path against itself and fails when E's or F's output is off by 5%."""
+    model = TransformerLM(get_preset("tiny", num_kv_heads=2,
+                                     dtype="float32"))
+    params = model.init(seed=0, device="cpu")
+    if fault == "dq":
+        real = tfa.flash_bwd_dq
+        monkeypatch.setattr(tfa, "flash_bwd_dq",
+                            lambda *a, **kw: real(*a, **kw) * 1.05)
+    elif fault == "dkv":
+        real = tfa.flash_bwd_dkv
+        monkeypatch.setattr(tfa, "flash_bwd_dkv", lambda *a, **kw: tuple(
+            t * 1.05 for t in real(*a, **kw)))
+    batch = {k: torch.from_numpy(v) for k, v in _train_batch(1).items()}
+    rel = chip_smoke.grad_rel_l2(torch, tfa, model, params, batch)
+    if fault is None:
+        assert max(rel.values()) == 0.0
+    else:
+        worst = max(rel[n] for n in (("wq",) if fault == "dq"
+                                     else ("wk", "wv")))
+        assert worst > 2 * chip_smoke.GRAD_REL_L2
+
+
+def _causal_grads(T=1024, H=4, K=2, d=64, seed=0):
+    """Plain fp32 (dq, dk, dv) of a causal GQA attention on seeded inputs."""
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((1, T, H, d))
+                              .astype(np.float32)) for _ in "qo")
+    k, v = (torch.from_numpy(rng.standard_normal((1, T, K, d))
+                             .astype(np.float32)) for _ in "kv")
+    out, lse = tfa.plain_flash_forward(q, k, v, causal=True)
+    return tfa.plain_flash_backward(q, k, v, out, lse, do, causal=True)
+
+
+def test_tile_gate_passes_bf16_rounding():
+    """Each gradient rounded to bf16 (what the kernels' output rounding
+    does) passes every tile with room to spare."""
+    for name, g in zip(("dq", "dk", "dv"), _causal_grads()):
+        err, scale, worst = chip_smoke.close_tiles(
+            name, g.bfloat16(), g)
+        assert 0 < err and worst < chip_smoke.BWD_REL / 4, (name, worst)
+
+
+@pytest.mark.parametrize("grad", [0, 1, 2])
+def test_tile_gate_sees_a_late_tile_fault_a_tensor_wide_gate_misses(grad):
+    """Causal gradients shrink along the sequence: 10% off in the last
+    quarter of the rows stays under 2e-2 x the tensor's max |plain| but
+    fails the per-tile gate."""
+    want = _causal_grads()[grad]
+    got = want.clone()
+    got[:, 3 * want.shape[1] // 4:] *= 1.1
+    assert float((got - want).abs().max()) <= \
+        chip_smoke.BWD_REL * float(want.abs().max())
+    with pytest.raises(AssertionError, match="tiles over the gate"):
+        chip_smoke.close_tiles("late", got, want)
