@@ -13,7 +13,13 @@ Phases, in order (any failure raises and the script exits non-zero):
               against its plain PyTorch version (atol = rtol = 2e-2 on
               normalised outputs, 1e-2 on m / lse) and timed: the kernel
               alone (its launcher on arguments prepared once), the whole
-              wrapper, its plain version, its bound and, for D, SDPA;
+              wrapper, its plain version, its bound and, for D, SDPA; the
+              int8 and int4 modes of A and B on the same atoms over the
+              pools quantized by ``packed_kv_append_quant``; G on the
+              llama3-8b head (B=6, D=4096, F=128256) and H on w_gateup of a
+              4-layer stack at layer 2 (D=4096, F=28672, B=6 and B=256),
+              int4 and int8, beside cuBLAS on the dense bf16 weight (H's
+              launches cycle over the stack's layers, each larger than L2);
               then the training shapes: D, and the backward kernels E (dq)
               and F (dk, dv) at Llama-3.2-1B's B=4 T=2048 H=32 K=8 d=64
               (causal) and at d=128 (B=1), dq/dk/dv held per 64-row tile
@@ -51,6 +57,20 @@ Phases, in order (any failure raises and the script exits non-zero):
               ``deepspeed_tpu_torch/tools/train_profile.py``, which
               profiles the same step.
 
+6. serve-quant -- ``InferenceEngineV2`` on ``llama3-8b`` at full width
+              and depth from phase 4's weights, twice, each engine freed
+              after: Q1 ``weight_dtype="int4", kv_dtype="int8"`` and Q2
+              ``weight_dtype="int8", kv_dtype="int4"``, on phase 4's traffic.
+              G, H and the pool's A/B int modes must launch; the first
+              launch of each in the whole-prompt ``put``, the mixed ``put``
+              and ``decode_batch`` is replayed through its plain version.
+              Prints the tokens/s, the served tree's bytes against bf16,
+              peak memory, and (no gate) the whole-prompt logits' rel L2
+              against phase 4's. Then the weight cross-check at 2 layers of
+              the same width: int8 and int4 weights through G/H against an
+              engine served the dense bf16 weights they dequantize to,
+              last-token logits rel L2 <= 2e-2.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -77,6 +97,7 @@ BWD_REL = 2e-2                 # dq/dk/dv, per tile: max abs err / max |plain|
 TILE = 64                      # rows of a kernel tile
 CROSS_PATH_REL_L2 = 2e-2       # chunked vs whole-prompt last-token logits
 GRAD_REL_L2 = 2e-2             # per-leaf grads, kernels vs plain attention
+WEIGHT_REL_L2 = 2e-2           # G/H logits vs dense dequantized weights
 SERVE_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -286,12 +307,182 @@ def kernel_checks(torch, pa, fa, KERNELS):
                   lambda: fa.flash_attention_lse(qd, kd, vd, causal=True),
                   lambda: fa.plain_flash_forward(qd, kd, vd, causal=True)),
         shape="B=4 T=S=1024 H=32 K=8 d=128, causal")
+    rows.update(quant_pool_checks(
+        torch, pa, KERNELS, kpool, vpool, layer, bt,
+        decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq)))
     torch.cuda.synchronize()
     for name, r in rows.items():
         log(f"kernel {name}: max_abs_err {r['err']:.3e}, kernel "
             f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}, library {r['library_ms']}) [{r['shape']}]")
+    return rows
+
+
+def quantize_pool(torch, pa, pool_k, pool_v, bits):
+    """The bf16 pools' rows written through ``packed_kv_append_quant`` into
+    int8 / int4 pools (every physical row, scratch block included), with
+    their per-token scales."""
+    L, nbp1, bs, KD = pool_k.shape
+    dev = pool_k.device
+    lanes = KD // 2 if bits == 4 else KD
+    out = [torch.zeros(L, nbp1, bs, lanes, dtype=torch.int8, device=dev)
+           for _ in "kv"]
+    scale = torch.zeros(L, nbp1, 1, 2 * bs, device=dev)
+    bt_all = torch.arange(nbp1, dtype=torch.int32, device=dev)[None]
+    slot = torch.zeros(nbp1 * bs, dtype=torch.int32, device=dev)
+    pos = torch.arange(nbp1 * bs, dtype=torch.int32, device=dev)
+    for which, (src, dst) in enumerate(zip((pool_k, pool_v), out)):
+        pa.packed_kv_append_quant(dst, scale, src.reshape(L, nbp1 * bs, KD),
+                                  bt_all, slot, pos, which, bits=bits)
+    return out[0], out[1], scale
+
+
+def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
+                      past):
+    """The int8 / int4 modes of A and B on the bf16 checks' atoms, over the
+    same pools quantized by the port's append."""
+    rows = {}
+    q, slot, pos0 = decode
+    qb, slotb, pos0b, tq = past
+    H, d = q.shape[1:]
+    KD = kpool.shape[3]
+    for bits in (8, 4):
+        kq, vq, sc = quantize_pool(torch, pa, kpool, vpool, bits)
+        kw = dict(kv_scale=sc, kv_bits=bits)
+        name = pa.kernel_name("paged_decode", sc, bits)
+        acc, m, l = pa.decode_pool_partials(q, kq, vq, layer, bt, slot, pos0,
+                                            **kw)
+        pacc, pm, pl = pa.plain_decode_partials(q, kq, vq, layer, bt, slot,
+                                                pos0, **kw)
+        live = pos0 > 0
+        err = close(f"{name} out", normalised(acc, l)[live],
+                    normalised(pacc, pl)[live], ATOL, RTOL)
+        close(f"{name} m", m[live], pm[live], STAT_TOL, STAT_TOL)
+        if not (torch.all(l[~live] == 0) and torch.all(acc[~live] == 0)):
+            raise AssertionError(f"{name}: atoms with pos0 == 0 must give "
+                                 f"l = acc = 0")
+        cols = int(pos0.sum())
+        pool_bytes = cols * (KD * bits // 8 + 4) * 2      # rows + scales
+        nbytes = pool_bytes + q.numel() * 2 + acc.numel() * 4 \
+            + 2 * m.numel() * 4
+        args, _ = pa.decode_kernel_args(q, kq, vq, layer, bt, slot, pos0, **kw)
+        rows[name] = dict(
+            err=err, bound=bound(nbytes, 4 * H * d * cols), library_ms=None,
+            **timings(KERNELS[name], args,
+                      lambda: pa.decode_pool_partials(q, kq, vq, layer, bt,
+                                                      slot, pos0, **kw),
+                      lambda: pa.plain_decode_partials(q, kq, vq, layer, bt,
+                                                       slot, pos0, **kw)),
+            shape=f"int{bits} pool, the bf16 A atoms")
+
+        name = pa.kernel_name("paged_past", sc, bits)
+        accb, mb, lb = pa.past_partials(qb, kq, vq, layer, bt, slotb, pos0b,
+                                        tq, **kw)
+        paccb, pmb, plb = pa.plain_past_partials(qb, kq, vq, layer, bt,
+                                                 slotb, pos0b, tq, **kw)
+        err = close(f"{name} out", normalised(accb, lb),
+                    normalised(paccb, plb), ATOL, RTOL)
+        close(f"{name} m", mb, pmb, STAT_TOL, STAT_TOL)
+        cols = int(pos0b.sum())
+        nbytes = (cols * (KD * bits // 8 + 4) * 2 + qb.numel() * 2
+                  + accb.numel() * 4 + 2 * mb.numel() * 4)
+        args, _ = pa.past_kernel_args(qb, kq, vq, layer, bt, slotb, pos0b,
+                                      tq, **kw)
+        rows[name] = dict(
+            err=err, bound=bound(nbytes, 4 * tq * H * d * cols),
+            library_ms=None,
+            **timings(KERNELS[name], args,
+                      lambda: pa.past_partials(qb, kq, vq, layer, bt, slotb,
+                                               pos0b, tq, **kw),
+                      lambda: pa.plain_past_partials(qb, kq, vq, layer, bt,
+                                                     slotb, pos0b, tq, **kw)),
+            shape=f"int{bits} pool, the bf16 B atoms")
+        del kq, vq, sc
+    return rows
+
+
+def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape):
+    """G (``layer`` None) or H on one product, held against the plain
+    version, and timed beside cuBLAS on the dense bf16 weight. H's launches
+    cycle over the stack's layers: each (58.7 MB int4 for w_gateup) is
+    larger than the 50 MB L2, so every launch reads its weights from HBM,
+    as in serving; G's head is larger than L2 too."""
+    name = "qmm" if layer is None else "qmm_stacked"
+    out = qm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
+    ref = qm.plain_quantized_matmul(x, packed, scales, bits, layer)
+    err = close(f"{name} int{bits} {shape}", out, ref, ATOL, RTOL)
+    B, D = x.shape
+    G, F = scales.shape[-2:]
+    one = (packed, scales) if layer is None else (packed[layer],
+                                                  scales[layer])
+    dense = qm.dequantize_matmul_weight(*one, bits, D)
+    lib = time_ms(lambda: torch.matmul(x, dense))
+    del dense
+    nbytes = B * D * 2 + D * F * bits // 8 + G * F * 2 + B * F * 2
+    kern = KERNELS[name]
+    if layer is None:
+        args, _ = qm.qmm_kernel_args(x, packed, scales, bits)
+        t = timings(kern, args,
+                    lambda: qm.quantized_matmul(x, packed, scales, bits=bits),
+                    lambda: qm.plain_quantized_matmul(x, packed, scales,
+                                                      bits))
+    else:
+        n = packed.shape[0]
+        arg_list = [qm.qmm_kernel_args(x, packed, scales, bits, layer=i)[0]
+                    for i in range(n)]
+        cyc, lay = itertools.cycle(arg_list), itertools.cycle(range(n))
+        t = dict(ms=time_ms(lambda: kern.launch(*next(cyc)), iters=5 * n),
+                 wrapper_ms=time_ms(lambda: qm.quantized_matmul(
+                     x, packed, scales, bits=bits, layer=next(lay)),
+                     iters=5 * n),
+                 plain_ms=time_ms(lambda: qm.plain_quantized_matmul(
+                     x, packed, scales, bits, layer), iters=5))
+    return dict(err=err, bound=bound(nbytes, 2.0 * B * D * F),
+                library_ms=lib, library="torch.matmul (cuBLAS), dense bf16",
+                shape=shape, **t)
+
+
+def qmm_checks(torch, qm, KERNELS):
+    """G on the llama3-8b head (B=6, D=4096, F=128256) and H on w_gateup
+    (D=4096, F=28672) of a 4-layer stack at layer 2, B=6 and B=256, int4
+    and int8, from seeded random weights quantized by the port."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    D, V, FGU = 4096, 128256, 28672
+    xs = {B: torch.randn(B, D, generator=g, device=dev).bfloat16()
+          for B in (6, 256)}
+    rows = {}
+    head = torch.randn(D, V, generator=g, device=dev) / D ** 0.5
+    for bits in (4, 8):
+        p, sc = qm.quantize_matmul_weight(head, bits=bits)
+        rows[f"qmm/int{bits}"] = qmm_row(
+            torch, qm, KERNELS, xs[6], p, sc.bfloat16(), bits, None,
+            f"llama3-8b head: B=6 D={D} F={V}, int{bits}")
+        del p, sc
+    del head
+    for bits in (4, 8):
+        ps, ss = [], []
+        for _ in range(4):
+            w = torch.randn(D, FGU, generator=g, device=dev) / D ** 0.5
+            p, sc = qm.quantize_matmul_weight(w, bits=bits)
+            ps.append(p)
+            ss.append(sc.bfloat16())
+        stack = (torch.stack(ps), torch.stack(ss))
+        del ps, ss, w
+        for B, x in sorted(xs.items()):
+            rows[f"qmm_stacked/int{bits}/B{B}"] = qmm_row(
+                torch, qm, KERNELS, x, *stack, bits, 2,
+                f"w_gateup, layer 2 of 4: B={B} D={D} F={FGU}, int{bits}")
+        del stack
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for name, r in rows.items():
+        log(f"kernel {name}: max_abs_err {r['err']:.3e}, kernel "
+            f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}, library {r['library_ms']:.4f} ms cuBLAS) "
+            f"[{r['shape']}]")
     return rows
 
 
@@ -423,6 +614,7 @@ class Replay:
         self.stage = None
         self.captured = {}
         self.tiles = {}        # backward kernels: close_tiles' readings
+        self.target_of = {}    # captured kernel -> its wrapper's target
         self.targets = self.make_targets(pa, fa)
 
     @staticmethod
@@ -445,15 +637,19 @@ class Replay:
         for mod, attr, _ in self.targets.values():
             setattr(mod, attr, getattr(mod, attr).__wrapped__)
 
-    def _wanted(self, name, x) -> bool:
-        if (name, self.stage) in self.captured:
+    def kernel_of(self, target, x):
+        """The kernel a call of ``target``'s wrapper launched (None: none)."""
+        return target
+
+    def _wanted(self, target, name, x) -> bool:
+        if name is None or (name, self.stage) in self.captured:
             return False
-        if self.stage == "decode_batch":
+        if self.stage == "decode_batch" and target == "paged_decode":
             return (x["row_pos"] is not None
                     and bool((x["row_pos"] != x["atom_pos0"]).any()))
         return True
 
-    def _wrap(self, name, fn):
+    def _wrap(self, target, fn):
         sig = inspect.signature(fn)
         torch = self.torch
 
@@ -467,13 +663,17 @@ class Replay:
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
             x = dict(bound.arguments)
-            if self._wanted(name, x):
-                if "k_pool" in x:
-                    i = x["layer"]
-                    x["k_pool"] = x["k_pool"][i:i + 1]
-                    x["v_pool"] = x["v_pool"][i:i + 1]
+            name = self.kernel_of(target, x)
+            if self._wanted(target, name, x):
+                i = x.get("layer")
+                names = [n for n in ("k_pool", "v_pool", "kv_scale", "packed",
+                                     "scales") if x.get(n) is not None]
+                if i is not None and names:    # keep the one layer read
+                    for n in names:
+                        x[n] = x[n][i:i + 1]
                     x["layer"] = 0
                 outs = out if isinstance(out, tuple) else (out,)
+                self.target_of[name] = target
                 self.captured[(name, self.stage)] = (
                     {k: clone(v) for k, v in x.items()}, clone(outs))
             return out
@@ -488,17 +688,17 @@ class Replay:
                                  f"{sorted(missing)}")
         errs = {}
         for (name, stage), (x, out) in sorted(self.captured.items()):
-            plain = self.targets[name][2]
+            plain = self.targets[self.target_of[name]][2]
             ref = plain(**x)
             tag = f"replay {name} ({stage})"
-            if name in ("paged_decode", "paged_past"):
+            if name.startswith(("paged_decode", "paged_past")):
                 live = ref[2] > 0
                 errs[f"{name}/{stage}"] = close(
                     tag, normalised(out[0], out[2])[live],
                     normalised(ref[0], ref[2])[live], ATOL, RTOL)
                 close(f"{tag} m", out[1][live], ref[1][live], STAT_TOL,
                       STAT_TOL)
-            elif name == "chunk_self":
+            elif name in ("chunk_self", "qmm", "qmm_stacked"):
                 errs[f"{name}/{stage}"] = close(tag, out[0], ref, ATOL, RTOL)
             elif name in ("flash_bwd_dq", "flash_bwd_dkv"):
                 grads = ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
@@ -513,6 +713,41 @@ class Replay:
                                                 RTOL)
                 close(f"{tag} lse", out[1], ref[1], STAT_TOL, STAT_TOL)
         return errs
+
+
+class QuantReplay(Replay):
+    """The serve-quant phase's :class:`Replay` of the new kernels: G/H
+    (``quantized_matmul``, a call that the shape rule sends to them) and
+    the int modes of A/B. Stages ``put`` (whole prompts), ``mixed`` and
+    ``decode_batch``; ``kv_bits`` names the pool's A/B kernels."""
+
+    def __init__(self, torch, pa, qm, kv_bits: int):
+        self.qm = qm
+        super().__init__(torch, pa, qm)
+        dec, past = (f"paged_decode_int{kv_bits}", f"paged_past_int{kv_bits}")
+        self.REQUIRED = {("qmm", "put"), ("qmm", "mixed"),
+                         ("qmm_stacked", "mixed"), (dec, "mixed"),
+                         (past, "mixed"), ("qmm", "decode_batch"),
+                         ("qmm_stacked", "decode_batch"),
+                         (dec, "decode_batch")}
+
+    @staticmethod
+    def make_targets(pa, qm):
+        return {
+            "paged_decode": (pa, "decode_pool_partials",
+                             pa.plain_decode_partials),
+            "paged_past": (pa, "past_partials", pa.plain_past_partials),
+            "qmm": (qm, "quantized_matmul", qm.plain_quantized_matmul),
+        }
+
+    def kernel_of(self, target, x):
+        if target == "qmm":
+            if not self.qm.uses_kernel(x["x"], x["scales"]):
+                return None
+            return "qmm" if x["layer"] is None else "qmm_stacked"
+        if x["kv_scale"] is None:
+            return None
+        return f"{target}_int{x['kv_bits']}"
 
 
 class TrainReplay(Replay):
@@ -548,6 +783,25 @@ def attention_heavy(params) -> None:
     params["layers"]["mlp"]["w_down"].mul_(0.125)
 
 
+def serve_prompts(V):
+    """The serve phases' prompts (numpy seed 0): four whole prompts of 37,
+    128, 129 and 700 tokens, then two fresh ones of 300 and 1100."""
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(1, V, n).astype(np.int32)
+
+    return [prompt(n) for n in (37, 128, 129, 700)], [prompt(300),
+                                                      prompt(1100)]
+
+
+def check_logits(out, V):
+    for uid, lg in out.items():
+        if not np.all(np.isfinite(lg)) or lg.shape != (V,):
+            raise AssertionError(f"uid {uid}: logits not finite / shape "
+                                 f"{lg.shape}")
+
+
 def serve(torch, pa, fa, KERNELS, reset_counts):
     from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
 
@@ -568,20 +822,12 @@ def serve(torch, pa, fa, KERNELS, reset_counts):
         f"H={cfg.num_heads}/{cfg.num_kv_heads} F={cfg.intermediate_size} "
         f"V={cfg.vocab_size}: {n_params / 1e9:.3f}B params, KV pool "
         f"{pool_gb:.2f} GB, built in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
     V = cfg.vocab_size
 
-    def prompt(n):
-        return rng.integers(1, V, n).astype(np.int32)
-
     def finite(out):
-        for uid, lg in out.items():
-            if not np.all(np.isfinite(lg)) or lg.shape != (V,):
-                raise AssertionError(f"uid {uid}: logits not finite / shape "
-                                     f"{lg.shape}")
+        check_logits(out, V)
 
-    firsts = [prompt(n) for n in (37, 128, 129, 700)]
-    fresh = [prompt(300), prompt(1100)]
+    firsts, fresh = serve_prompts(V)
     torch.cuda.synchronize()
     reset_counts()
     with Replay(torch, pa, fa) as replay:
@@ -636,7 +882,196 @@ def serve(torch, pa, fa, KERNELS, reset_counts):
         f"{6 * 32 / dt_decode:.1f} tokens/s (6 x 32, {dt_decode * 1e3:.1f} "
         f"ms)")
     eng.flush(list(range(7)))
-    return counts
+    return counts, out1
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve Llama-3-8B with int8/int4 weights and an int8/int4 KV pool
+# ---------------------------------------------------------------------------
+
+QUANT_ENGINES = (("Q1", "int4", "int8"), ("Q2", "int8", "int4"))
+QUANT_KERNELS = ("qmm", "qmm_stacked", "paged_decode_int8",
+                 "paged_decode_int4", "paged_past_int8", "paged_past_int4")
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a parameter tree (tensors and QuantizedWeights)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def serve_params(torch, cfg):
+    """Phase 4's weights: seed-0 random bf16 on the card, rescaled by
+    :func:`attention_heavy`."""
+    from deepspeed_tpu_torch import TransformerLM
+
+    params = TransformerLM(cfg).init(seed=0, device="cuda")
+    attention_heavy(params)
+    return params
+
+
+def dequantized_tree(torch, qm, params):
+    """A quantized serving tree with every QuantizedWeight expanded to the
+    dense bf16 weight it stands for (``dequantize_matmul_weight``, per
+    layer), held in the scales' (compute) dtype; the head becomes an untied
+    ``lm_head``."""
+    from deepspeed_tpu_torch.models.transformer import QuantizedWeight
+
+    def dense(qw):
+        ps, ss = ((qw.packed, qw.scales) if qw.packed.ndim == 2
+                  else (qw.packed.unbind(0), qw.scales.unbind(0)))
+        if qw.packed.ndim == 2:
+            w = qm.dequantize_matmul_weight(ps, ss, qw.bits, qw.din)
+        else:
+            w = torch.stack([qm.dequantize_matmul_weight(p, sc, qw.bits,
+                                                         qw.din)
+                             for p, sc in zip(ps, ss)])
+        return w.to(qw.scales.dtype)
+
+    layers = {grp: {n: dense(w) if isinstance(w, QuantizedWeight) else w
+                    for n, w in sub.items()}
+              for grp, sub in params["layers"].items()}
+    out = {k: v for k, v in params.items() if k not in ("layers",
+                                                         "lm_head_q")}
+    out["layers"] = layers
+    out["lm_head"] = dense(params["lm_head_q"])
+    return out
+
+
+def weight_cross_check(torch, qm, KERNELS):
+    """int8 and int4 weights through G/H against an engine served the dense
+    bf16 weights they dequantize to, at 2 layers of llama3-8b's width
+    (seed-0 weights at the reference init scale): the last-token logits of
+    a whole-prompt ``put`` (2 prompts, 256 rows: H takes every layer
+    product, G the head), rel L2 <= WEIGHT_REL_L2."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+
+    cfg = dataclasses.replace(get_preset("llama3-8b", param_dtype="bfloat16"),
+                              num_layers=2)
+    kw = dict(max_sequences=4, max_seq_len=512, block_size=128,
+              device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (100, 60)]
+    rel = {}
+    for bits in (8, 4):
+        params = TransformerLM(cfg).init(seed=0, device="cuda")
+        eng = InferenceEngineV2(TransformerLM(cfg), params,
+                                weight_dtype=f"int{bits}", **kw)
+        del params
+        n = {k: KERNELS[k].launches for k in ("qmm", "qmm_stacked")}
+        got = eng.put([0, 1], prompts)
+        if any(KERNELS[k].launches == c for k, c in n.items()):
+            raise AssertionError("weight cross-check: G/H did not launch")
+        ref_eng = InferenceEngineV2(
+            TransformerLM(dataclasses.replace(cfg, tie_embeddings=False)),
+            dequantized_tree(torch, qm, eng.params), **kw)
+        want = ref_eng.put([0, 1], prompts)
+        rel[f"int{bits}"] = max(
+            float(np.linalg.norm(got[u] - want[u]) / np.linalg.norm(want[u]))
+            for u in (0, 1))
+        del eng, ref_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"serve-quant: weight cross-check at 2 layers, G/H vs dense bf16 "
+        f"dequantized weights, last-token logits rel L2 {rel} (gate "
+        f"{WEIGHT_REL_L2})")
+    bad = {k: r for k, r in rel.items() if not r <= WEIGHT_REL_L2}
+    if bad:
+        raise AssertionError(f"weight cross-check: rel L2 {bad} > "
+                             f"{WEIGHT_REL_L2}")
+    return rel
+
+
+def serve_quant(torch, pa, qm, KERNELS, reset_counts, bf16_logits):
+    """``InferenceEngineV2`` on llama3-8b at full width and depth from phase
+    4's weights, Q1 (int4 weights, int8 pool) then Q2 (int8 weights, int4
+    pool), each on phase 4's traffic under a :class:`QuantReplay`, then
+    freed; then the weight cross-check. Returns launches per kernel, summed
+    over the two engines."""
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+
+    cfg = get_preset("llama3-8b", param_dtype="bfloat16")
+    V = cfg.vocab_size
+    firsts, fresh = serve_prompts(V)
+    name = torch.cuda.get_device_name(0)
+    total = dict.fromkeys(QUANT_KERNELS, 0)
+    for tag, wd, kd in QUANT_ENGINES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = serve_params(torch, cfg)
+        dense_bytes = tree_bytes(params)
+        eng = InferenceEngineV2(TransformerLM(cfg), params, max_sequences=8,
+                                max_seq_len=2048, block_size=128,
+                                device="cuda", weight_dtype=wd, kv_dtype=kd)
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        q_bytes = tree_bytes(eng.params)
+        pool_gb = sum(t.numel() * t.element_size()
+                      for t in eng.cache.values()) / 1e9
+        log(f"serve-quant {tag}: weight_dtype={wd} kv_dtype={kd}: served "
+            f"tree {q_bytes / 1e9:.3f} GB against {dense_bytes / 1e9:.3f} GB "
+            f"bf16 ({q_bytes / dense_bytes:.4f}), KV pool {pool_gb:.3f} GB, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        bits = int(kd[-1])
+        reset_counts()
+        with QuantReplay(torch, pa, qm, bits) as replay:
+            replay.stage = "put"
+            t = time.perf_counter()
+            out1 = eng.put([0, 1, 2, 3], firsts)
+            dt_prefill = time.perf_counter() - t
+            check_logits(out1, V)
+            nxt = [int(np.argmax(out1[u])) for u in range(4)]
+            replay.stage = "mixed"
+            t = time.perf_counter()
+            out2 = eng.put([0, 1, 2, 3, 4, 5],
+                           [np.array([x], np.int32) for x in nxt] + fresh)
+            dt_mixed = time.perf_counter() - t
+            check_logits(out2, V)
+            nxt = [int(np.argmax(out2[u])) for u in range(6)]
+            replay.stage = "decode_batch"
+            t = time.perf_counter()
+            toks = eng.decode_batch(list(range(6)), nxt, steps=32)
+            dt_decode = time.perf_counter() - t
+        counts = {k: KERNELS[k].launches for k in QUANT_KERNELS}
+        for u, tk in toks.items():
+            if tk.shape != (32,) or tk.min() < 0 or tk.max() >= V:
+                raise AssertionError(f"{tag} uid {u}: bad decoded tokens {tk}")
+        want = {"qmm", "qmm_stacked", f"paged_decode_{kd}",
+                f"paged_past_{kd}"}
+        missing = [k for k in want if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"serve-quant {tag}: kernels never launched: "
+                                 f"{missing} (counts {counts})")
+        errs = replay.check()
+        rel = {u: float(np.linalg.norm(out1[u] - bf16_logits[u])
+                        / np.linalg.norm(bf16_logits[u])) for u in range(4)}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_prefill = sum(len(p) for p in firsts)
+        n_mixed = 4 + sum(len(p) for p in fresh)
+        log(f"serve-quant {tag}: launches {counts}; captured launches "
+            f"replayed vs plain, max abs err {errs}")
+        log(f"serve-quant {tag}: whole-prompt last-token logits vs phase "
+            f"4's bf16 engine, rel L2 {rel} (no gate: quantization error)")
+        log(f"serve-quant {tag} [{name}]: whole-prompt prefill "
+            f"{n_prefill / dt_prefill:.1f} tokens/s ({dt_prefill * 1e3:.1f} "
+            f"ms), mixed chunked step {n_mixed / dt_mixed:.1f} tokens/s "
+            f"({dt_mixed * 1e3:.1f} ms), decode_batch "
+            f"{6 * 32 / dt_decode:.1f} tokens/s (6 x 32, "
+            f"{dt_decode * 1e3:.1f} ms), peak memory {peak:.2f} GB")
+        for k, c in counts.items():
+            total[k] += c
+        del eng, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_cross_check(torch, qm, KERNELS)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -795,6 +1230,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     card = card_line()
     log(f"device: {card} (torch {torch.__version__}, CUDA "
@@ -806,17 +1242,25 @@ def main() -> int:
         f"{_build.build_dir()}")
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
+    rows.update(qmm_checks(torch, qm, _build.KERNELS))
     rows.update(backward_checks(torch, fa, _build.KERNELS))
-    served = serve(torch, pa, fa, _build.KERNELS, _build.reset_counts)
+    served, bf16_logits = serve(torch, pa, fa, _build.KERNELS,
+                                _build.reset_counts)
     gc.collect()
     torch.cuda.empty_cache()
     trained = train(torch, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = serve_quant(torch, pa, qm, _build.KERNELS, _build.reset_counts,
+                        bf16_logits)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
              "bound_by": r["bound"][1], "library_ms": r["library_ms"],
              "wrapper_ms": r["wrapper_ms"], "shape": r["shape"]}
+        if "library" in r:
+            e["library"] = r["library"]
         if "tiles" in r:
             e["worst_tile_rel"] = {t: x[2] for t, x in r["tiles"].items()}
             e["tile_rel_gate"] = BWD_REL
@@ -825,14 +1269,21 @@ def main() -> int:
     kernels = []
     for name, k in _build.KERNELS.items():
         by_phase = {p: c[name] for p, c in (("serve", served),
-                                             ("train", trained)) if name in c}
+                                             ("train", trained),
+                                             ("serve_quant", quant))
+                    if name in c}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),
              "launches_by_phase": by_phase}
-        if name in rows:                     # A-D at the serving shapes
+        variants = [k for k in rows if k.startswith(f"{name}/int")]
+        if name in rows:                     # A-D and A/B's int modes
             e.update(entry(rows[name]))
             if f"{name}/train" in rows:
                 e["at_train_shape"] = entry(rows[f"{name}/train"])
+        elif variants:                       # G, H: int4 (at B=6) first
+            e.update(entry(rows[variants[0]]))
+            e["variants"] = {k.split("/", 1)[1]: entry(rows[k])
+                             for k in variants[1:]}
         else:                                # E, F: training shape, d=128
             e.update(entry(rows[f"{name}/train"]))
             e["library"] = rows[f"{name}/train"]["library"]

@@ -8,8 +8,14 @@ The port keeps the JAX tree and orientation unchanged -- ``embed.tokens
 (``b_up``/``b_down``), ``final_norm`` and an optional ``lm_head [D, V]`` --
 so every matmul weight stays ``[Din, Dout]`` and the model computes
 ``x @ w``: nothing is transposed. Leaves keep their dtype (bfloat16 arrays
-from ``ml_dtypes`` included); the engine later casts fp32 leaves to the
-compute dtype, as the reference's ``_serve_cast`` does.
+from ``ml_dtypes`` and int8 arrays included); the engine later casts fp32
+leaves to the compute dtype, as the reference's ``_serve_cast`` does.
+
+A quantized tree bridges whole: any object with ``packed``, ``scales``,
+``bits`` and ``din`` attributes (the reference's ``QuantizedWeight`` after
+``jax.device_get``, matched by its attributes, not its class) becomes the
+port's :class:`~deepspeed_tpu_torch.models.transformer.QuantizedWeight`, and
+a paged cache dict carries its int8 pools and ``kv_scale`` like any leaf.
 """
 
 from __future__ import annotations
@@ -39,4 +45,10 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("packed", "scales", "bits", "din")):
+        from deepspeed_tpu_torch.models.transformer import QuantizedWeight
+
+        return QuantizedWeight(_leaf(tree.packed, device),
+                               _leaf(tree.scales, device), int(tree.bits),
+                               int(tree.din))
     return _leaf(tree, device)

@@ -20,12 +20,22 @@
 //   keep(r, c)            mask
 //   seed_m/l(r), seed_acc(r, j)   initial online-softmax state
 //   finish(r, O_row, m, l)        epilogue for row r
+// and, for a quantized KV pool (paged_attention.cu), the optional traits
+//   kKvBits = 8 | 4       load_kv<HD, RAW_K>(Ks, Vs, ksc, vsc, c0, nc) fills the
+//                         K/V tiles (int -> bf16) and the columns' k/v scales;
+//                         a score is scaled by its column's k scale, p by its
+//                         v scale before P V (l sums the unscaled p)
+//   kIntScore = true      the int8 q-hat and int8 K stay int8 (load_q8): S is
+//                         an integer product (mma.sync s8 -> s32), dequantized
+//                         as s_int * (q_scale[row] * scale) * k_scale[col]
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dst {
 
@@ -52,7 +62,73 @@ struct Smem {
   static constexpr size_t o_off = p_off + size_t(BM) * PLD * 2;
   static constexpr size_t st_off = o_off + size_t(BM) * OLD * 4;
   static constexpr size_t bytes = st_off + 3 * BM * 4;
+  // quantized pools only: k / v column scales and q row scales
+  static constexpr size_t quant_bytes = bytes + (2 * BN + BM) * 4;
+  static constexpr int Q8LD = HD + 16;  // int8 rows: 16-byte aligned chunks
 };
+
+template <class M, class = void>
+struct KvBits {
+  static constexpr int value = 16;
+};
+template <class M>
+struct KvBits<M, std::void_t<decltype(M::kKvBits)>> {
+  static constexpr int value = M::kKvBits;
+};
+template <class M, class = void>
+struct IntScore {
+  static constexpr bool value = false;
+};
+template <class M>
+struct IntScore<M, std::void_t<decltype(M::kIntScore)>> {
+  static constexpr bool value = M::kIntScore;
+};
+
+// mma.sync m16n8k32, s8 x s8 -> s32, accumulating into c
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// S = Q8 K8^T for one warp's 16 rows (row0 ..) and BN columns, int8 tiles with
+// leading dim LD (bytes), written to S (fp32, exact: |S| < 2^24) with ld SLD.
+// Fragment layout of m16n8k32 (.s8): lane = 4 g + t; A regs hold rows g and
+// g + 8, bytes 4t .. 4t + 3 (+16); B regs column g, bytes 4t .. (+16); C rows
+// g, g + 8, columns 2t, 2t + 1.
+template <int HD, int LD, int SLD>
+__device__ __forceinline__ void int8_scores(const int8_t* Q8, const int8_t* K8, float* S,
+                                            int row0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  int c[BN / 8][4];
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0;
+#pragma unroll
+  for (int k0 = 0; k0 < HD; k0 += 32) {
+    const int8_t* qa = Q8 + (row0 + g) * LD + k0 + 4 * t;
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
+    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
+    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa + 16);
+    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 16);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const int8_t* kb = K8 + (n * 8 + g) * LD + k0 + 4 * t;
+      mma_s8(c[n], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(kb),
+             *reinterpret_cast<const uint32_t*>(kb + 16));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    float* s0 = S + (row0 + g) * SLD + n * 8 + 2 * t;
+    s0[0] = float(c[n][0]);
+    s0[1] = float(c[n][1]);
+    s0[8 * SLD] = float(c[n][2]);
+    s0[8 * SLD + 1] = float(c[n][3]);
+  }
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -98,13 +174,23 @@ __global__ void __launch_bounds__(NTHREADS) flash_tile_kernel(const Mode mode_in
   float* l_s = m_s + BM;
   float* c_s = l_s + BM;
 
+  constexpr int KVB = KvBits<Mode>::value;  // 16: bf16 pool
+  constexpr bool INTS = IntScore<Mode>::value;
+  float* ksc = reinterpret_cast<float*>(smem + SM::bytes);  // KVB != 16 only
+  float* vsc = ksc + BN;
+  float* qsc = vsc + BN;
+
   Mode md = mode_in;
   md.setup();
   const int nrows = md.rows();
   if (nrows <= 0) return;  // uniform across the CTA
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<HD>(Qs, SM::QLD, nrows, [&](int r) { return md.q_row(r); });
+  if constexpr (INTS) {
+    md.template load_q8<HD>(reinterpret_cast<int8_t*>(Qs), qsc, nrows);
+  } else {
+    load_rows<HD>(Qs, SM::QLD, nrows, [&](int r) { return md.q_row(r); });
+  }
   for (int i = threadIdx.x; i < BM * HD; i += NTHREADS) {
     const int r = i / HD, j = i % HD;
     Os[r * SM::OLD + j] = r < nrows ? md.seed_acc(r, j) : 0.f;
@@ -118,12 +204,20 @@ __global__ void __launch_bounds__(NTHREADS) flash_tile_kernel(const Mode mode_in
   const int c_lo = md.col_lo(), c_hi = md.col_hi();
   for (int c0 = c_lo; c0 < c_hi; c0 += BN) {
     const int nc = min(BN, c_hi - c0);
-    load_rows<HD>(Ks, SM::KLD, nc, [&](int r) { return md.k_row(c0 + r); });
-    load_rows<HD>(Vs, SM::KLD, nc, [&](int r) { return md.v_row(c0 + r); });
+    if constexpr (KVB == 16) {
+      load_rows<HD>(Ks, SM::KLD, nc, [&](int r) { return md.k_row(c0 + r); });
+      load_rows<HD>(Vs, SM::KLD, nc, [&](int r) { return md.v_row(c0 + r); });
+    } else {
+      md.template load_kv<HD, INTS>(Ks, Vs, ksc, vsc, c0, nc);
+    }
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows
-    {
+    if constexpr (INTS) {
+      int8_scores<HD, SM::Q8LD, SM::SLD>(reinterpret_cast<const int8_t*>(Qs),
+                                         reinterpret_cast<const int8_t*>(Ks), Ss, warp * 16,
+                                         lane);
+    } else {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BN / 16];
 #pragma unroll
       for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
@@ -152,15 +246,29 @@ __global__ void __launch_bounds__(NTHREADS) flash_tile_kernel(const Mode mode_in
       const bool live = r < nrows;
       const bool ka = live && ca < nc && md.keep(r, c0 + ca);
       const bool kb = live && cb < nc && md.keep(r, c0 + cb);
-      const float va = ka ? Ss[r * SM::SLD + ca] * scale : NEG_INF;
-      const float vb = kb ? Ss[r * SM::SLD + cb] * scale : NEG_INF;
+      auto score = [&](int c) {
+        if constexpr (INTS) {
+          return (Ss[r * SM::SLD + c] * (qsc[r] * scale)) * ksc[c];
+        } else if constexpr (KVB != 16) {
+          return (Ss[r * SM::SLD + c] * scale) * ksc[c];
+        } else {
+          return Ss[r * SM::SLD + c] * scale;
+        }
+      };
+      const float va = ka ? score(ca) : NEG_INF;
+      const float vb = kb ? score(cb) : NEG_INF;
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(va, vb)));
       const float pa = ka ? expf(va - m_new) : 0.f;
       const float pb = kb ? expf(vb - m_new) : 0.f;
       const float psum = warp_sum(pa + pb);
-      Ps[r * SM::PLD + ca] = __float2bfloat16(pa);
-      Ps[r * SM::PLD + cb] = __float2bfloat16(pb);
+      if constexpr (KVB != 16) {
+        Ps[r * SM::PLD + ca] = __float2bfloat16(pa * vsc[ca]);
+        Ps[r * SM::PLD + cb] = __float2bfloat16(pb * vsc[cb]);
+      } else {
+        Ps[r * SM::PLD + ca] = __float2bfloat16(pa);
+        Ps[r * SM::PLD + cb] = __float2bfloat16(pb);
+      }
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
@@ -205,7 +313,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_tile_kernel(const Mode mode_in
 template <int HD, class Mode>
 int launch_tiles(const Mode& md, dim3 grid, float scale, cudaStream_t stream) {
   auto kern = flash_tile_kernel<HD, Mode>;
-  const size_t bytes = Smem<HD>::bytes;
+  const size_t bytes = KvBits<Mode>::value == 16 ? Smem<HD>::bytes : Smem<HD>::quant_bytes;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);

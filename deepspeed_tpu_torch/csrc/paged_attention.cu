@@ -28,7 +28,25 @@
 //
 // Atoms with nothing to read (pos0 == 0, or a window past everything) write
 // m = -1e30, l = 0, acc = 0: the merge's exp(m - m2) = 0 then drops them.
+//
+// Quantized pools (the reference's `quantized` / `kv_bits` modes of the same
+// two kernels, :483-516 and :840-876), one launcher each:
+//   paged_decode_int8  int8 pool; q quantized per row (the wrapper's q-hat,
+//                      _quantize_q_rows :390) and the score an INTEGER product
+//                      (mma.sync s8 -> s32), dequantized as
+//                      s_int * q_scale * scale * k_scale[col];
+//   paged_decode_int4, paged_past_int8, paged_past_int4
+//                      int -> bf16 K/V tiles, q unquantized, scores times
+//                      k_scale[col];
+// and in all four p is scaled by v_scale[col] before the P V product. The
+// per-token scales come from kv_scale [L, nb+1, 1, 2*bs] (k in lanes [0, bs),
+// v in [bs, 2bs)). The int4 pool pairs lanes GLOBALLY: byte j holds feature
+// j (low nibble) and j + K*d/2 (high nibble), so a kv head whose features lie
+// in the upper half reads high nibbles. This first version reads a 16-byte
+// chunk for 16 features and keeps one nibble of each byte: an int4 head
+// costs as many bytes as an int8 one (PERF.md).
 #include "flash_tile.cuh"
+#include "int_unpack.cuh"
 
 namespace dst {
 
@@ -135,6 +153,152 @@ struct PastMode : PagedPast {
   }
 };
 
+// int8 / int4 pool loader of the quantized modes: K and V tiles of one kv
+// head (columns c0 .. c0 + nc - 1 of atom p.a) and their per-token scales.
+// RAW_K keeps K as int8 (Q8LD-byte rows) for the integer score product.
+template <int BITS>
+struct QuantPool {
+  const int8_t* kq;  // [L, nbp1, bs, K*hd] (int8) or [.., K*hd/2] (int4)
+  const int8_t* vq;
+  const float* kv_scale;  // [L, nbp1, 1, 2*bs]
+
+  template <int HD, bool RAW_K>
+  __device__ void load(const PagedPast& p, bf16* Ks, bf16* Vs, float* ksc, float* vsc, int c0,
+                       int nc) const {
+    constexpr int CH = HD / 16;  // 16-feature chunks of a head
+    const int lanes = BITS == 8 ? p.K * p.hd : p.K * p.hd / 2;
+    const int half = p.K * p.hd / 2;
+    for (int i = threadIdx.x; i < BN * CH; i += NTHREADS) {
+      const int r = i / CH, j = i % CH;
+      const int f = p.kk * p.hd + j * 16;  // first feature of the chunk
+      const bool hi = BITS == 4 && f >= half;
+      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
+      if (r < nc) {
+        const int c = c0 + r;
+        const int phys = p.bt[size_t(p.s) * p.nb_max + c / p.bs];
+        const size_t row = (size_t(p.layer) * p.nbp1 + phys) * p.bs + c % p.bs;
+        const size_t off = row * lanes + (hi ? f - half : f);
+        kr = *reinterpret_cast<const uint4*>(kq + off);
+        vr = *reinterpret_cast<const uint4*>(vq + off);
+      }
+      bf16* kd = Ks + r * Smem<HD>::KLD + j * 16;
+      bf16* vd = Vs + r * Smem<HD>::KLD + j * 16;
+      if (BITS == 8) {
+        if (RAW_K) {
+          *reinterpret_cast<uint4*>(reinterpret_cast<int8_t*>(Ks) + r * Smem<HD>::Q8LD + j * 16) =
+              kr;
+        } else {
+          unpack16<0>(kr, kd);
+        }
+        unpack16<0>(vr, vd);
+      } else if (hi) {
+        unpack16<2>(kr, kd);
+        unpack16<2>(vr, vd);
+      } else {
+        unpack16<1>(kr, kd);
+        unpack16<1>(vr, vd);
+      }
+    }
+    for (int r = threadIdx.x; r < BN; r += NTHREADS) {
+      float ks = 0.f, vs = 0.f;
+      if (r < nc) {
+        const int c = c0 + r;
+        const int phys = p.bt[size_t(p.s) * p.nb_max + c / p.bs];
+        const float* sc = kv_scale + (size_t(p.layer) * p.nbp1 + phys) * 2 * p.bs + c % p.bs;
+        ks = sc[0];
+        vs = sc[p.bs];
+      }
+      ksc[r] = ks;
+      vsc[r] = vs;
+    }
+  }
+};
+
+// A over an int8 / int4 pool; BITS == 8 takes the int8 q-hat (q8, qs)
+template <int BITS>
+struct DecodeQuantMode : DecodeMode {
+  static constexpr int kKvBits = BITS;
+  static constexpr bool kIntScore = BITS == 8;
+  QuantPool<BITS> pool;
+  const int8_t* q8;  // [A, H, hd] int8 q-hat (BITS == 8)
+  const float* qs;   // [A, H] its row scales
+
+  template <int HD, bool RAW_K>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, float* ksc, float* vsc, int c0, int nc) const {
+    pool.template load<HD, RAW_K>(*this, Ks, Vs, ksc, vsc, c0, nc);
+  }
+  template <int HD>
+  __device__ void load_q8(int8_t* Q8, float* qsc, int nrows) const {
+    for (int i = threadIdx.x; i < BM * (HD / 16); i += NTHREADS) {
+      const int r = i / (HD / 16), j = i % (HD / 16);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) v = reinterpret_cast<const uint4*>(q8 + (size_t(a) * H + kk * rep + r) * hd)[j];
+      *reinterpret_cast<uint4*>(Q8 + r * Smem<HD>::Q8LD + j * 16) = v;
+    }
+    for (int r = threadIdx.x; r < BM; r += NTHREADS)
+      qsc[r] = r < nrows ? qs[size_t(a) * H + kk * rep + r] : 0.f;
+  }
+};
+
+// B over an int8 / int4 pool (q unquantized)
+template <int BITS>
+struct PastQuantMode : PastMode {
+  static constexpr int kKvBits = BITS;
+  QuantPool<BITS> pool;
+
+  template <int HD, bool RAW_K>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, float* ksc, float* vsc, int c0, int nc) const {
+    pool.template load<HD, RAW_K>(*this, Ks, Vs, ksc, vsc, c0, nc);
+  }
+};
+
+template <class M>
+void fill_past(M& md, int layer, int nbp1, int bs, int K, int hd, const int* bt, int nb_max,
+               const int* slot, const int* pos0, const int* lo, const int* nblk) {
+  md.layer = layer; md.nbp1 = nbp1; md.bs = bs; md.K = K; md.hd = hd;
+  md.bt = bt; md.nb_max = nb_max; md.slot = slot; md.pos0 = pos0; md.lo = lo; md.nblk = nblk;
+}
+
+template <int BITS>
+int launch_decode_quant(const void* q, const void* qs, const void* kq, const void* vq,
+                        const float* kv_scale, int layer, int nbp1, int bs, int H, int K, int hd,
+                        const int* bt, int nb_max, const int* slot, const int* pos0,
+                        const int* rowpos, const int* lo, const int* nblk, int A, int window,
+                        float scale, float* acc, float* m, float* l, cudaStream_t stream) {
+  if (A <= 0) return 0;
+  if (K <= 0 || H % K != 0 || H / K > BM) return static_cast<int>(cudaErrorInvalidValue);
+  DecodeQuantMode<BITS> md{};
+  fill_past(md, layer, nbp1, bs, K, hd, bt, nb_max, slot, pos0, lo, nblk);
+  md.pool = {static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq), kv_scale};
+  if (BITS == 8) {
+    md.q8 = static_cast<const int8_t*>(q);
+    md.qs = static_cast<const float*>(qs);
+  } else {
+    md.q = static_cast<const bf16*>(q);
+  }
+  md.rowpos = rowpos; md.H = H; md.rep = H / K; md.window = window;
+  md.acc = acc; md.m_out = m; md.l_out = l;
+  return launch_any_hd(md, hd, dim3(A, K, 1), scale, stream);
+}
+
+template <int BITS>
+int launch_past_quant(const void* q, const void* kq, const void* vq, const float* kv_scale,
+                      int layer, int nbp1, int bs, int H, int K, int hd, const int* bt,
+                      int nb_max, const int* slot, const int* pos0, const int* lo,
+                      const int* nblk, int A, int tq, int window, float scale, float* acc,
+                      float* m, float* l, cudaStream_t stream) {
+  if (A <= 0) return 0;
+  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
+  PastQuantMode<BITS> md{};
+  fill_past(md, layer, nbp1, bs, K, hd, bt, nb_max, slot, pos0, lo, nblk);
+  md.pool = {static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq), kv_scale};
+  md.q = static_cast<const bf16*>(q);
+  md.H = H; md.rep = H / K; md.tq = tq; md.window = window;
+  md.acc = acc; md.m_out = m; md.l_out = l;
+  const int R = tq * (H / K);
+  return launch_any_hd(md, hd, dim3(A, K, (R + BM - 1) / BM), scale, stream);
+}
+
 }  // namespace dst
 
 using dst::bf16;
@@ -178,6 +342,49 @@ int dst_paged_past(const void* q, const void* kpool, const void* vpool, int laye
   const int R = tq * (H / K);
   return dst::launch_any_hd(md, hd, dim3(A, K, (R + dst::BM - 1) / dst::BM), scale,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Kernel A over an int8 pool: q8 [A, H, hd] int8 q-hat, qs [A, H] its scales.
+int dst_paged_decode_int8(const void* q8, const void* qs, const void* kpool, const void* vpool,
+                          const float* kv_scale, int layer, int nbp1, int bs, int H, int K,
+                          int hd, const int* bt, int nb_max, const int* slot, const int* pos0,
+                          const int* rowpos, const int* lo, const int* nblk, int A, int window,
+                          float scale, float* acc, float* m, float* l, void* stream) {
+  return dst::launch_decode_quant<8>(q8, qs, kpool, vpool, kv_scale, layer, nbp1, bs, H, K, hd,
+                                     bt, nb_max, slot, pos0, rowpos, lo, nblk, A, window, scale,
+                                     acc, m, l, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel A over an int4 pool (q bf16).
+int dst_paged_decode_int4(const void* q, const void* kpool, const void* vpool,
+                          const float* kv_scale, int layer, int nbp1, int bs, int H, int K,
+                          int hd, const int* bt, int nb_max, const int* slot, const int* pos0,
+                          const int* rowpos, const int* lo, const int* nblk, int A, int window,
+                          float scale, float* acc, float* m, float* l, void* stream) {
+  return dst::launch_decode_quant<4>(q, nullptr, kpool, vpool, kv_scale, layer, nbp1, bs, H, K,
+                                     hd, bt, nb_max, slot, pos0, rowpos, lo, nblk, A, window,
+                                     scale, acc, m, l, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel B over an int8 / int4 pool (q bf16).
+int dst_paged_past_int8(const void* q, const void* kpool, const void* vpool,
+                        const float* kv_scale, int layer, int nbp1, int bs, int H, int K, int hd,
+                        const int* bt, int nb_max, const int* slot, const int* pos0,
+                        const int* lo, const int* nblk, int A, int tq, int window, float scale,
+                        float* acc, float* m, float* l, void* stream) {
+  return dst::launch_past_quant<8>(q, kpool, vpool, kv_scale, layer, nbp1, bs, H, K, hd, bt,
+                                   nb_max, slot, pos0, lo, nblk, A, tq, window, scale, acc, m, l,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+int dst_paged_past_int4(const void* q, const void* kpool, const void* vpool,
+                        const float* kv_scale, int layer, int nbp1, int bs, int H, int K, int hd,
+                        const int* bt, int nb_max, const int* slot, const int* pos0,
+                        const int* lo, const int* nblk, int A, int tq, int window, float scale,
+                        float* acc, float* m, float* l, void* stream) {
+  return dst::launch_past_quant<4>(q, kpool, vpool, kv_scale, layer, nbp1, bs, H, K, hd, bt,
+                                   nb_max, slot, pos0, lo, nblk, A, tq, window, scale, acc, m, l,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,18 +1,20 @@
 """Continuous-batching inference engine over a paged KV pool (counterpart of
 ``deepspeed_tpu/inference/engine_v2.py`` ``InferenceEngineV2``).
 
-Ported scope: the packed paged engine with a pool in the compute dtype
-(``kv_dtype="bf16"``), dense weights (``weight_dtype="bf16"``), one device
-and greedy decoding. ``put`` runs fresh whole prompts through
-``forward_prefill`` (flash kernel D) and everything else through the packed
-step ``forward_with_packed_cache`` (paged kernels A/B and the seeded flash
-C); ``decode_batch`` runs ``steps`` greedy tokens with the pool read-only
-and folds the new KV in once. Host-side scheduling (slots, blocks, block
+Ported scope: the packed paged engine on one device with greedy decoding;
+weights in the compute dtype or int8/int4 (``weight_dtype``: kernels G/H
+through the model's ``linear()`` seam), and a KV pool in the compute dtype
+or int8/int4 with per-token scales (``kv_dtype``: the int modes of kernels
+A/B). ``put`` runs fresh whole prompts through ``forward_prefill`` (flash
+kernel D) and everything else through the packed step
+``forward_with_packed_cache`` (paged kernels A/B and the seeded flash C);
+``decode_batch`` runs ``steps`` greedy tokens with the pool read-only and
+folds the new KV in once. Host-side scheduling (slots, blocks, block
 tables, atom packing) mirrors the reference line for line.
 
 Not ported yet (they raise): the ``packed=False``/``paged=False`` engines,
-quantized KV and weights, sampling, prefix cache, speculative decoding, KV
-tiers, pause/resume, MoE and tensor parallelism.
+sampling, prefix cache, speculative decoding, KV tiers, pause/resume, MoE
+and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ import torch
 
 from deepspeed_tpu_torch.inference.ragged import (CapacityError,
                                                   SequenceManager)
+from deepspeed_tpu_torch.inference.quant import quantize_serving_params
 from deepspeed_tpu_torch.models.transformer import TransformerLM, torch_dtype
-from deepspeed_tpu_torch.ops.paged_attention import packed_kv_append
+from deepspeed_tpu_torch.ops.paged_attention import cache_append
 from deepspeed_tpu_torch.utils import resolve_device
 
 # packed-row atom layout: 1-token chunks are decode atoms; longer chunks
@@ -46,17 +49,18 @@ class InferenceEngineV2:
                  paged: bool = True, packed: bool = True,
                  kv_dtype: str = "bf16", weight_dtype: str = "bf16",
                  device="cuda", seed: int = 0):
+        if weight_dtype not in ("bf16", "int8", "int4"):
+            raise ValueError(f"weight_dtype must be bf16|int8|int4, got "
+                             f"{weight_dtype!r}")
+        if kv_dtype not in ("bf16", "int8", "int4"):
+            raise ValueError(f"kv_dtype must be bf16|int8|int4, got "
+                             f"{kv_dtype!r}")
+        if kv_dtype != "bf16" and not (paged and packed):
+            raise ValueError("quantized KV needs the packed paged engine")
         if not (paged and packed):
             raise NotImplementedError(
                 "only the packed paged engine (paged=True, packed=True) is "
                 "ported")
-        if kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized KV is not ported yet")
-        if weight_dtype != "bf16":
-            raise NotImplementedError(
-                f"weight_dtype={weight_dtype!r}: quantized weights are not "
-                "ported yet")
         self.device = resolve_device(device)
         self.module = model
         self.cfg = model.cfg
@@ -68,15 +72,23 @@ class InferenceEngineV2:
             params = model.init(seed=seed, device=self.device)
         # serving holds weights in the compute dtype (the reference's
         # _serve_cast): fp32 leaves are cast once, here
-        self.params = _tree_map(
+        params = _tree_map(
             lambda p: p.to(device=self.device,
                            dtype=cdt if p.dtype == torch.float32 else p.dtype),
             params)
+        if weight_dtype != "bf16":
+            # decode reads every weight once a step: packed leaves cut those
+            # bytes 2x (int8) / 4x (int4); the forward paths pick them up
+            # through the model's linear() seam
+            params = quantize_serving_params(
+                params, self.cfg, bits=4 if weight_dtype == "int4" else 8)
+        self.params = params
         self.block_size = block_size
         self.nb_max = -(-self.max_seq_len // block_size)
         self.num_blocks = self.state.allocator.num_blocks
-        self.cache = model.init_paged_kv_cache(self.num_blocks, block_size,
-                                               device=self.device)
+        self.cache = model.init_paged_kv_cache(
+            self.num_blocks, block_size, device=self.device,
+            quantize=kv_dtype != "bf16", bits=4 if kv_dtype == "int4" else 8)
         self._pos = np.zeros((max_sequences,), np.int32)
         self._bt_cache: Optional[np.ndarray] = None
         self._bt_key: Dict[int, tuple] = {}
@@ -128,10 +140,9 @@ class InferenceEngineV2:
         pos2 = torch.arange(T, dtype=torch.int32, device=ids.device).repeat(Bp)
         valid2 = (torch.arange(T, device=ids.device)[None, :]
                   < lengths[:, None]).reshape(-1)
-        for name in ("k", "v"):
-            packed_kv_append(self.cache[name],
-                             kv[name].reshape(L, Bp * T, K, hd), bt, slot2,
-                             pos2, valid2)
+        cache_append(self.cache, kv["k"].reshape(L, Bp * T, K, hd),
+                     kv["v"].reshape(L, Bp * T, K, hd), bt, slot2, pos2,
+                     valid2)
         return logits
 
     # cap on bpad*T_pad per prefill step (bounds the [L, B, T, K, d] stash)
@@ -296,10 +307,9 @@ class InferenceEngineV2:
                                              device=self.device)[None, :]
                 ).reshape(-1)
         valid2 = valid.repeat_interleave(steps)
-        for name in ("k", "v"):
-            packed_kv_append(self.cache[name],
-                             tail[name].reshape(L, B * steps, K, hd), bt,
-                             slot2, pos2, valid2)
+        cache_append(self.cache, tail["k"].reshape(L, B * steps, K, hd),
+                     tail["v"].reshape(L, B * steps, K, hd), bt, slot2, pos2,
+                     valid2)
         return out
 
     def decode_batch(self, batch_uids: Sequence[int],

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -222,18 +222,83 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor,
     return out if tail is None else torch.cat([out, tail], dim=-1)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., Din] @ w [Din, Dout]`` (dense weights only; the quantized
-    branch of the reference waits for the int8/int4 weight slice)."""
+class QuantizedWeight:
+    """Packed int8/int4 matmul weight standing where a dense ``[Din, F]``
+    leaf (or a stacked ``[L, Din, F]`` one) sits in the parameter tree
+    (``ops/quant_matmul.py`` layout): ``packed`` int8, ``scales``
+    ``[.., Din/group, F]`` in the compute dtype, ``bits`` 4 or 8, ``din``
+    the contraction width. :func:`linear` sends it to kernel G (one matrix)
+    or, through a :class:`QuantLayerRef`, kernel H (a stacked leaf)."""
+
+    __slots__ = ("packed", "scales", "bits", "din")
+
+    def __init__(self, packed: torch.Tensor, scales: torch.Tensor, bits: int,
+                 din: int):
+        self.packed, self.scales = packed, scales
+        self.bits, self.din = int(bits), int(din)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.packed.numel() * self.packed.element_size()
+                + self.scales.numel() * self.scales.element_size())
+
+
+def split_quant_leaves(layers: Params):
+    """A stacked layer tree as (its dense leaves, ``[(group, name, stacked
+    QuantizedWeight)]``)."""
+    dense, quant = {}, []
+    for grp, sub in layers.items():
+        dense[grp] = {}
+        for name, leaf in sub.items():
+            if isinstance(leaf, QuantizedWeight):
+                quant.append((grp, name, leaf))
+            else:
+                dense[grp][name] = leaf
+    return dense, quant
+
+
+class QuantLayerRef(NamedTuple):
+    """Layer ``layer`` of a stacked :class:`QuantizedWeight`: :func:`linear`
+    runs kernel H over the whole stack with the layer picked inside, so no
+    per-layer slice of the packed weights is ever made."""
+
+    qw: QuantizedWeight
+    layer: int
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., Din] @ w`` for a dense ``[Din, Dout]`` tensor, a
+    :class:`QuantizedWeight` (kernel G) or a :class:`QuantLayerRef`
+    (kernel H)."""
+    if isinstance(w, (QuantizedWeight, QuantLayerRef)):
+        from deepspeed_tpu_torch.ops import quant_matmul as qm
+
+        qw, layer = (w.qw, w.layer) if isinstance(w, QuantLayerRef) else \
+            (w, None)
+        lead = x.shape[:-1]
+        out = qm.quantized_matmul(x.reshape(-1, qw.din).contiguous(),
+                                  qw.packed, qw.scales, bits=qw.bits,
+                                  layer=layer)
+        return out.reshape(*lead, out.shape[-1])
     return x @ w
 
 
 def qkv_proj(x: torch.Tensor, w: Params, cfg: TransformerConfig):
+    """q/k/v projections (+ optional biases); serving engines may install a
+    fused ``wqkv [D, (H+2K)*hd]`` leaf (one product instead of three)."""
     B, T = x.shape[0], x.shape[1]
     hd, H, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = linear(x, w["wq"]), linear(x, w["wk"]), linear(x, w["wv"])
-    if "bq" in w:
-        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    if "wqkv" in w:
+        qkv = linear(x, w["wqkv"])
+        if "bqkv" in w:
+            qkv = qkv + w["bqkv"]
+        # the kernels take contiguous q/k/v, not views of the fused product
+        q, k, v = (t.contiguous() for t in
+                   torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1))
+    else:
+        q, k, v = linear(x, w["wq"]), linear(x, w["wk"]), linear(x, w["wv"])
+        if "bq" in w:
+            q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     return (q.reshape(B, T, H, hd), k.reshape(B, T, K, hd),
             v.reshape(B, T, K, hd))
 
@@ -254,7 +319,11 @@ def mlp_block(x: torch.Tensor, w: Params, cfg: TransformerConfig
     if cfg.act_quant_bits:
         raise NotImplementedError("act_quant_bits is not ported yet")
     if cfg.activation == "swiglu":
-        h = F.silu(linear(x, w["w_gate"])) * linear(x, w["w_up"])
+        if "w_gateup" in w:              # serving-fused gate|up
+            g, u = linear(x, w["w_gateup"]).chunk(2, dim=-1)
+            h = F.silu(g) * u
+        else:
+            h = F.silu(linear(x, w["w_gate"])) * linear(x, w["w_up"])
     else:
         up = linear(x, w["w_up"])
         h = _ACTS[cfg.activation](up + w["b_up"] if "b_up" in w else up)
@@ -339,6 +408,21 @@ def _layer(layers: Dict[str, Dict[str, tuple]], i: int) -> Params:
     """Layer ``i``'s weights from :func:`_unstack`'s views."""
     return {grp: {n: ts[i] for n, ts in sub.items()}
             for grp, sub in layers.items()}
+
+
+def _layer_views(layers: Params, dt: torch.dtype) -> Callable[[int], Params]:
+    """``i -> layer i's weights`` of a serving tree: the dense leaves as
+    :func:`_unstack` views, each stacked :class:`QuantizedWeight` as a
+    :class:`QuantLayerRef` to layer ``i``."""
+    dense, quant = split_quant_leaves(layers)
+    views = _unstack(dense, dt)
+
+    def at(i: int) -> Params:
+        wc = _layer(views, i)
+        for grp, name, qw in quant:
+            wc[grp][name] = QuantLayerRef(qw, i)
+        return wc
+    return at
 
 
 class TransformerLM:
@@ -438,11 +522,19 @@ class TransformerLM:
         return params
 
     # ---- shared pieces ----------------------------------------------------
-    def _head_proj(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """``x [..., D] @ head`` with the tied ``embed.tokens.T`` or the
-        separate ``lm_head [D, V]``."""
-        head = (params["embed"]["tokens"].T if self.cfg.tie_embeddings
+    def _head(self, params: Params):
+        """The [D, V] output projection: a serving engine's quantized
+        ``lm_head_q``, else the tied ``embed.tokens.T`` or ``lm_head``."""
+        if "lm_head_q" in params:
+            return params["lm_head_q"]
+        return (params["embed"]["tokens"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
+
+    def _head_proj(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``x [..., D] @ head`` (kernel G for a quantized head)."""
+        head = self._head(params)
+        if isinstance(head, QuantizedWeight):
+            return linear(x, head)
         return x @ head.to(torch_dtype(self.cfg.dtype))
 
     def _embed(self, params: Params, ids: torch.Tensor,
@@ -521,19 +613,41 @@ class TransformerLM:
 
     # ---- paged serving path ----------------------------------------------
     def init_paged_kv_cache(self, num_blocks: int, block_size: int = 128,
-                            device="cuda") -> Dict[str, torch.Tensor]:
+                            device="cuda", quantize: bool = False,
+                            bits: int = 8) -> Dict[str, torch.Tensor]:
         """The global blocked KV pool, lane-folded
         ``[L, num_blocks+1, block_size, K*d]`` in the compute dtype; the last
-        block is scratch for padded lanes."""
+        block is scratch for padded lanes. ``quantize=True`` allocates int8
+        pools (``bits=4``: ``K*d/2`` lanes, feature ``j`` paired with
+        ``j + K*d/2`` per byte) and the per-token dequant scales
+        ``kv_scale [L, num_blocks+1, 1, 2*block_size]`` (k scales in lanes
+        ``[0, bs)``, v in ``[bs, 2bs)``)."""
         from deepspeed_tpu_torch.utils import resolve_device
 
         cfg = self.cfg
         device = resolve_device(device)
-        shape = (cfg.num_layers, num_blocks + 1, block_size,
-                 cfg.num_kv_heads * cfg.head_dim)
+        lanes = cfg.num_kv_heads * cfg.head_dim
+        if quantize and bits == 4:
+            if cfg.head_dim % 2:
+                raise ValueError("int4 KV needs an even head_dim")
+            lanes //= 2
+        shape = (cfg.num_layers, num_blocks + 1, block_size, lanes)
+        if quantize:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "kv_scale": torch.zeros(shape[:2] + (1, 2 * block_size),
+                                            dtype=torch.float32,
+                                            device=device)}
         dt = torch_dtype(cfg.dtype)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def _kv_bits(self, cache) -> int:
+        """4 when the paged pool is int4-packed (``K*d/2`` lanes), else 8."""
+        if "kv_scale" not in cache:
+            return 8
+        half = self.cfg.num_kv_heads * self.cfg.head_dim // 2
+        return 4 if cache["k"].shape[-1] == half else 8
 
     def forward_prefill(self, params: Params, input_ids: torch.Tensor,
                         lengths: torch.Tensor):
@@ -553,9 +667,9 @@ class TransformerLM:
         K, hd = cfg.num_kv_heads, cfg.head_dim
         kr = torch.empty(cfg.num_layers, B, T, K, hd, dtype=dt, device=dev)
         vr = torch.empty_like(kr)
-        layers = _unstack(params["layers"], dt)
+        layer_at = _layer_views(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(layers, i)
+            wc = layer_at(i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 kr[_i], vr[_i] = k, v
@@ -585,10 +699,11 @@ class TransformerLM:
         scatter per pool. Returns (logits [G, V] at ``gather_idx``, cache)
         -- the cache dict's tensors are updated in place."""
         from deepspeed_tpu_torch.ops.paged_attention import (
-            packed_kv_append, ragged_paged_attention)
+            cache_append, ragged_paged_attention)
 
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
+        kv = dict(kv_scale=cache.get("kv_scale"), kv_bits=self._kv_bits(cache))
         N = token_ids.shape[0]
         dr = N if decode_rows is None else decode_rows
         if (N - dr) % tile_tq:
@@ -609,9 +724,9 @@ class TransformerLM:
         krows = torch.empty(cfg.num_layers, N, K, hd, dtype=dt,
                             device=token_ids.device)
         vrows = torch.empty_like(krows)
-        layers = _unstack(params["layers"], dt)
+        layer_at = _layer_views(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(layers, i)
+            wc = layer_at(i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 q2, k2, v2 = q[:, 0], k[:, 0], v[:, 0]           # [N, H|K, d]
@@ -621,21 +736,19 @@ class TransformerLM:
                     parts.append(ragged_paged_attention(
                         q2[:dr], k2[:dr], v2[:dr], cache["k"], cache["v"],
                         block_tables, a_slot_d, a_pos_d, a_len_d, tq=1,
-                        window=_w, layer=_i))
+                        window=_w, layer=_i, **kv))
                 if n_tiles:
                     parts.append(ragged_paged_attention(
                         q2[dr:], k2[dr:], v2[dr:], cache["k"], cache["v"],
                         block_tables, a_slot_t, a_pos_t, a_len_t,
                         tq=tile_tq, window=_w, layer=_i,
-                        no_past=tiles_no_past))
+                        no_past=tiles_no_past, **kv))
                 out = parts[0] if len(parts) == 1 else torch.cat(parts)
                 return out[:, None]                              # [N,1,H,d]
 
             x = _decode_block(x, wc, cseg, freqs, positions, attend)
-        packed_kv_append(cache["k"], krows, block_tables, tok_slot, tok_pos,
-                         valid)
-        packed_kv_append(cache["v"], vrows, block_tables, tok_slot, tok_pos,
-                         valid)
+        cache_append(cache, krows, vrows, block_tables, tok_slot, tok_pos,
+                     valid)
         x = _norm(x[:, 0][gather_idx.long()], params["final_norm"], cfg.norm,
                   cfg.norm_eps)
         return self._head_proj(params, x), cache
@@ -672,15 +785,16 @@ class TransformerLM:
         S_tail = tail["k"].shape[2]
         col = torch.arange(S_tail, device=toks.device)
         tk, tv = tail["k"], tail["v"]
-        layers = _unstack(params["layers"], dt)
+        kv = dict(kv_scale=cache.get("kv_scale"), kv_bits=self._kv_bits(cache))
+        layer_at = _layer_views(params["layers"], dt)
         for i, cseg in self._layers():
-            wc = _layer(layers, i)
+            wc = layer_at(i)
 
             def attend(q, k, v, _i=i, _w=cseg.sliding_window):
                 q2, k2, v2 = q[:, 0], k[:, 0], v[:, 0]           # [B, H|K, d]
                 acc, m_k, l_k = decode_pool_partials(
                     q2, cache["k"], cache["v"], _i, block_tables, slots,
-                    pos_base, window=_w, row_pos=row_pos)
+                    pos_base, window=_w, row_pos=row_pos, **kv)
                 tk[_i, :, t], tv[_i, :, t] = k2, v2
                 qg = q2.reshape(B, K, rep, hd).float()
                 s_t = torch.einsum("bkrd,bskd->bkrs", qg,

@@ -29,8 +29,9 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
             "flash_attention": "flash_attention.cu",
-            "flash_backward": "flash_backward.cu"}
-_HEADERS = ("flash_tile.cuh",)
+            "flash_backward": "flash_backward.cu",
+            "quant_matmul": "quant_matmul.cu"}
+_HEADERS = ("flash_tile.cuh", "int_unpack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +79,17 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "deepspeed_tpu/ops/flash_attention.py:173"),
     Kernel("flash_bwd_dkv", "flash_backward",
            "deepspeed_tpu/ops/flash_attention.py:208"),
+    Kernel("qmm", "quant_matmul", "deepspeed_tpu/ops/quant_matmul.py:93"),
+    Kernel("qmm_stacked", "quant_matmul",
+           "deepspeed_tpu/ops/quant_matmul.py:99"),
+    Kernel("paged_decode_int8", "paged_attention",
+           "deepspeed_tpu/ops/paged_attention.py:420"),
+    Kernel("paged_decode_int4", "paged_attention",
+           "deepspeed_tpu/ops/paged_attention.py:420"),
+    Kernel("paged_past_int8", "paged_attention",
+           "deepspeed_tpu/ops/paged_attention.py:782"),
+    Kernel("paged_past_int4", "paged_attention",
+           "deepspeed_tpu/ops/paged_attention.py:782"),
 )}
 
 
@@ -181,6 +193,17 @@ def _declare(lib, name: str) -> None:
             # A tq window scale acc m l stream
             "dst_paged_past": [P, P, P, I, I, I, I, I, I, P, I, P, P, P, P,
                                I, I, I, F, P, P, P, P],
+            # q8 qs kpool vpool kv_scale, then as dst_paged_decode from layer
+            "dst_paged_decode_int8": [P, P, P, P, P, I, I, I, I, I, I, P, I,
+                                      P, P, P, P, P, I, I, F, P, P, P, P],
+            # q kpool vpool kv_scale, then as dst_paged_decode from layer
+            "dst_paged_decode_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P,
+                                      P, P, P, P, I, I, F, P, P, P, P],
+            # q kpool vpool kv_scale, then as dst_paged_past from layer
+            "dst_paged_past_int8": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
+                                    P, P, I, I, I, F, P, P, P, P],
+            "dst_paged_past_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
+                                    P, P, I, I, I, F, P, P, P, P],
         },
         "flash_attention": {
             # q ks vs alen m0 l0 a0 out A tq H K hd window scale stream
@@ -199,6 +222,12 @@ def _declare(lib, name: str) -> None:
             # scale stream
             "dst_flash_bwd_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                   I, I, I, F, P],
+        },
+        "quant_matmul": {
+            # x w scales out work B D F G bits splits stream
+            "dst_qmm": [P, P, P, P, P, I, I, I, I, I, I, P],
+            # x w scales out work B D F G bits splits layer stream
+            "dst_qmm_stacked": [P, P, P, P, P, I, I, I, I, I, I, I, P],
         },
     }[name]
     for fn, args in sigs.items():

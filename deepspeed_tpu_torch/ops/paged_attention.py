@@ -1,9 +1,14 @@
 """Paged attention over the blocked KV pool (counterpart of
-``deepspeed_tpu/ops/paged_attention.py``, bf16 pool, single device).
+``deepspeed_tpu/ops/paged_attention.py``, single device).
 
 The pool is stacked and lane-folded, ``[L, nb+1, bs, K*d]``: layer ``l``,
 physical block ``b``, row ``o`` holds kv head ``kk`` in lanes
-``[kk*d, (kk+1)*d)``; the last block is scratch. ``block_tables [S, nb_max]``
+``[kk*d, (kk+1)*d)``; the last block is scratch. A quantized pool
+(``kv_scale`` given) is int8 ``[L, nb+1, bs, K*d]`` or int4 ``[L, nb+1, bs,
+K*d/2]`` with per-token dequant scales ``kv_scale [L, nb+1, 1, 2*bs]`` (k in
+lanes ``[0, bs)``, v in ``[bs, 2bs)``); int4 pairs lanes GLOBALLY, byte ``j``
+holding feature ``j`` (low nibble) and ``j + K*d/2`` (high), unlike the
+in-group weight layout of ``ops/quant_matmul.py``. ``block_tables [S, nb_max]``
 map each SLOT's logical blocks to physical ids (tail entries point at the
 scratch block). An atom is a run of consecutive tokens of one slot starting
 at ``atom_pos0``; the pool holds only tokens of earlier steps (positions
@@ -13,9 +18,12 @@ Kernels (each launched only for CUDA tensors; CPU tensors take the plain
 version named in brackets):
 
 * A ``decode_pool_partials`` -- flash-decode partials of 1-token atoms over
-  their pooled past [``plain_decode_partials``];
+  their pooled past [``plain_decode_partials``]; over a quantized pool the
+  kernels ``paged_decode_int8`` (int8 q-hat, integer score product) and
+  ``paged_decode_int4``;
 * B ``past_partials`` -- the same for the ``tq*rep`` rows of chunk atoms,
-  per kv head [``plain_past_partials``];
+  per kv head [``plain_past_partials``]; ``paged_past_int8`` /
+  ``paged_past_int4`` over a quantized pool;
 * C ``self_attention`` -- causal flash over each chunk atom's own tokens,
   seeded from B's partials [``plain_self_attention``].
 
@@ -61,9 +69,11 @@ def _past_ranges(atom_pos0: torch.Tensor, row_pos: torch.Tensor, bs: int,
     return pos0, lo.to(torch.int32), nblk.to(torch.int32)
 
 
-def _pool_geometry(q_heads_d, k_pool):
+def _pool_geometry(q_heads_d, k_pool, kv_scale=None, kv_bits=8):
     H, d = q_heads_d
     L, nbp1, bs, KD = k_pool.shape
+    if kv_scale is not None and kv_bits == 4:
+        KD *= 2                          # two lanes per byte
     if KD % d:
         raise ValueError(f"pool lanes {KD} not a multiple of head_dim {d}")
     K = KD // d
@@ -72,13 +82,41 @@ def _pool_geometry(q_heads_d, k_pool):
     return L, nbp1, bs, K, H // K
 
 
+def _quantize_q_rows(q: torch.Tensor):
+    """Per-row (last-axis) int8 quantization of a query: (q_int8, scale
+    [..., 1] fp32), scale = amax times the fp32 reciprocal of 127 (how XLA
+    compiles the reference's ``amax / 127``), floor 1e-12 -- the int8-pool
+    decode's q-hat, bit-identical to the reference's (:390) under jit."""
+    qf = q.float()
+    qs = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0),
+                         1e-12)
+    qi = torch.clamp(torch.round(qf / qs), -127, 127)
+    return qi.to(torch.int8), qs
+
+
+def _unpack_int4_lanes(packed: torch.Tensor) -> torch.Tensor:
+    """[..., K*d/2] int4-packed bytes -> [..., K*d] fp32 values (global lane
+    pairing: the low nibbles are features ``[0, K*d/2)``, the high ones the
+    rest; the reference's ``_unpack_int4_lanes_xla`` :645)."""
+    b = packed.to(torch.int32)                                 # sign-extended
+    return torch.cat([(b << 28) >> 28, b >> 4], dim=-1).float()
+
+
 def _dense_past(pool: torch.Tensor, layer: int, block_tables: torch.Tensor,
-                atom_slot: torch.Tensor, K: int, d: int) -> torch.Tensor:
-    """[A, nb_max*bs, K, d] fp32 gather of each atom's logical pool rows."""
+                atom_slot: torch.Tensor, K: int, d: int, kv_scale=None,
+                which: int = 0, kv_bits: int = 8) -> torch.Tensor:
+    """[A, nb_max*bs, K, d] fp32 gather of each atom's logical pool rows,
+    dequantized per token (scale half ``which``: 0 = k, 1 = v) when
+    ``kv_scale`` is given."""
     bt = block_tables[atom_slot.long()].long()                 # [A, nb_max]
     A, nb_max = bt.shape
     bs = pool.shape[2]
-    return pool[layer][bt].reshape(A, nb_max * bs, K, d).float()
+    rows = pool[layer][bt]                            # [A, nb_max, bs, lanes]
+    if kv_scale is not None:
+        rows = (_unpack_int4_lanes(rows) if kv_bits == 4 else rows.float())
+        sc = kv_scale[layer][bt][:, :, 0, which * bs:(which + 1) * bs]
+        rows = rows * sc[..., None]
+    return rows.reshape(A, nb_max * bs, K, d).float()
 
 
 # ---------------------------------------------------------------------------
@@ -86,20 +124,29 @@ def _dense_past(pool: torch.Tensor, layer: int, block_tables: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def plain_decode_partials(q, k_pool, v_pool, layer: int, block_tables,
-                          atom_slot, atom_pos0, *, window=None, row_pos=None):
+                          atom_slot, atom_pos0, *, window=None, row_pos=None,
+                          kv_scale=None, kv_bits: int = 8):
     """Plain version of kernel A (the TPU package's ``xla_decode_partials``
-    :655): dense gather, fp32. Returns acc [A,H,d] (unnormalised), m, l
-    [A,H]; an atom with nothing visible gets m = -1e30, l = 0, acc = 0."""
+    :655): dense gather, fp32; a quantized pool is dequantized per token and,
+    for int8, q replaced by its int8 q-hat. Returns acc [A,H,d]
+    (unnormalised), m, l [A,H]; an atom with nothing visible gets m = -1e30,
+    l = 0, acc = 0."""
     A, H, d = q.shape
-    _, _, bs, K, rep = _pool_geometry((H, d), k_pool)
+    _, _, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     if row_pos is None:
         row_pos = atom_pos0
-    kd = _dense_past(k_pool, layer, block_tables, atom_slot, K, d)
-    vd = _dense_past(v_pool, layer, block_tables, atom_slot, K, d)
+    kd = _dense_past(k_pool, layer, block_tables, atom_slot, K, d, kv_scale,
+                     0, kv_bits)
+    vd = _dense_past(v_pool, layer, block_tables, atom_slot, K, d, kv_scale,
+                     1, kv_bits)
     kd = kd.repeat_interleave(rep, dim=2)
     vd = vd.repeat_interleave(rep, dim=2)
     S = kd.shape[1]
-    s = torch.einsum("ahd,ashd->ahs", q.float(), kd) / math.sqrt(d)
+    qf = q.float()
+    if kv_scale is not None and kv_bits == 8:
+        qi, qs = _quantize_q_rows(q)
+        qf = qi.float() * qs
+    s = torch.einsum("ahd,ashd->ahs", qf, kd) / math.sqrt(d)
     col = torch.arange(S, device=q.device)[None, None, :]
     keep = col < atom_pos0.long()[:, None, None]
     if window is not None:
@@ -110,18 +157,48 @@ def plain_decode_partials(q, k_pool, v_pool, layer: int, block_tables,
     return torch.einsum("ahs,ashd->ahd", p, vd), m, p.sum(dim=-1)
 
 
+def kernel_name(base: str, kv_scale=None, kv_bits: int = 8) -> str:
+    """The kernel of ``base`` (``paged_decode`` / ``paged_past``) for this
+    pool: the bf16 one, or its int8 / int4 mode."""
+    return base if kv_scale is None else f"{base}_int{kv_bits}"
+
+
+def _pool_operands(k_pool, v_pool, kv_scale, kv_bits):
+    """Checked pool operands of A/B's launchers: the bf16 pools, or the int
+    pools and their scales."""
+    if kv_scale is None:
+        cuda_operand(k_pool, "k_pool", torch.bfloat16)
+        cuda_operand(v_pool, "v_pool", torch.bfloat16)
+        return (k_pool, v_pool)
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    cuda_operand(k_pool, "k_pool", torch.int8)
+    cuda_operand(v_pool, "v_pool", torch.int8)
+    L, nbp1, bs = k_pool.shape[:3]
+    if tuple(kv_scale.shape) != (L, nbp1, 1, 2 * bs):
+        raise ValueError(f"kv_scale must be [L, nb+1, 1, 2*bs] = "
+                         f"{(L, nbp1, 1, 2 * bs)}, got {tuple(kv_scale.shape)}")
+    cuda_operand(kv_scale, "kv_scale", torch.float32)
+    return (k_pool, v_pool, kv_scale)
+
+
 def decode_kernel_args(q, k_pool, v_pool, layer: int, block_tables,
-                       atom_slot, atom_pos0, *, window=None, row_pos=None):
-    """Kernel A's launcher arguments and its outputs ``(acc, m, l)``,
-    allocated here (CUDA tensors)."""
+                       atom_slot, atom_pos0, *, window=None, row_pos=None,
+                       kv_scale=None, kv_bits: int = 8):
+    """Kernel A's (or its int mode's, :func:`kernel_name`) launcher
+    arguments and its outputs ``(acc, m, l)``, allocated here (CUDA
+    tensors)."""
     if row_pos is None:
         row_pos = atom_pos0
     A, H, d = q.shape
-    L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool)
+    L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     nb_max = block_tables.shape[1]
     cuda_operand(q, "q", torch.bfloat16)
-    cuda_operand(k_pool, "k_pool", torch.bfloat16)
-    cuda_operand(v_pool, "v_pool", torch.bfloat16)
+    pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
+    qs = (q,)
+    if kv_scale is not None and kv_bits == 8:
+        qi, qsc = _quantize_q_rows(q)
+        qs = (qi.contiguous(), qsc[..., 0].contiguous())
     bt = int32_meta(block_tables)
     slot = int32_meta(atom_slot)
     pos0, lo, nblk = _past_ranges(atom_pos0, row_pos, bs, nb_max, window)
@@ -130,43 +207,49 @@ def decode_kernel_args(q, k_pool, v_pool, layer: int, block_tables,
     acc = torch.empty(A, H, d, dtype=torch.float32, device=q.device)
     m = torch.empty(A, H, dtype=torch.float32, device=q.device)
     l = torch.empty(A, H, dtype=torch.float32, device=q.device)
-    args = (q, k_pool, v_pool, int(layer), nbp1, bs, H, K, d, bt, nb_max,
+    args = (*qs, *pools, int(layer), nbp1, bs, H, K, d, bt, nb_max,
             slot, pos0, rpos, lo, nblk, A, int(window or 0),
             1.0 / math.sqrt(d), acc, m, l, stream_ptr(q))
     return args, (acc, m, l)
 
 
 def decode_pool_partials(q, k_pool, v_pool, layer: int, block_tables,
-                         atom_slot, atom_pos0, *, window=None, row_pos=None):
+                         atom_slot, atom_pos0, *, window=None, row_pos=None,
+                         kv_scale=None, kv_bits: int = 8):
     """(acc, m, l) flash-decode partials of each decode row over its pooled
     past (positions < pos0). ``row_pos`` is the query's own position
     (default pos0); it anchors the sliding window, e.g. in the fused decode
     loop where rows advance while the pool frontier stays put. q [A,H,d];
-    pools [L, nb+1, bs, K*d]. Kernel A on CUDA, plain version on CPU."""
+    pools [L, nb+1, bs, K*d] bf16, or int8/int4 with ``kv_scale``
+    (``kv_bits``). Kernel A (or its int mode) on CUDA, plain version on
+    CPU."""
     if row_pos is None:
         row_pos = atom_pos0
+    kw = dict(window=window, row_pos=row_pos, kv_scale=kv_scale,
+              kv_bits=kv_bits)
+    extra = () if kv_scale is None else (kv_scale,)
     if on_cpu(q, k_pool, v_pool, block_tables, atom_slot, atom_pos0,
-              row_pos):
+              row_pos, *extra):
         return plain_decode_partials(q, k_pool, v_pool, layer, block_tables,
-                                     atom_slot, atom_pos0, window=window,
-                                     row_pos=row_pos)
+                                     atom_slot, atom_pos0, **kw)
     args, out = decode_kernel_args(q, k_pool, v_pool, layer, block_tables,
-                                   atom_slot, atom_pos0, window=window,
-                                   row_pos=row_pos)
-    KERNELS["paged_decode"].launch(*args)
+                                   atom_slot, atom_pos0, **kw)
+    KERNELS[kernel_name("paged_decode", kv_scale, kv_bits)].launch(*args)
     return out
 
 
 def _decode_attention(q, k_self, v_self, k_pool, v_pool, layer, block_tables,
-                      atom_slot, atom_pos0, atom_len, *, window):
+                      atom_slot, atom_pos0, atom_len, *, window, kv_scale=None,
+                      kv_bits=8):
     """Decode-row attention: kernel A's pool partials merged with the self
-    token (position pos0: always visible, inside any window). The merge is
-    plain torch. Shapes q/k_self/v_self [A, H|K, d]."""
+    token (position pos0: always visible, inside any window; never
+    quantized). The merge is plain torch. Shapes q/k_self/v_self
+    [A, H|K, d]."""
     A, H, d = q.shape
     rep = H // k_self.shape[-2]
     acc, m_k, l_k = decode_pool_partials(
         q, k_pool, v_pool, layer, block_tables, atom_slot, atom_pos0,
-        window=window)
+        window=window, kv_scale=kv_scale, kv_bits=kv_bits)
     qf = q.float()
     ks = k_self.float().repeat_interleave(rep, dim=1)
     vs = v_self.float().repeat_interleave(rep, dim=1)
@@ -185,16 +268,20 @@ def _decode_attention(q, k_self, v_self, k_pool, v_pool, layer, block_tables,
 # ---------------------------------------------------------------------------
 
 def plain_past_partials(q, k_pool, v_pool, layer: int, block_tables,
-                        atom_slot, atom_pos0, tq: int, *, window=None):
+                        atom_slot, atom_pos0, tq: int, *, window=None,
+                        kv_scale=None, kv_bits: int = 8):
     """Plain version of kernel B: per-kv-head partials of each chunk atom's
-    rows over its pooled past. q packed [N = A*tq, H, d]. Returns acc
-    [A, K, R=tq*rep, d], m/l [A, K, R] with row ``t*rep + rr`` = token t,
-    head ``kk*rep + rr``."""
+    rows over its pooled past (a quantized pool dequantized per token; q is
+    never quantized here, as in the reference's ``_past_kernel`` :857).
+    q packed [N = A*tq, H, d]. Returns acc [A, K, R=tq*rep, d], m/l
+    [A, K, R] with row ``t*rep + rr`` = token t, head ``kk*rep + rr``."""
     N, H, d = q.shape
-    _, _, bs, K, rep = _pool_geometry((H, d), k_pool)
+    _, _, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     A, R = N // tq, tq * rep
-    kd = _dense_past(k_pool, layer, block_tables, atom_slot, K, d)
-    vd = _dense_past(v_pool, layer, block_tables, atom_slot, K, d)
+    kd = _dense_past(k_pool, layer, block_tables, atom_slot, K, d, kv_scale,
+                     0, kv_bits)
+    vd = _dense_past(v_pool, layer, block_tables, atom_slot, K, d, kv_scale,
+                     1, kv_bits)
     S = kd.shape[1]
     qk = (q.float().reshape(A, tq, K, rep, d).permute(0, 2, 1, 3, 4)
           .reshape(A, K, R, d))
@@ -212,17 +299,17 @@ def plain_past_partials(q, k_pool, v_pool, layer: int, block_tables,
 
 
 def past_kernel_args(q, k_pool, v_pool, layer: int, block_tables, atom_slot,
-                     atom_pos0, tq: int, *, window=None):
-    """Kernel B's launcher arguments and its outputs ``(acc, m, l)``. The
-    oldest row of each atom (position pos0) bounds the window's first live
-    block."""
+                     atom_pos0, tq: int, *, window=None, kv_scale=None,
+                     kv_bits: int = 8):
+    """Kernel B's (or its int mode's) launcher arguments and its outputs
+    ``(acc, m, l)``. The oldest row of each atom (position pos0) bounds the
+    window's first live block."""
     N, H, d = q.shape
-    L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool)
+    L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     A, R = N // tq, tq * rep
     nb_max = block_tables.shape[1]
     cuda_operand(q, "q", torch.bfloat16)
-    cuda_operand(k_pool, "k_pool", torch.bfloat16)
-    cuda_operand(v_pool, "v_pool", torch.bfloat16)
+    pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
     bt = int32_meta(block_tables)
     slot = int32_meta(atom_slot)
     pos0, lo, nblk = _past_ranges(atom_pos0, atom_pos0, bs, nb_max, window)
@@ -230,22 +317,25 @@ def past_kernel_args(q, k_pool, v_pool, layer: int, block_tables, atom_slot,
     acc = torch.empty(A, K, R, d, dtype=torch.float32, device=q.device)
     m = torch.empty(A, K, R, dtype=torch.float32, device=q.device)
     l = torch.empty(A, K, R, dtype=torch.float32, device=q.device)
-    args = (q, k_pool, v_pool, int(layer), nbp1, bs, H, K, d, bt, nb_max,
+    args = (q, *pools, int(layer), nbp1, bs, H, K, d, bt, nb_max,
             slot, pos0, lo, nblk, A, tq, int(window or 0),
             1.0 / math.sqrt(d), acc, m, l, stream_ptr(q))
     return args, (acc, m, l)
 
 
 def past_partials(q, k_pool, v_pool, layer: int, block_tables, atom_slot,
-                  atom_pos0, tq: int, *, window=None):
-    """Kernel B on CUDA, :func:`plain_past_partials` on CPU (same
-    layouts)."""
-    if on_cpu(q, k_pool, v_pool, block_tables, atom_slot, atom_pos0):
+                  atom_pos0, tq: int, *, window=None, kv_scale=None,
+                  kv_bits: int = 8):
+    """Kernel B (or its int mode) on CUDA, :func:`plain_past_partials` on
+    CPU (same layouts)."""
+    kw = dict(window=window, kv_scale=kv_scale, kv_bits=kv_bits)
+    extra = () if kv_scale is None else (kv_scale,)
+    if on_cpu(q, k_pool, v_pool, block_tables, atom_slot, atom_pos0, *extra):
         return plain_past_partials(q, k_pool, v_pool, layer, block_tables,
-                                   atom_slot, atom_pos0, tq, window=window)
+                                   atom_slot, atom_pos0, tq, **kw)
     args, out = past_kernel_args(q, k_pool, v_pool, layer, block_tables,
-                                 atom_slot, atom_pos0, tq, window=window)
-    KERNELS["paged_past"].launch(*args)
+                                 atom_slot, atom_pos0, tq, **kw)
+    KERNELS[kernel_name("paged_past", kv_scale, kv_bits)].launch(*args)
     return out
 
 
@@ -331,13 +421,15 @@ def self_attention(q, k_self, v_self, atom_len, tq: int, seed=None, *,
 
 def _prefill_attention(q, k_self, v_self, k_pool, v_pool, layer, block_tables,
                        atom_slot, atom_pos0, atom_len, tq, *, window,
-                       no_past=False):
+                       no_past=False, kv_scale=None, kv_bits=8):
     """Chunk-atom attention = kernel B's past partials + kernel C's seeded
-    self flash. ``no_past`` (every atom starts at position 0) skips B."""
+    self flash (the atom's own KV stays in compute precision). ``no_past``
+    (every atom starts at position 0) skips B."""
     seed = None
     if not no_past:
         seed = past_partials(q, k_pool, v_pool, layer, block_tables,
-                             atom_slot, atom_pos0, tq, window=window)
+                             atom_slot, atom_pos0, tq, window=window,
+                             kv_scale=kv_scale, kv_bits=kv_bits)
     return self_attention(q, k_self, v_self, atom_len, tq, seed,
                           window=window)
 
@@ -345,19 +437,21 @@ def _prefill_attention(q, k_self, v_self, k_pool, v_pool, layer, block_tables,
 def ragged_paged_attention(q, k_self, v_self, k_pool, v_pool, block_tables,
                            atom_slot, atom_pos0, atom_len, tq: int,
                            window: Optional[int] = None, layer: int = 0,
-                           no_past: bool = False) -> torch.Tensor:
+                           no_past: bool = False, kv_scale=None,
+                           kv_bits: int = 8) -> torch.Tensor:
     """Attention over the atoms of the packed token row: ``q``/``k_self``/
     ``v_self`` [N, H|K, d] with N = n_atoms*tq; atom ``a`` covers rows
     ``[a*tq, a*tq + atom_len[a])`` at positions ``atom_pos0[a] + i`` of slot
-    ``atom_slot[a]``. Pools are stacked lane-folded; ``layer`` picks the
-    layer. Returns [N, H, d]."""
+    ``atom_slot[a]``. Pools are stacked lane-folded (bf16, or int8/int4 with
+    ``kv_scale``); ``layer`` picks the layer. Returns [N, H, d]."""
+    kw = dict(window=window, kv_scale=kv_scale, kv_bits=kv_bits)
     if tq == 1:
         return _decode_attention(q, k_self, v_self, k_pool, v_pool, layer,
                                  block_tables, atom_slot, atom_pos0, atom_len,
-                                 window=window)
+                                 **kw)
     return _prefill_attention(q, k_self, v_self, k_pool, v_pool, layer,
                               block_tables, atom_slot, atom_pos0, atom_len,
-                              tq, window=window, no_past=no_past)
+                              tq, no_past=no_past, **kw)
 
 
 def plain_ragged_attention(q, k_self, v_self, k_pool, v_pool, block_tables,
@@ -427,3 +521,68 @@ def packed_kv_append(pool: torch.Tensor, new_rows: torch.Tensor,
     flat.index_copy_(0, idx.reshape(-1),
                      rows.reshape(-1, KD).to(pool.dtype))
     return pool
+
+
+def cache_append(cache: dict, k_rows: torch.Tensor, v_rows: torch.Tensor,
+                 block_tables: torch.Tensor, tok_slot: torch.Tensor,
+                 tok_pos: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> None:
+    """Append per-token K/V rows of every layer ([L, N, K, d]) to a paged
+    cache dict in place: :func:`packed_kv_append` into bf16 pools, or
+    :func:`packed_kv_append_quant` into int pools and ``cache["kv_scale"]``
+    (int4 when the pool has half the rows' ``K*d`` lanes)."""
+    if "kv_scale" not in cache:
+        for pool, rows in ((cache["k"], k_rows), (cache["v"], v_rows)):
+            packed_kv_append(pool, rows, block_tables, tok_slot, tok_pos,
+                             valid)
+        return
+    KD = k_rows.shape[-1] * k_rows.shape[-2]
+    bits = 4 if 2 * cache["k"].shape[-1] == KD else 8
+    for which, (pool, rows) in enumerate(((cache["k"], k_rows),
+                                          (cache["v"], v_rows))):
+        packed_kv_append_quant(pool, cache["kv_scale"], rows, block_tables,
+                               tok_slot, tok_pos, which, valid, bits=bits)
+
+
+def packed_kv_append_quant(pool: torch.Tensor, scale_pool: torch.Tensor,
+                           new_rows: torch.Tensor, block_tables: torch.Tensor,
+                           tok_slot: torch.Tensor, tok_pos: torch.Tensor,
+                           which: int, valid: Optional[torch.Tensor] = None,
+                           bits: int = 8):
+    """Quantize per-token KV rows of ALL layers and write them into an
+    int8/int4 pool IN PLACE, with their scales into ``scale_pool``
+    ``[L, nb+1, 1, 2*bs]`` half ``which`` (0 = k, 1 = v); returns ``(pool,
+    scale_pool)`` (the same tensors). One scale per token over all ``K*d``
+    features: amax times the fp32 reciprocal of qmax (127 or 7; XLA
+    compiles the reference's ``amax / qmax`` so), floor 1e-8, values rounded
+    half-to-even and clipped to ``+-qmax``; int4 packs feature ``j`` with
+    ``j + K*d/2`` (global lane pairing). Bit-identical to the reference's
+    ``packed_kv_append_quant`` (:1268) under jit. ``new_rows`` [L, N, K, d] or
+    [L, N, K*d]; rows with ``valid`` False are never written."""
+    L, nbp1, bs, lanes = pool.shape
+    N = new_rows.shape[1]
+    KD = (new_rows.shape[-1] * new_rows.shape[-2] if new_rows.ndim == 4
+          else new_rows.shape[-1])
+    rows = new_rows.reshape(L, N, KD).float()
+    qmax = 7.0 if bits == 4 else 127.0
+    sc = torch.clamp_min(rows.abs().amax(dim=-1) * (1.0 / qmax), 1e-8)
+    q = torch.clamp(torch.round(rows / sc[..., None]), -qmax, qmax)
+    q = q.to(torch.int32)
+    if bits == 4:
+        q = (q[..., :KD // 2] & 0xF) | ((q[..., KD // 2:] & 0xF) << 4)
+    q = q.to(torch.int8)
+    bt_rows = block_tables[tok_slot.long()].long()             # [N, nb_max]
+    logical = torch.clamp(torch.div(tok_pos.long(), bs, rounding_mode="floor"),
+                          0, bt_rows.shape[1] - 1)
+    phys = bt_rows.gather(1, logical[:, None])[:, 0]
+    off = tok_pos.long() % bs
+    blk = torch.arange(L, device=pool.device)[:, None] * nbp1 + phys[None, :]
+    idx = blk * bs + off[None, :]                              # [L, N]
+    sidx = blk * (2 * bs) + which * bs + off[None, :]
+    if valid is not None:
+        keep = valid.bool()
+        q, sc, idx, sidx = q[:, keep], sc[:, keep], idx[:, keep], sidx[:, keep]
+    pool.view(L * nbp1 * bs, lanes).index_copy_(0, idx.reshape(-1),
+                                                 q.reshape(-1, lanes))
+    scale_pool.view(-1).index_copy_(0, sidx.reshape(-1), sc.reshape(-1))
+    return pool, scale_pool

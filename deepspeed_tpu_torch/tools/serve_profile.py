@@ -4,12 +4,16 @@ warm ``decode_batch`` and mixed ``put`` steps of the engine.
     python -m deepspeed_tpu_torch.tools.serve_profile [--preset llama3-8b]
         [--batch 6] [--steps 8] [--past 700]
 
-Prints, for each profiled phase, the wall time per step (profiler on, so
-above an unprofiled run), the device time the profiler recorded (sum of
-CUDA kernel durations, one stream), the device's idle share of the wall
-time, the number of kernel launches, and the top kernels by device time;
-then the card's name and power limit. Weights are random
-(seed 0); the numbers depend on shapes only. Needs a CUDA card.
+Two configurations, one after the other: the bf16 engine (``decode_batch``
+and a mixed ``put``), then Q1, the quantized engine of ``chip_smoke.py``'s
+serve-quant phase (int4 weights through kernels G/H, an int8 KV pool
+through A/B's int8 modes), ``decode_batch`` only. Prints, for each
+profiled phase, the wall time per step (profiler on, so above an
+unprofiled run), the device time the profiler recorded (sum of CUDA kernel
+durations, one stream), the device's idle share of the wall time, the
+number of kernel launches, and the top kernels by device time; then the
+card's name and power limit. Weights are random (seed 0); the numbers
+depend on shapes only. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -82,28 +86,38 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA card")
+    import gc
+
     from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
 
     cfg = get_preset(args.preset, param_dtype="bfloat16")
-    eng = InferenceEngineV2(TransformerLM(cfg), max_sequences=8,
-                            max_seq_len=2048, block_size=128, device="cuda")
-    rng = np.random.default_rng(0)
     uids = list(range(args.batch))
-    eng.put(uids, [rng.integers(1, cfg.vocab_size, args.past).astype(np.int32)
-                   for _ in uids])
     toks = [1] * args.batch
-    profile_phase(f"decode_batch B={args.batch}",
-                  lambda: eng.decode_batch(uids, toks, steps=args.steps),
-                  args.steps)
-    spare = 7
-    chunk = rng.integers(1, cfg.vocab_size, 256).astype(np.int32)
+    for tag, quant in (("bf16", {}),
+                       ("Q1", dict(weight_dtype="int4", kv_dtype="int8"))):
+        eng = InferenceEngineV2(TransformerLM(cfg), max_sequences=8,
+                                max_seq_len=2048, block_size=128,
+                                device="cuda", **quant)
+        rng = np.random.default_rng(0)
+        eng.put(uids, [rng.integers(1, cfg.vocab_size,
+                                    args.past).astype(np.int32)
+                       for _ in uids])
+        profile_phase(f"{tag} decode_batch B={args.batch}",
+                      lambda: eng.decode_batch(uids, toks, steps=args.steps),
+                      args.steps)
+        if not quant:
+            spare = 7
+            chunk = rng.integers(1, cfg.vocab_size, 256).astype(np.int32)
 
-    def mixed():
-        eng.put(uids + [spare], [np.array([t], np.int32) for t in toks]
-                + [chunk])
-        eng.flush([spare])
+            def mixed():
+                eng.put(uids + [spare], [np.array([t], np.int32)
+                                         for t in toks] + [chunk])
+                eng.flush([spare])
 
-    profile_phase(f"mixed put B={args.batch}+256", mixed, 1)
+            profile_phase(f"{tag} mixed put B={args.batch}+256", mixed, 1)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     print_card()
     return 0
 

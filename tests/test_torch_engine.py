@@ -156,9 +156,14 @@ def test_capacity_and_unported_options():
     with pytest.raises(CapacityError):
         eng.put([0], [np.arange(1, 66, dtype=np.int32)])      # > max_seq_len
     assert eng.state.sequences == {}
-    for kw in (dict(kv_dtype="int8"), dict(weight_dtype="int4"),
-               dict(packed=False), dict(paged=False)):
+    for kw in (dict(packed=False), dict(paged=False)):
         with pytest.raises(NotImplementedError):
+            InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
+    # quantized KV and weights are ported; a bad value raises as the
+    # reference does (engine_v2.py:122-124, :149-151)
+    for kw, what in ((dict(kv_dtype="int2"), "kv_dtype"),
+                     (dict(weight_dtype="fp8"), "weight_dtype")):
+        with pytest.raises(ValueError, match=what):
             InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
     eng.put([0], [np.arange(1, 5, dtype=np.int32)])
     with pytest.raises(NotImplementedError, match="sampling"):

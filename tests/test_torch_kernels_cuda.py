@@ -1,6 +1,7 @@
-"""Kernels A-F of the PyTorch port against their plain versions on the card
-(bf16; atol = rtol = 2e-2 on normalised outputs, 1e-2 on m and lse; the
-backward's dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs). Every test here is
+"""Kernels A-H of the PyTorch port, and the int8 / int4 modes of A and B,
+against their plain versions on the card (bf16; atol = rtol = 2e-2 on
+normalised outputs and on G/H's products, 1e-2 on m and lse; the backward's
+dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs). Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on the machine with the card:
 
@@ -282,3 +283,152 @@ def test_train_steps_on_card_match_the_cpu_engine(cuda_device):
     np.testing.assert_allclose(gn, cn, rtol=5e-2)
     assert all(KERNELS[n].launches > 0
                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,D,F,group,layer", [
+    (1, 4096, 4096, 128, None), (6, 4096, 28672, 128, 2),
+    (16, 14336, 4096, 128, 1), (17, 512, 384, 256, None),
+    (256, 4096, 1024, 128, 0), (200, 256, 128, 128, 3)])
+def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
+                                         layer):
+    """G (one matrix) and H (layer of a 4-deep stack), row tiles of 16 and
+    64, split and unsplit contractions, groups of 128 and 256."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    g = torch.Generator(device=cuda_device).manual_seed(B + D + F + bits)
+    L = 1 if layer is None else 4
+    ps, ss = [], []
+    for _ in range(L):
+        w = torch.randn(D, F, generator=g, device=cuda_device) / D ** 0.5
+        p, sc = tqm.quantize_matmul_weight(w, bits=bits, group=group)
+        ps.append(p)
+        ss.append(sc.bfloat16())
+    packed, scales = torch.stack(ps), torch.stack(ss)
+    if layer is None:
+        packed, scales = packed[0], scales[0]
+    x = torch.randn(B, D, generator=g, device=cuda_device).bfloat16()
+    name = "qmm" if layer is None else "qmm_stacked"
+    n = KERNELS[name].launches
+    out = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == n + 1
+    ref = tqm.plain_quantized_matmul(x, packed, scales, bits, layer)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def _card_quant_pools(dev, bits, nbp1=65, bs=128, K=8, d=128):
+    """int pools filled through the port's append (every slot and
+    position), rows of varied amplitude."""
+    from deepspeed_tpu_torch.ops.paged_attention import packed_kv_append_quant
+
+    g = torch.Generator(device=dev).manual_seed(bits)
+    bt = torch.randperm(nbp1 - 1, generator=g, device=dev).to(torch.int32)
+    bt = bt.reshape(4, 16).contiguous()
+    lanes = K * d // (2 if bits == 4 else 1)
+    pools = [torch.zeros(2, nbp1, bs, lanes, dtype=torch.int8, device=dev)
+             for _ in "kv"]
+    scale = torch.zeros(2, nbp1, 1, 2 * bs, device=dev)
+    slot = torch.arange(4, device=dev).repeat_interleave(16 * bs)
+    pos = torch.arange(16 * bs, device=dev).repeat(4)
+    for which, pool in enumerate(pools):
+        rows = torch.randn(2, len(slot), K, d, generator=g, device=dev)
+        rows = rows * (0.2 + 3 * torch.rand(2, len(slot), 1, 1, generator=g,
+                                            device=dev))
+        packed_kv_append_quant(pool, scale, rows, bt, slot, pos, which,
+                               bits=bits)
+    return pools[0], pools[1], scale, bt, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("window,shift", [(None, 0), (300, 0), (256, 9)])
+def test_kernel_a_int_modes_match_plain_on_card(cuda_device, bits, window,
+                                                shift):
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits)
+    q = torch.randn(6, 32, 128, generator=g, device=cuda_device).bfloat16()
+    slot = torch.tensor([0, 1, 2, 3, 0, 1], device=cuda_device)
+    pos0 = torch.tensor([0, 1, 129, 700, 2047, 64], device=cuda_device)
+    row = pos0 + shift
+    kw = dict(window=window, row_pos=row, kv_scale=sc, kv_bits=bits)
+    name = f"paged_decode_int{bits}"
+    n = KERNELS[name].launches
+    acc, m, l = tpa.decode_pool_partials(q, kp, vp, 1, bt, slot, pos0, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == n + 1
+    ra, rm, rl = tpa.plain_decode_partials(q, kp, vp, 1, bt, slot, pos0, **kw)
+    live = rl > 0
+    torch.testing.assert_close(_norm(acc, l)[live], _norm(ra, rl)[live],
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+    assert float(l[~live].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
+def test_kernel_b_int_modes_match_plain_on_card(cuda_device, bits, tq,
+                                                window):
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits)
+    q = torch.randn(3 * tq, 32, 128, generator=g, device=cuda_device).bfloat16()
+    slot = torch.tensor([0, 2, 3], device=cuda_device)
+    pos0 = torch.tensor([256, 1000, 5], device=cuda_device)
+    kw = dict(window=window, kv_scale=sc, kv_bits=bits)
+    name = f"paged_past_int{bits}"
+    n = KERNELS[name].launches
+    acc, m, l = tpa.past_partials(q, kp, vp, 0, bt, slot, pos0, tq, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == n + 1
+    ra, rm, rl = tpa.plain_past_partials(q, kp, vp, 0, bt, slot, pos0, tq,
+                                         **kw)
+    torch.testing.assert_close(_norm(acc, l), _norm(ra, rl), atol=2e-2,
+                               rtol=2e-2)
+    live = rl > 0
+    torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,kd", [("int4", "int8"), ("int8", "int4")])
+def test_quant_engine_on_card_matches_plain_cpu_engine(cuda_device, wd, kd):
+    """The quantized serving path on the card (G/H and A/B's int modes)
+    against the same engine on the CPU (plain versions): the same bf16
+    weights quantize to the same tree on both; logits within 5e-2 (bf16
+    rounding of a 2-layer model whose logits are O(1)), and every kernel of
+    the pair launched."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+    from deepspeed_tpu_torch.ops._build import KERNELS, reset_counts
+
+    cfg = get_preset("tiny", hidden_size=256, num_heads=4, num_kv_heads=2,
+                     max_seq_len=512)
+    model = TransformerLM(cfg)
+    params = model.init(seed=0, device="cpu")
+    kw = dict(max_sequences=4, max_seq_len=512, block_size=16,
+              weight_dtype=wd, kv_dtype=kd)
+    engines = {d: InferenceEngineV2(model, params, device=d, **kw)
+               for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, n).astype(np.int32) for n in (5, 40)]
+    longp = rng.integers(1, 256, 300).astype(np.int32)   # > MAX_ATOM
+    reset_counts()
+    out = {}
+    for d, eng in engines.items():
+        a = eng.put([0, 1], prompts)
+        b = eng.put([0, 1, 2], [np.array([7], np.int32),
+                                np.array([9], np.int32), longp])
+        c = eng.put([0, 1, 2], [np.array([3], np.int32)] * 3)
+        out[d] = (a, b, c)
+    for step in range(3):
+        for uid, lg in out["cpu"][step].items():
+            np.testing.assert_allclose(out["cuda"][step][uid], lg, atol=5e-2,
+                                       rtol=5e-2)
+    names = ("qmm", "qmm_stacked", f"paged_decode_{kd}", f"paged_past_{kd}")
+    assert all(KERNELS[n].launches > 0 for n in names), \
+        {n: k.launches for n, k in KERNELS.items()}

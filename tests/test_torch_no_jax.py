@@ -44,9 +44,13 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch, deepspeed_tpu_torch.bridge\n"
         "import deepspeed_tpu_torch.ops.flash_attention\n"
         "import deepspeed_tpu_torch.ops.paged_attention\n"
+        "import deepspeed_tpu_torch.ops.quant_matmul\n"
+        "import deepspeed_tpu_torch.inference.quant\n"
         "import deepspeed_tpu_torch.config, deepspeed_tpu_torch.runtime\n"
         "import deepspeed_tpu_torch.runtime.engine\n"
         "import deepspeed_tpu_torch.tools.train_profile\n"
+        "import deepspeed_tpu_torch.tools.serve_profile\n"
+        "import deepspeed_tpu_torch.tools.qmm_sweep\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "

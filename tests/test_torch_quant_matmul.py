@@ -1,0 +1,153 @@
+"""Fused dequant-matmul of the PyTorch port (kernels G/H' plain version and
+the shape rule) against the JAX package on the CPU, from numpy-seeded fp32
+inputs.
+
+* ``quantize_matmul_weight`` gives bit-identical packed bytes and scales,
+  int8 and int4, to the reference as its engine runs it, under ``jax.jit``
+  (XLA turns ``amax / qmax`` into a product with the reciprocal, which
+  differs from op-by-op JAX in the last bit of some scales), and
+  ``dequantize_matmul_weight`` the same bf16 weights;
+* the plain G/H match the JAX ``quantized_matmul`` in Pallas interpret mode,
+  ``layer=`` on a stack included, at D = F = 256 and B in {1, 8, 256}, to
+  atol = rtol = 1e-5 (fp32 sums in another order);
+* off the shape rule (B > 256, D or F not a multiple of 128) both compute
+  ``x @ dequantize(...)`` on bf16-rounded weights: the same to 1e-5.
+
+The random weights give every byte's two int4 nibbles different values in
+most bytes (checked), so a kernel or unpack that swapped the in-group
+de-interleave for the KV pool's global pairing would fail here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import quant_matmul as jqm
+from deepspeed_tpu_torch.ops import quant_matmul as tqm
+from deepspeed_tpu_torch.ops._build import KERNELS
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _w(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("D,F,group", [(256, 256, 128), (512, 384, 256),
+                                       (128, 128, 128)])
+def test_quantize_is_bit_identical(bits, D, F, group):
+    w = _w((D, F), D + F + bits)
+    w[3, 5] = 0.0                                  # exact zeros and ties
+    w[7] = 0.0
+    pj, sj = jax.jit(jqm.quantize_matmul_weight, static_argnums=(1, 2))(
+        jnp.asarray(w), bits, group)
+    pt, st = tqm.quantize_matmul_weight(torch.from_numpy(w), bits=bits,
+                                        group=group)
+    assert pt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    dj = np.asarray(jqm.dequantize_matmul_weight(pj, sj, bits, D)
+                    .astype(jnp.float32))
+    dt = tqm.dequantize_matmul_weight(pt, st, bits, D).float().numpy()
+    np.testing.assert_array_equal(dt, dj)
+
+
+def test_int4_nibbles_differ():
+    """The test weights exercise both halves of the in-group layout."""
+    p, _ = tqm.quantize_matmul_weight(torch.from_numpy(_w((256, 256), 0)),
+                                      bits=4)
+    b = p.to(torch.int32)
+    lo, hi = (b << 28) >> 28, b >> 4
+    assert float((lo != hi).float().mean()) > 0.8
+
+
+def _stack(L, D, F, bits, seed):
+    ps, ss = [], []
+    for i in range(L):
+        p, s = tqm.quantize_matmul_weight(
+            torch.from_numpy(_w((D, F), seed + i)), bits=bits)
+        ps.append(p)
+        ss.append(s)
+    return torch.stack(ps), torch.stack(ss)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 8, 256])
+@pytest.mark.parametrize("layer", [None, 2])
+def test_plain_g_h_match_pallas_interpret(bits, B, layer):
+    D = F = 256
+    packed, scales = _stack(3, D, F, bits, seed=10 * bits + B)
+    x = _w((B, D), B)
+    if layer is None:
+        packed, scales = packed[1], scales[1]
+    want = jqm.quantized_matmul(jnp.asarray(x), jnp.asarray(packed.numpy()),
+                                jnp.asarray(scales.numpy()), bits=bits,
+                                interpret=True,
+                                layer=None if layer is None
+                                else jnp.int32(layer))
+    assert tqm.uses_kernel(torch.from_numpy(x), scales)
+    n = {k: KERNELS[k].launches for k in ("qmm", "qmm_stacked")}
+    got = tqm.quantized_matmul(torch.from_numpy(x), packed, scales, bits=bits,
+                               layer=layer)
+    assert {k: KERNELS[k].launches for k in n} == n      # CPU: no kernel
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain = tqm.plain_quantized_matmul(torch.from_numpy(x), packed, scales,
+                                       bits, layer)
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,D,F", [(257, 256, 256), (4, 192, 256),
+                                   (4, 256, 192)])
+def test_off_shape_rule_uses_the_dense_product(bits, B, D, F):
+    group = 64 if D % 128 else 128
+    p, s = tqm.quantize_matmul_weight(torch.from_numpy(_w((D, F), D)),
+                                      bits=bits, group=group)
+    x = _w((B, D), B + D)
+    assert not tqm.uses_kernel(torch.from_numpy(x), s)
+    want = jqm.quantized_matmul(jnp.asarray(x), jnp.asarray(p.numpy()),
+                                jnp.asarray(s.numpy()), bits=bits,
+                                interpret=True)
+    got = tqm.quantized_matmul(torch.from_numpy(x), p, s, bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    dense = torch.from_numpy(x) @ tqm.dequantize_matmul_weight(
+        p, s, bits, D).float()
+    np.testing.assert_array_equal(got.numpy(), dense.numpy())
+
+
+def test_kernel_args_refuse_a_mismatched_stack():
+    """The launcher arguments are checked before any launch: a packed stack
+    of the wrong width, or a layer outside the stack, raises."""
+    packed, scales = _stack(2, 256, 256, 4, seed=3)
+    x = torch.zeros(4, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not match int8"):
+        tqm.qmm_kernel_args(x, packed, scales.bfloat16(), 8, layer=0)
+    with pytest.raises(IndexError, match="outside a stack"):
+        tqm.qmm_kernel_args(x, packed, scales.bfloat16(), 4, layer=2)
+
+
+@pytest.mark.parametrize("B,F,G,want", [(6, 128256, 32, 1), (6, 4096, 32, 16),
+                                        (6, 4096, 112, 16), (6, 28672, 32, 3),
+                                        (256, 28672, 32, 1), (8, 6144, 32, 11),
+                                        (17, 384, 2, 2)])
+def test_splits_fill_the_card_and_cover_every_group(B, F, G, want):
+    splits = tqm.qmm_splits(B, F, G)
+    assert splits == want
+    per = -(-G // splits)
+    assert (splits - 1) * per < G <= splits * per
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantizing_a_transposed_view_gives_kernel_ready_tensors(bits):
+    """A tied head is quantized from ``embed.T``: the packed bytes and
+    scales must still come out contiguous (the kernels refuse strided
+    operands) and equal those of a contiguous copy."""
+    w = torch.from_numpy(_w((512, 256), 9)).T
+    p, s = tqm.quantize_matmul_weight(w, bits=bits)
+    pc, sc = tqm.quantize_matmul_weight(w.contiguous(), bits=bits)
+    assert p.is_contiguous() and s.is_contiguous()
+    assert torch.equal(p, pc) and torch.equal(s, sc)

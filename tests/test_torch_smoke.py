@@ -3,8 +3,10 @@ cross-path check (chunked vs whole-prompt prefill logits, relative L2 gate
 ``CROSS_PATH_REL_L2``), measured on the CPU with a tiny bf16 model, its
 serve-phase ``Replay`` driven through a tiny CPU engine, and its train
 phase's ``TrainReplay`` and gradient cross-check (``GRAD_REL_L2``) driven
-through a tiny CPU training engine, and its per-tile gate of the
-backward kernels (``close_tiles``)."""
+through a tiny CPU training engine, its per-tile gate of the
+backward kernels (``close_tiles``), and its serve-quant phase's
+``QuantReplay`` and weight cross-check (``WEIGHT_REL_L2``) on a tiny
+quantized CPU engine."""
 
 import functools
 import os
@@ -21,6 +23,7 @@ import chip_smoke
 from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from deepspeed_tpu_torch.ops import quant_matmul as tqm
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -246,3 +249,96 @@ def test_tile_gate_sees_a_late_tile_fault_a_tensor_wide_gate_misses(grad):
         chip_smoke.BWD_REL * float(want.abs().max())
     with pytest.raises(AssertionError, match="tiles over the gate"):
         chip_smoke.close_tiles("late", got, want)
+
+
+def _quant_engine(wd="int4", kd="int8", seed=0):
+    """A tiny engine whose every matmul leaf quantizes (dims multiples of
+    128), fp32 on the CPU."""
+    cfg = get_preset("tiny", dtype="float32", vocab_size=512, hidden_size=128,
+                     num_kv_heads=2, max_seq_len=256)
+    model = TransformerLM(cfg)
+    model.MAX_ATOM = 16
+    params = model.init(seed=seed, device="cpu")
+    return InferenceEngineV2(model, params, max_sequences=8, max_seq_len=128,
+                             block_size=8, device="cpu", weight_dtype=wd,
+                             kv_dtype=kd), params
+
+
+def _quant_traffic(eng, replay):
+    rng = np.random.default_rng(5)
+    firsts = [rng.integers(1, 512, n).astype(np.int32) for n in (5, 9)]
+    fresh = rng.integers(1, 512, 40).astype(np.int32)     # > MAX_ATOM = 16
+    replay.stage = "put"
+    out = eng.put([0, 1], firsts)
+    nxt = [int(np.argmax(out[u])) for u in (0, 1)]
+    replay.stage = "mixed"
+    out = eng.put([0, 1, 2], [np.array([t], np.int32) for t in nxt] + [fresh])
+    replay.stage = "decode_batch"
+    eng.decode_batch([0, 1, 2], [int(np.argmax(out[u])) for u in (0, 1, 2)],
+                     steps=3)
+
+
+@pytest.mark.parametrize("wd,kd", [("int4", "int8"), ("int8", "int4")])
+def test_quant_replay_captures_each_stage_and_restores_the_wrappers(wd, kd):
+    eng, _ = _quant_engine(wd, kd)
+    originals = (tpa.decode_pool_partials, tpa.past_partials,
+                 tqm.quantized_matmul)
+    with chip_smoke.QuantReplay(torch, tpa, tqm, int(kd[-1])) as replay:
+        _quant_traffic(eng, replay)
+    assert (tpa.decode_pool_partials, tpa.past_partials,
+            tqm.quantized_matmul) == originals
+    assert replay.REQUIRED <= set(replay.captured)
+    x, _ = replay.captured[("qmm_stacked", "decode_batch")]
+    assert x["packed"].shape[0] == 1 and x["layer"] == 0   # one layer kept
+    errs = replay.check()
+    assert max(errs.values()) == 0.0          # plain against plain on CPU
+
+
+def test_quant_replay_sees_a_faulty_head_launch(monkeypatch):
+    """Kernel G's output 5% off must fail the replay; H's stays clean."""
+    real = tqm.quantized_matmul
+
+    @functools.wraps(real)
+    def faulty(x, packed, scales, bits=4, layer=None):
+        out = real(x, packed, scales, bits, layer)
+        return out * 1.05 if layer is None else out
+
+    monkeypatch.setattr(tqm, "quantized_matmul", faulty)
+    eng, _ = _quant_engine()
+    with chip_smoke.QuantReplay(torch, tpa, tqm, 8) as replay:
+        _quant_traffic(eng, replay)
+    with pytest.raises(AssertionError, match=r"replay qmm \("):
+        replay.check()
+
+
+@pytest.mark.parametrize("bits,fault", [(8, False), (4, False), (4, True)])
+def test_weight_cross_check_passes_g_h_against_their_dense_weights(
+        bits, fault, monkeypatch):
+    """The cross-check's reference: the quantized tree expanded to dense
+    weights (untied head) serves the logits of the packed tree through G/H's
+    plain version to rel L2 6.2e-3 (int8) / 7.2e-3 (int4) here, inside the
+    gate -- the dense oracle rounds q x scale to bf16, G/H do not; an H whose
+    products are 5% off fails it. The served tree is smaller than the dense
+    one."""
+    import dataclasses
+
+    if fault:
+        real = tqm.quantized_matmul
+        monkeypatch.setattr(tqm, "quantized_matmul", lambda *a, **kw: real(
+            *a, **kw) * (1.05 if kw.get("layer") is not None else 1.0))
+    eng, params = _quant_engine(f"int{bits}", "bf16")
+    ref = InferenceEngineV2(
+        TransformerLM(dataclasses.replace(eng.cfg, tie_embeddings=False)),
+        chip_smoke.dequantized_tree(torch, tqm, eng.params), max_sequences=8,
+        max_seq_len=128, block_size=8, device="cpu")
+    prompts = [np.arange(1, 31, dtype=np.int32), np.arange(7, 27,
+                                                            dtype=np.int32)]
+    got, want = eng.put([0, 1], prompts), ref.put([0, 1], prompts)
+    rel = max(float(np.linalg.norm(got[u] - want[u]) / np.linalg.norm(want[u]))
+              for u in (0, 1))
+    if fault:
+        assert rel > 2 * chip_smoke.WEIGHT_REL_L2
+        return
+    assert rel <= chip_smoke.WEIGHT_REL_L2 / 2
+    assert chip_smoke.tree_bytes(eng.params) < \
+        (0.6 if bits == 8 else 0.45) * chip_smoke.tree_bytes(params)
