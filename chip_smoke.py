@@ -25,7 +25,17 @@ Phases, in order (any failure raises and the script exits non-zero):
               (causal) and at d=128 (B=1), dq/dk/dv held per 64-row tile
               (each batch row and head: max abs error <= 2e-2 x that
               tile's max |plain|), timed likewise beside one SDPA backward
-              (its backend named);
+              (its backend named); kernel I at the serve shapes (a t=1
+              tile over 8 slots at A's pasts, a t=700 tile over 4 slots
+              from position 0; its output held per 64-row tile like
+              dq/dk/dv), J on [4096, 4096] and [6, 4096] bf16 and
+              [4096, 4096] fp32 rows (forward, and the autograd backward
+              against the plain version's; 1e-2 bf16, 1e-5 fp32, beside
+              ``F.rms_norm``) and K on the probe's 256 MB array (relative
+              1e-6, beside ``torch.sum``); then J's and K's entry points
+              with the counts at 0 -- ``measure_hbm_bandwidth()``, whose
+              copy and stream rates are printed beside the data sheet's
+              3.35 TB/s, and the op builder's RMSNorm -- each must launch;
 4. serve   -- ``InferenceEngineV2`` on ``llama3-8b`` at full width and depth
               (random bf16 weights from seed 0, rescaled so attention
               weighs in the residual stream; max_seq_len cut to 2048,
@@ -71,6 +81,32 @@ Phases, in order (any failure raises and the script exits non-zero):
               engine served the dense bf16 weights they dequantize to,
               last-token logits rel L2 <= 2e-2.
 
+7. serve-dense -- ``llama3-8b`` at full width and depth on phase 6's weights
+              (one bf16 tree that every engine shares, none copies),
+              ``max_seq_len`` 2048, 8 slots, block 128: (c)
+              ``init_inference(model, params=tree)`` runs ``forward`` and a
+              greedy ``generate`` of 16 tokens on four 128-token prompts,
+              every step's logits captured; a packed engine runs phase 4's
+              four prompts in one ``put`` and 16 single-token ``put`` steps
+              on its own argmax, then the four 128-token prompts and one
+              ``put`` per token ``generate`` chose; (a) ``packed=False``
+              (kernel I) and (b) ``paged=False`` run phase 4's traffic fed
+              the same tokens, every logits vector finite, I's first launch
+              replayed through ``plain_paged_attention`` per 64-row tile;
+              then the op builder's RMSNorm on the card. I and J must
+              launch. Against the packed engine, relative L2 of every
+              logits vector: ``forward`` <= 2e-2 (the same kernels);
+              (a), (b) and (c)'s ``generate`` steps within limits that lie
+              between their sound readings and those of controls that
+              drop each row's newest visible column from their attention
+              (kernel I's wrapper for (a), the dense cache's attention for
+              (b) and (c)), each control past twice its limit; the packed
+              engine's own bf16 noise floor (its prompts put one at a
+              time) is printed beside them. Then the same at 2 layers of
+              the same width (seed-0 weights at the init scale) with the
+              gate at 2e-2 for all of them. Prints the prompt put's
+              tokens/s and the decode put's ms for each engine.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -78,6 +114,7 @@ limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import inspect
 import itertools
@@ -91,13 +128,25 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 ATOL = RTOL = 2e-2             # normalised outputs, bf16 inputs
 STAT_TOL = 1e-2                # m / lse
-BWD_REL = 2e-2                 # dq/dk/dv, per tile: max abs err / max |plain|
+BWD_REL = 2e-2                 # dq/dk/dv and kernel I's output, per 64-row
+                               # tile: max abs err / max |plain|
 TILE = 64                      # rows of a kernel tile
 CROSS_PATH_REL_L2 = 2e-2       # chunked vs whole-prompt last-token logits
 GRAD_REL_L2 = 2e-2             # per-leaf grads, kernels vs plain attention
 WEIGHT_REL_L2 = 2e-2           # G/H logits vs dense dequantized weights
+DENSE_REL_L2 = 2e-2            # dense-tile / v1 logits vs the packed engine
+DENSE_CONTROL_MARGIN = 2       # a control's reading / the gate, at least
+# Phase 7 at full depth (attention_heavy bf16 weights): the packed engine's
+# own bf16 noise is above DENSE_REL_L2, so each engine's limit lies between
+# its sound reading and its control's (each row's newest column dropped);
+# PERF.md's serve-dense entry gives both readings.
+DENSE_FULL_REL_L2 = {"a": 0.15, "b": 0.45, "c": 0.3}
+DENSE_FULL_CONTROL_MARGIN = 2
+RMS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # J, forward and backward
+STREAM_REL = 1e-6              # K's sum vs its plain version
 SERVE_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -128,8 +177,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
+    """(ms, "bytes" | "operations"): the larger of bytes over the card's
+    memory rate and operations over its peak rate for their type (bf16
+    tensor-core products unless ``flops_per_s`` says otherwise)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -585,11 +637,162 @@ def backward_checks(torch, fa, KERNELS):
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}, library {r['library_ms']} "
             f"{r.get('library', 'SDPA')}) [{r['shape']}]")
-        for t, (err, scale, worst) in r.get("tiles", {}).items():
-            log(f"kernel {name} {t}: max abs err {err:.3e}, max |plain| "
-                f"{scale:.3e}, worst {TILE}-row tile err / tile max |plain| "
-                f"{worst:.3e} (gate {BWD_REL})")
+        log_tiles(name, r)
     return rows
+
+
+def log_tiles(name: str, r: dict) -> None:
+    """A row's :func:`close_tiles` readings, one line per tensor."""
+    for t, (err, scale, worst) in r.get("tiles", {}).items():
+        log(f"kernel {name} {t}: max abs err {err:.3e}, max |plain| "
+            f"{scale:.3e}, worst {TILE}-row tile err / tile max |plain| "
+            f"{worst:.3e} (gate {BWD_REL})")
+
+
+def tile_checks(torch, pa, KERNELS):
+    """Kernel I at the serve shapes (H=32, K=8, d=128, block 128, 16 blocks
+    a slot): a t=1 tile over 8 slots at kernel A's pasts (38-1101, two
+    empty), and a t=700 tile over 4 slots from position 0 (phase 7's
+    prompt step). Held per 64-row tile, slot and head (:func:`close_tiles`):
+    late causal rows average hundreds of columns and are small, so one
+    tensor-wide tolerance would let a fault in the late columns pass."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9012)
+    H, K, d, bs, nb_max, n_slots = 32, 8, 128, 128, 16, 8
+    nbp1 = n_slots * nb_max + 1
+    kpool, vpool = (make_pool(torch, g, 2, nbp1, bs, K * d, dev) for _ in "kv")
+    bt = torch.randperm(nbp1 - 1, generator=g, device=dev).to(
+        torch.int32).reshape(n_slots, nb_max).contiguous()
+    S, layer, rows = nb_max * bs, 1, {}
+    for key, t, pos in (("paged_tile", 700, [0, 0, 0, 0]),
+                        ("paged_tile/decode", 1,
+                         [38, 129, 130, 701, 301, 1101, 0, 0])):
+        ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+        B = len(pos)
+        q = torch.randn(B, t, H, d, generator=g, device=dev).bfloat16()
+        btb = bt[:B].contiguous()
+        out = pa.paged_attention(q, kpool, vpool, btb, ps, layer=layer)
+        ref = pa.plain_paged_attention(q, kpool, vpool, btb, ps, layer=layer)
+        tiles = {"out": close_tiles(f"I out (t={t})", out, ref)}
+        cols = sum(min(p + t, S) for p in pos)       # KV rows read per slot
+        pairs = sum(min(p + i, S - 1) + 1 for p in pos for i in range(t))
+        nbytes = cols * K * d * 2 * 2 + (q.numel() + out.numel()) * 2
+        args, _ = pa.paged_tile_kernel_args(q, kpool, vpool, btb, ps,
+                                            layer=layer)
+        rows[key] = dict(
+            err=tiles["out"][0], tiles=tiles,
+            bound=bound(nbytes, 4 * H * d * pairs), library_ms=None,
+            **timings(KERNELS["paged_tile"], args,
+                      lambda: pa.paged_attention(q, kpool, vpool, btb, ps,
+                                                 layer=layer),
+                      lambda: pa.plain_paged_attention(q, kpool, vpool, btb,
+                                                       ps, layer=layer)),
+            shape=f"B={B} t={t}, H=32 K=8 d=128 bs=128, pos "
+                  + ",".join(map(str, pos)))
+        del q, out, ref, args
+    return rows
+
+
+def rms_checks(torch, rn, KERNELS):
+    """Kernel J on llama3-8b rows (D=4096): [4096, 4096] and [6, 4096] bf16
+    with a bf16 weight, [4096, 4096] fp32 with an fp32 weight; forward
+    against the plain version and the gradients of ``fused_rms_norm``
+    (kernel J forward, closed-form backward) against autograd through the
+    plain version, at ``RMS_TOL``; timed beside ``F.rms_norm``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3456)
+    D, rows = 4096, {}
+    for key, n, dt in (("rms_norm", 4096, torch.bfloat16),
+                       ("rms_norm/decode", 6, torch.bfloat16),
+                       ("rms_norm/fp32", 4096, torch.float32)):
+        tol = RMS_TOL[str(dt).replace("torch.", "")]
+        x = (2 * torch.randn(n, D, generator=g, device=dev)).to(dt)
+        w = (1 + 0.3 * torch.randn(D, generator=g, device=dev)).to(dt)
+        gy = torch.randn(n, D, generator=g, device=dev)
+        got = []
+        for fn in (rn.fused_rms_norm, rn.plain_rms_norm):
+            xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = fn(xx, ww)
+            (y.float() * gy).sum().backward()
+            got.append((y.detach(), xx.grad, ww.grad))
+        errs = [close(f"J {part} ({key})", a, b, tol, tol)
+                for part, a, b in zip(("out", "dx", "dw"), *got)]
+        nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+        lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-5))
+        args, _ = rn.rms_kernel_args(x, w)
+        rows[key] = dict(
+            err=errs[0], grad_err=max(errs[1:]), library_ms=lib,
+            library="torch.nn.functional.rms_norm",
+            bound=bound(nbytes, 4 * x.numel(), FP32_FLOPS_PER_S),
+            **timings(KERNELS["rms_norm"], args,
+                      lambda: rn.rms_norm_forward(x, w),
+                      lambda: rn.plain_rms_norm(x, w)),
+            shape=f"[{n}, {D}] {str(dt).replace('torch.', '')}")
+        del x, w, gy, got
+    return rows
+
+
+def stream_checks(torch, hb, KERNELS):
+    """Kernel K on the probe's array (256 MB fp32, ``arange``, five times
+    the L2) against its plain version (relative ``STREAM_REL``), timed
+    beside ``torch.sum``."""
+    x = torch.arange(64 * 1024 * 1024, dtype=torch.float32,
+                     device="cuda").reshape(-1, hb.ROW)
+    got, want = hb.hbm_stream(x, 3), hb.plain_hbm_stream(x, 3)
+    err = abs(float(got) - float(want))
+    if not err <= STREAM_REL * abs(float(want)):
+        raise AssertionError(f"K: sum {float(got)} vs plain {float(want)}")
+    args, _ = hb.hbm_stream_kernel_args(x, 3)
+    row = dict(err=err, library_ms=time_ms(lambda: torch.sum(x)),
+               library="torch.sum",
+               bound=bound(x.numel() * 4, x.numel(), FP32_FLOPS_PER_S),
+               **timings(KERNELS["hbm_stream"], args,
+                         lambda: hb.hbm_stream(x, 3),
+                         lambda: hb.plain_hbm_stream(x, 3)),
+               shape="[65536, 1024] fp32 (256 MB), 1024 chunks of 64 rows")
+    del x
+    return {"hbm_stream": row}
+
+
+def probe_checks(torch, pa, KERNELS, reset_counts):
+    """Phase 3's I/J/K rows, then J's and K's own entry points run with the
+    counts set to 0 just before: ``measure_hbm_bandwidth()`` (K) and the
+    op builder's ``fused_rms_norm`` forward and backward on a decode-step
+    hidden state (J). Returns (rows, the entry points' launches, rates)."""
+    from deepspeed_tpu_torch.ops import get_op_builder
+    from deepspeed_tpu_torch.ops import rms_norm as rn
+    from deepspeed_tpu_torch.tools import hbm_bandwidth as hb
+
+    rows = tile_checks(torch, pa, KERNELS)
+    rows.update(rms_checks(torch, rn, KERNELS))
+    rows.update(stream_checks(torch, hb, KERNELS))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rates = hb.measure_hbm_bandwidth()
+    x = torch.randn(6, 4096, device="cuda").bfloat16().requires_grad_()
+    w = torch.ones(4096, device="cuda").bfloat16().requires_grad_()
+    get_op_builder("rms_norm").load()(x, w).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = {k: KERNELS[k].launches for k in ("rms_norm", "hbm_stream")}
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"entry points never launched {missing}")
+    for name, r in rows.items():
+        extra = (f", grads max abs err {r['grad_err']:.3e}"
+                 if "grad_err" in r else "")
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms {r['library']}")
+        log(f"kernel {name}: max_abs_err {r['err']:.3e}{extra}, kernel "
+            f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}, library {lib}) [{r['shape']}]")
+        log_tiles(name, r)
+    log(f"probe [{card_line()}]: measure_hbm_bandwidth copy_rw "
+        f"{rates['copy_rw_gbps']:.1f} GB/s, stream_read (kernel K) "
+        f"{rates['stream_read_gbps']:.1f} GB/s, data sheet 3350 GB/s; "
+        f"entry-point launches {counts}")
+    return rows, counts, rates
 
 
 # ---------------------------------------------------------------------------
@@ -700,6 +903,10 @@ class Replay:
                       STAT_TOL)
             elif name in ("chunk_self", "qmm", "qmm_stacked"):
                 errs[f"{name}/{stage}"] = close(tag, out[0], ref, ATOL, RTOL)
+            elif name == "paged_tile":
+                self.tiles[f"{name}/{stage} out"] = close_tiles(
+                    f"{tag} out", out[0], ref)
+                errs[f"{name}/{stage}"] = self.tiles[f"{name}/{stage} out"][0]
             elif name in ("flash_bwd_dq", "flash_bwd_dkv"):
                 grads = ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
                 refs = ref if isinstance(ref, tuple) else (ref,)
@@ -1075,6 +1282,377 @@ def serve_quant(torch, pa, qm, KERNELS, reset_counts, bf16_logits):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the dense-tile and dense-cache engines and init_inference's v1
+# ---------------------------------------------------------------------------
+
+DENSE_ENGINES = (("a", dict(packed=False)), ("b", dict(paged=False)))
+DENSE_DECODE_PUTS = 16
+V1_NEW_TOKENS = 16
+
+
+class DenseReplay(Replay):
+    """Phase 7's :class:`Replay` of kernel I: its first launch (stage
+    ``put``: the prompt step's tile) through ``plain_paged_attention``,
+    held per 64-row tile like phase 3's."""
+
+    REQUIRED = {("paged_tile", "put")}
+
+    @staticmethod
+    def make_targets(pa, fa):
+        return {"paged_tile": (pa, "paged_attention",
+                               pa.plain_paged_attention)}
+
+
+def rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def max_rel_l2(got, want) -> float:
+    """The largest :func:`rel_l2` over every uid of every ``put``."""
+    return max(rel_l2(o[u], w[u]) for o, w in zip(got, want) for u in w)
+
+
+def dense_traffic(eng, prompts, steps: int, feeds=None, first_uid: int = 0):
+    """``prompts`` (uids ``first_uid``..) in one ``put``, then ``steps``
+    single-token ``put`` steps of every uid, fed ``feeds[s]`` or, without
+    ``feeds``, the engine's own argmax. Returns (logits of every put, the
+    tokens fed, the prompt put's seconds, each decode put's seconds)."""
+    uids = list(range(first_uid, first_uid + len(prompts)))
+    t = time.perf_counter()
+    outs = [eng.put(uids, prompts)]
+    t_prompt = time.perf_counter() - t
+    fed, t_dec = [], []
+    for s in range(steps):
+        toks = (feeds[s] if feeds is not None
+                else [int(np.argmax(outs[-1][u])) for u in uids])
+        fed.append(toks)
+        t = time.perf_counter()
+        outs.append(eng.put(uids, [np.array([x], np.int32) for x in toks]))
+        t_dec.append(time.perf_counter() - t)
+    return outs, fed, t_prompt, t_dec
+
+
+def v1_generate(eng, ids, new_tokens: int):
+    """``eng.generate`` (greedy) with the last-row logits of every
+    ``forward_with_cache`` step captured: the prompt step, then one step
+    per new token but the last. Returns (the new tokens [B, n], each
+    step's logits as ``{row: [V]}``, seconds; the capture's copy to the
+    host is inside the time)."""
+    model, steps = eng.module, []
+    real = model.forward_with_cache
+
+    def capture(params, input_ids, cache):
+        logits, cache = real(params, input_ids, cache)
+        last = logits[:, -1].float().cpu().numpy()
+        steps.append(dict(enumerate(last)))
+        return logits, cache
+
+    model.forward_with_cache = capture
+    try:
+        t = time.perf_counter()
+        gen = eng.generate(ids, max_new_tokens=new_tokens)
+        dt = time.perf_counter() - t
+    finally:
+        del model.forward_with_cache
+    T, V = ids.shape[1], model.cfg.vocab_size
+    if gen.shape != (len(ids), T + new_tokens) or gen.min() < 0 \
+            or gen.max() >= V or not np.array_equal(gen[:, :T], ids):
+        raise AssertionError(f"serve-dense (c): bad generate output "
+                             f"{gen.shape}")
+    return gen[:, T:], steps, dt
+
+
+@contextlib.contextmanager
+def swapped(mod, attr, make):
+    """``mod.attr`` replaced by ``make(mod.attr)`` inside the block."""
+    real = getattr(mod, attr)
+    setattr(mod, attr, make(real))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def drops_newest_column(fn):
+    """A faulty kernel-I stand-in ((a)): ``fn`` with every row's newest
+    visible column (its own position) dropped."""
+    def faulty(q, k_pool, v_pool, block_tables, pos, window=None, layer=0):
+        return fn(q, k_pool, v_pool, block_tables, pos - 1, window, layer)
+    return faulty
+
+
+def cached_drops_newest_column(fn):
+    """A faulty ``_cached_attention`` stand-in ((b) and (c)): ``fn`` with
+    every row's newest visible column dropped from its mask."""
+    def faulty(q, k, v, valid):
+        kept = valid.clone()
+        kept[..., :-1] &= valid[..., 1:]
+        kept[..., -1] = False
+        return fn(q, k, v, kept)
+    return faulty
+
+
+def free_card(torch, device) -> None:
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def owns_no_copy(tree, params, tag: str) -> None:
+    a, b = tree["layers"]["attn"]["wq"], params["layers"]["attn"]["wq"]
+    if a.data_ptr() != b.data_ptr():
+        raise AssertionError(f"serve-dense ({tag}): the engine copied the "
+                             f"weight tree")
+
+
+def dense_engine(torch, model, tree, tag: str, device, v1: bool = False,
+                 **kw):
+    """A fresh engine on ``tree`` (the last one freed first):
+    ``init_inference``'s with ``v1``, else ``InferenceEngineV2(**kw)``."""
+    import deepspeed_tpu_torch as tds
+
+    free_card(torch, device)
+    if v1:
+        eng = tds.init_inference(model, params=tree, device=device)
+    else:
+        eng = tds.InferenceEngineV2(model, tree, device=device, **kw)
+    owns_no_copy(tree, eng.params, tag)
+    return eng
+
+
+def dense_runs(torch, pa, model, tree, prompts, v1_ids, steps: int,
+               device="cuda", noise_floor: bool = False, **engine_kw):
+    """Phase 7's engines on one weight tree, on any device. First (c)
+    ``init_inference(model, params=tree)``: ``forward``'s last-row logits
+    of ``v1_ids`` and a greedy ``generate`` of ``V1_NEW_TOKENS`` with every
+    step's logits captured. Then a packed engine runs the traffic (feeding
+    its own argmax), and ``v1_ids`` as a whole-prompt ``put`` followed by
+    one single-token ``put`` per token ``generate`` chose; with
+    ``noise_floor`` a second packed engine runs the same traffic with the
+    prompts put one at a time (other batch shapes, the same function: its
+    distance from the first is the bf16 noise of this model); then (a)
+    ``packed=False`` under a :class:`DenseReplay` and (b) ``paged=False``
+    run the traffic fed the first engine's tokens. Engines share ``tree``
+    (none copies it; checked) and each is freed before the next. Returns
+    ``rel`` (the largest relative L2 of any logits vector against the
+    packed engine's: ``forward``, (c)'s ``generate`` steps, (a), (b),
+    ``noise``), I's replay errors and tiles, timings, the generated tokens
+    and ``ref``, the packed engine's readings for :func:`dense_controls`;
+    raises on a copy, a non-finite logit or a bad ``generate`` output."""
+    def engine(tag, **kw):
+        return dense_engine(torch, model, tree, tag, device, **kw,
+                            **engine_kw)
+
+    V = model.cfg.vocab_size
+    uids = list(range(len(prompts)))
+    v1_first = len(prompts)
+    ids = np.stack(v1_ids)
+    res = {"engines": {}, "rel": {}}
+    # (c) first: its greedy tokens feed the packed engine's v1 puts
+    eng = engine("c", v1=True)
+    fwd = eng.forward(ids)[:, -1].float().cpu().numpy()
+    free_card(torch, device)
+    gen, got_c, dt = v1_generate(eng, ids, V1_NEW_TOKENS)
+    res["generated"], res["engines"]["c"] = gen, (dt, None)
+    del eng
+    eng = engine("packed")
+    want, feeds, tp, td = dense_traffic(eng, prompts, steps)
+    want_c, _, _, _ = dense_traffic(eng, list(v1_ids), V1_NEW_TOKENS - 1,
+                                    feeds=gen.T, first_uid=v1_first)
+    res["engines"]["packed"] = (tp, td)
+    del eng
+    # (c)'s rows are 0.., the packed engine's v1 uids v1_first..
+    want_c = [{u - v1_first: x for u, x in w.items()} for w in want_c]
+    res["rel"]["forward"] = max_rel_l2([dict(enumerate(fwd))], want_c)
+    res["rel"]["c"] = max_rel_l2(got_c, want_c)
+    if noise_floor:
+        eng = engine("noise")
+        got = [{}]
+        for u, prompt in zip(uids, prompts):
+            got[0].update(eng.put([u], [prompt]))
+        for toks in feeds:
+            got.append(eng.put(uids, [np.array([x], np.int32)
+                                      for x in toks]))
+        res["rel"]["noise"] = max_rel_l2(got, want)
+        del eng, got
+    for tag, kw in DENSE_ENGINES:
+        eng = engine(tag, **kw)
+        replay = DenseReplay(torch, pa, None)
+        with replay:
+            replay.stage = "put"
+            got, _, tp, td = dense_traffic(eng, prompts, steps, feeds)
+        for outs in got:
+            check_logits(outs, V)
+        res["rel"][tag] = max_rel_l2(got, want)
+        res["engines"][tag] = (tp, td)
+        if tag == "a":
+            res["replay"], res["replay_tiles"] = replay.check(), replay.tiles
+        del eng, got, replay
+    free_card(torch, device)
+    res["ref"] = dict(want=want, feeds=feeds, want_c=want_c, ids=ids)
+    return res
+
+
+def dense_controls(torch, pa, model, tree, prompts, ref, device="cuda",
+                   **engine_kw):
+    """(a), (b) and (c) of :func:`dense_runs` again, with each row's newest
+    visible column dropped from their attention (:func:`drops_newest_column`
+    in place of kernel I's wrapper, :func:`cached_drops_newest_column` in
+    place of the dense cache's ``_cached_attention``; (c) as its prompt
+    step), each against the packed engine's readings ``ref``: the rel L2 a
+    gate must tell apart from the sound one, per engine."""
+    from deepspeed_tpu_torch.models import transformer as tm
+
+    faults = {"a": (pa, "paged_attention", drops_newest_column),
+              "b": (tm, "_cached_attention", cached_drops_newest_column)}
+    want, feeds = ref["want"], ref["feeds"]
+    faulty = {}
+    for tag, kw in DENSE_ENGINES:
+        eng = dense_engine(torch, model, tree, f"{tag}, faulty", device,
+                           **kw, **engine_kw)
+        with swapped(*faults[tag]):
+            got, _, _, _ = dense_traffic(eng, prompts, len(feeds), feeds)
+        faulty[tag] = max_rel_l2(got, want)
+        del eng, got
+    eng = dense_engine(torch, model, tree, "c, faulty", device, v1=True)
+    with swapped(*faults["b"]):
+        _, got, _ = v1_generate(eng, ref["ids"], 1)
+    faulty["c"] = max_rel_l2(got, ref["want_c"][:1])
+    del eng, got
+    free_card(torch, device)
+    return faulty
+
+
+def gate_rel(tag: str, rel: dict, limits: dict) -> None:
+    """Every ``rel[k]`` within ``limits[k]``."""
+    bad = {k: rel[k] for k, lim in limits.items() if not rel[k] <= lim}
+    if bad:
+        raise AssertionError(f"{tag}: logits vs the packed engine, rel L2 "
+                             f"{bad} over the limits {limits}")
+
+
+def gate_controls(tag: str, faulty: dict, limits: dict, margin: float):
+    """Every control's reading past ``margin`` x its gate's limit: the
+    gate sees a dropped column."""
+    blind = {k: faulty[k] for k, lim in limits.items()
+             if k in faulty and not faulty[k] > margin * lim}
+    if blind:
+        raise AssertionError(f"{tag}: the gate is blind: attention that "
+                             f"drops the newest column gives rel L2 {blind}, "
+                             f"not past {margin} x the limits {limits}")
+
+
+def dense_cross_check(torch, pa, model, tree, prompts, v1_ids, steps: int,
+                      device="cuda", **engine_kw):
+    """Phase 7's gate at ``DENSE_REL_L2`` where bf16 noise
+    leaves it room (a shallow model of the served width, weights at the
+    reference init scale): ``forward``, (c)'s ``generate`` steps, (a) and
+    (b) against the packed engine, each rel L2 <= ``DENSE_REL_L2``, and
+    each control (:func:`dense_controls`) past ``DENSE_CONTROL_MARGIN`` x the
+    gate. Returns :func:`dense_runs`' result."""
+    res = dense_runs(torch, pa, model, tree, prompts, v1_ids, steps,
+                     device=device, **engine_kw)
+    res["faulty"] = dense_controls(torch, pa, model, tree, prompts,
+                                   res["ref"], device=device, **engine_kw)
+    limits = dict.fromkeys(("forward", "a", "b", "c"), DENSE_REL_L2)
+    gate_rel("serve-dense cross-check", res["rel"], limits)
+    gate_controls("serve-dense cross-check", res["faulty"], limits,
+                  DENSE_CONTROL_MARGIN)
+    return res
+
+
+def serve_dense(torch, pa, KERNELS, reset_counts):
+    """Phase 7 at llama3-8b's full width and depth on phase 6's weights
+    (one bf16 tree, seed 0, ``attention_heavy``), ``max_seq_len`` 2048, 8
+    slots, block 128: phase 4's four prompts, 16 decode puts, v1 on four
+    128-token prompts, each engine's control, then the op builder's RMSNorm
+    on the card. Gates: every logits vector finite, I's first launch
+    against its plain version per tile, ``forward`` within
+    ``DENSE_REL_L2`` of the packed engine (the same kernels at the same
+    shapes), (a), (b) and (c)'s ``generate`` steps within
+    ``DENSE_FULL_REL_L2`` of the packed engine and each control past
+    ``DENSE_FULL_CONTROL_MARGIN`` x its limit, I and J launched. Then
+    :func:`dense_cross_check` at 2 layers of the same width. Returns the
+    phase's launches per kernel."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+    from deepspeed_tpu_torch.ops import get_op_builder
+    from deepspeed_tpu_torch.ops import rms_norm as rn
+
+    cfg = get_preset("llama3-8b", param_dtype="bfloat16")
+    model = TransformerLM(cfg)
+    tree = serve_params(torch, cfg)
+    firsts, _ = serve_prompts(cfg.vocab_size)
+    rng = np.random.default_rng(2)
+    v1_ids = [rng.integers(1, cfg.vocab_size, 128).astype(np.int32)
+              for _ in range(4)]
+    kw = dict(max_sequences=8, max_seq_len=2048, block_size=128)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = dense_runs(torch, pa, model, tree, firsts, v1_ids,
+                     DENSE_DECODE_PUTS, noise_floor=True, **kw)
+    x = torch.randn(4, 128, cfg.hidden_size, device="cuda").bfloat16()
+    w = tree["final_norm"]["scale"]
+    y = get_op_builder("rms_norm").load()(x, w)
+    close("J via the op builder", y.reshape(-1, cfg.hidden_size),
+          rn.plain_rms_norm(x.reshape(-1, cfg.hidden_size), w),
+          RMS_TOL["bfloat16"], RMS_TOL["bfloat16"])
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    res["faulty"] = dense_controls(torch, pa, model, tree, firsts,
+                                   res.pop("ref"), **kw)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    rel, faulty = res["rel"], res["faulty"]
+    log(f"serve-dense: launches {counts}; kernel I's first launch replayed "
+        f"vs plain, max abs err {res['replay']}, (max abs err, max |plain|, "
+        f"worst {TILE}-row tile err / tile max |plain|) "
+        f"{res['replay_tiles']} (gate {BWD_REL})")
+    log(f"serve-dense at full depth, logits vs the packed engine, rel L2: "
+        f"forward {rel['forward']:.3e} (gate {DENSE_REL_L2}); "
+        + "; ".join(f"({k}) {rel[k]:.3e} (gate {DENSE_FULL_REL_L2[k]}, "
+                    f"control {faulty[k]:.3e})" for k in "abc")
+        + f"; the packed engine's own noise floor {rel['noise']:.3e}")
+    names = {"packed": "packed (reference)", "a": "(a) packed=False",
+             "b": "(b) paged=False"}
+    n_prompt = sum(len(p) for p in firsts)
+    for tag, (tp, td) in res["engines"].items():
+        if tag == "c":
+            log(f"serve-dense (c) init_inference(...).generate [{card}]: 4 x "
+                f"128 prompts, {V1_NEW_TOKENS} new tokens each in "
+                f"{tp * 1e3:.1f} ms ({4 * V1_NEW_TOKENS / tp:.1f} tokens/s)")
+            continue
+        log(f"serve-dense {names[tag]} [{card}]: prompt put "
+            f"{n_prompt / tp:.1f} tokens/s ({n_prompt} tokens, "
+            f"{tp * 1e3:.1f} ms), decode put {np.mean(td) * 1e3:.2f} ms "
+            f"mean / {np.median(td) * 1e3:.2f} ms median over {len(td)} "
+            f"(4 sequences)")
+    gate_rel("serve-dense", rel, {"forward": DENSE_REL_L2,
+                                  **DENSE_FULL_REL_L2})
+    gate_controls("serve-dense", faulty, DENSE_FULL_REL_L2,
+                  DENSE_FULL_CONTROL_MARGIN)
+    if not counts.get("paged_tile") or not counts.get("rms_norm"):
+        raise AssertionError(f"serve-dense: kernel I or J never launched "
+                             f"(counts {counts})")
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2 = TransformerLM(cfg2)
+    res2 = dense_cross_check(
+        torch, pa, model2, model2.init(seed=0, device="cuda"), firsts,
+        v1_ids, 4, **kw)
+    log(f"serve-dense cross-check at 2 layers (seed-0 weights at the init "
+        f"scale): logits vs the packed engine, rel L2 {res2['rel']} (gate "
+        f"{DENSE_REL_L2}); controls (newest column dropped) "
+        f"{res2['faulty']} (past {DENSE_CONTROL_MARGIN} x the gate)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train Llama-3.2-1B through initialize
 # ---------------------------------------------------------------------------
 
@@ -1244,6 +1822,9 @@ def main() -> int:
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
     rows.update(qmm_checks(torch, qm, _build.KERNELS))
     rows.update(backward_checks(torch, fa, _build.KERNELS))
+    probe_rows, probed, _ = probe_checks(torch, pa, _build.KERNELS,
+                                         _build.reset_counts)
+    rows.update(probe_rows)
     served, bf16_logits = serve(torch, pa, fa, _build.KERNELS,
                                 _build.reset_counts)
     gc.collect()
@@ -1253,6 +1834,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant = serve_quant(torch, pa, qm, _build.KERNELS, _build.reset_counts,
                         bf16_logits)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = serve_dense(torch, pa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -1264,22 +1848,30 @@ def main() -> int:
         if "tiles" in r:
             e["worst_tile_rel"] = {t: x[2] for t, x in r["tiles"].items()}
             e["tile_rel_gate"] = BWD_REL
+        if "grad_err" in r:
+            e["grad_max_abs_err"] = r["grad_err"]
         return e
 
     kernels = []
     for name, k in _build.KERNELS.items():
-        by_phase = {p: c[name] for p, c in (("serve", served),
+        by_phase = {p: c[name] for p, c in (("kernels", probed),
+                                             ("serve", served),
                                              ("train", trained),
-                                             ("serve_quant", quant))
-                    if name in c}
+                                             ("serve_quant", quant),
+                                             ("serve_dense", dense))
+                    if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),
              "launches_by_phase": by_phase}
         variants = [k for k in rows if k.startswith(f"{name}/int")]
-        if name in rows:                     # A-D and A/B's int modes
+        if name in rows:                     # A-D, I-K, A/B's int modes
             e.update(entry(rows[name]))
             if f"{name}/train" in rows:
                 e["at_train_shape"] = entry(rows[f"{name}/train"])
+            more = {r.split("/", 1)[1]: entry(rows[r]) for r in rows
+                    if r.startswith(f"{name}/") and r != f"{name}/train"}
+            if more:                         # I at t=1, J's other shapes
+                e["variants"] = more
         elif variants:                       # G, H: int4 (at B=6) first
             e.update(entry(rows[variants[0]]))
             e["variants"] = {k.split("/", 1)[1]: entry(rows[k])

@@ -15,7 +15,9 @@ A quantized tree bridges whole: any object with ``packed``, ``scales``,
 ``bits`` and ``din`` attributes (the reference's ``QuantizedWeight`` after
 ``jax.device_get``, matched by its attributes, not its class) becomes the
 port's :class:`~deepspeed_tpu_torch.models.transformer.QuantizedWeight`, and
-a paged cache dict carries its int8 pools and ``kv_scale`` like any leaf.
+a paged cache dict carries its int8 pools and ``kv_scale`` like any leaf, as
+a dense cache dict (``init_kv_cache``: ``k``/``v`` ``[L, B, S, K, d]`` and
+the int32 ``pos``) carries its three.
 """
 
 from __future__ import annotations

@@ -1,20 +1,30 @@
 """Continuous-batching inference engine over a paged KV pool (counterpart of
 ``deepspeed_tpu/inference/engine_v2.py`` ``InferenceEngineV2``).
 
-Ported scope: the packed paged engine on one device with greedy decoding;
-weights in the compute dtype or int8/int4 (``weight_dtype``: kernels G/H
-through the model's ``linear()`` seam), and a KV pool in the compute dtype
-or int8/int4 with per-token scales (``kv_dtype``: the int modes of kernels
-A/B). ``put`` runs fresh whole prompts through ``forward_prefill`` (flash
-kernel D) and everything else through the packed step
-``forward_with_packed_cache`` (paged kernels A/B and the seeded flash C);
-``decode_batch`` runs ``steps`` greedy tokens with the pool read-only and
-folds the new KV in once. Host-side scheduling (slots, blocks, block
-tables, atom packing) mirrors the reference line for line.
+Ported scope: one device, greedy decoding; weights in the compute dtype or
+int8/int4 (``weight_dtype``: kernels G/H through the model's ``linear()``
+seam). Three engines, as the reference's flags pick them:
 
-Not ported yet (they raise): the ``packed=False``/``paged=False`` engines,
-sampling, prefix cache, speculative decoding, KV tiers, pause/resume, MoE
-and tensor parallelism.
+* ``paged=True, packed=True`` (default): a KV pool in the compute dtype or
+  int8/int4 with per-token scales (``kv_dtype``: the int modes of kernels
+  A/B). ``put`` runs fresh whole prompts through ``forward_prefill``
+  (flash kernel D) and everything else through the packed step
+  ``forward_with_packed_cache`` (paged kernels A/B and the seeded flash
+  C); ``decode_batch`` runs ``steps`` greedy tokens with the pool
+  read-only and folds the new KV in once.
+* ``packed=False``: the same pool, but ``put`` runs one dense
+  ``[max_sequences, t_max]`` tile (every slot a row) through
+  ``forward_with_paged_cache`` (kernel I), unchunked;
+* ``paged=False``: a dense ``[L, max_sequences, max_seq_len, K, d]``
+  cache and the same tile through ``forward_with_cache`` (plain torch
+  attention, as the reference's is XLA).
+
+The last two take bf16 KV only and have no ``decode_batch`` (the
+reference's raises). Host-side scheduling (slots, blocks, block tables,
+atom packing) mirrors the reference line for line.
+
+Not ported yet (they raise): sampling, prefix cache, speculative
+decoding, KV tiers, pause/resume, MoE and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -57,10 +67,8 @@ class InferenceEngineV2:
                              f"{kv_dtype!r}")
         if kv_dtype != "bf16" and not (paged and packed):
             raise ValueError("quantized KV needs the packed paged engine")
-        if not (paged and packed):
-            raise NotImplementedError(
-                "only the packed paged engine (paged=True, packed=True) is "
-                "ported")
+        self.paged = paged
+        self.packed = packed and paged
         self.device = resolve_device(device)
         self.module = model
         self.cfg = model.cfg
@@ -85,11 +93,16 @@ class InferenceEngineV2:
         self.params = params
         self.block_size = block_size
         self.nb_max = -(-self.max_seq_len // block_size)
-        self.num_blocks = self.state.allocator.num_blocks
-        self.cache = model.init_paged_kv_cache(
-            self.num_blocks, block_size, device=self.device,
-            quantize=kv_dtype != "bf16", bits=4 if kv_dtype == "int4" else 8)
-        self._pos = np.zeros((max_sequences,), np.int32)
+        if paged:
+            self.num_blocks = self.state.allocator.num_blocks
+            self.cache = model.init_paged_kv_cache(
+                self.num_blocks, block_size, device=self.device,
+                quantize=kv_dtype != "bf16",
+                bits=4 if kv_dtype == "int4" else 8)
+            self._pos = np.zeros((max_sequences,), np.int32)
+        else:
+            self.cache = model.init_kv_cache(max_sequences, self.max_seq_len,
+                                             device=self.device)
         self._bt_cache: Optional[np.ndarray] = None
         self._bt_key: Dict[int, tuple] = {}
 
@@ -104,7 +117,10 @@ class InferenceEngineV2:
         for uid in uids:
             seq = self.state.sequences.get(uid)
             if seq is not None:
-                self._pos[seq.slot] = 0
+                if self.paged:
+                    self._pos[seq.slot] = 0
+                else:
+                    self.cache["pos"][seq.slot] = 0
             self.state.flush(uid)
 
     def _block_tables(self) -> np.ndarray:
@@ -238,6 +254,8 @@ class InferenceEngineV2:
         if len(batch_uids) != len(batch_tokens):
             raise ValueError("one token chunk per uid")
         chunks = [np.atleast_1d(np.asarray(t)) for t in batch_tokens]
+        if not self.packed:
+            return self._put_dense_tile(batch_uids, chunks)
         if chunks and all(len(c) > 1 for c in chunks) \
                 and max(len(c) for c in chunks) <= self.module.PREFILL_MAX \
                 and all(self._fresh(uid) for uid in batch_uids):
@@ -280,6 +298,48 @@ class InferenceEngineV2:
             self.state.commit(d.uid)
         return results
 
+    # ---- dense-tile step (packed=False / paged=False) ---------------------
+    def _put_dense_tile(self, batch_uids, chunks) -> Dict[int, np.ndarray]:
+        """One ``[max_sequences, t_max]`` tile, every slot a row: scheduled
+        slots get their chunk right-padded, the rest no-op lanes (the
+        reference's :1991-2035). Unchunked: ``t_max`` is the step's longest
+        chunk."""
+        if not self.state.can_schedule_batch(batch_uids,
+                                             [len(c) for c in chunks]):
+            raise CapacityError(batch_uids, [len(c) for c in chunks])
+        descs = [self.state.schedule(uid, len(toks))
+                 for uid, toks in zip(batch_uids, chunks)]
+        Bs = self.state.max_sequences
+        t_max = max(len(c) for c in chunks)
+        tile = np.zeros((Bs, t_max), np.int32)
+        valid = np.zeros((Bs, t_max), bool)
+        for d, c in zip(descs, chunks):
+            tile[d.slot, :len(c)] = c
+            valid[d.slot, :len(c)] = True
+        # next-token logits at each chunk's true end, gathered on the device
+        slots = self._t(np.array([d.slot for d in descs], np.int64))
+        ends = self._t(np.array([len(c) - 1 for c in chunks], np.int64))
+        if self.paged:
+            logits, self.cache = self.module.forward_with_paged_cache(
+                self.params, self._t(tile), self.cache,
+                self._t(self._block_tables()), self._t(self._pos),
+                self._t(valid))
+            pos = self._pos
+        else:             # k, v written in place; every row's pos + t_max
+            logits, _ = self.module.forward_with_cache(
+                self.params, self._t(tile), self.cache)
+            pos = self.cache["pos"].cpu().numpy().copy()
+        out = logits[slots, ends].float().cpu().numpy()
+        del logits
+        results: Dict[int, np.ndarray] = {}
+        for i, (d, c) in enumerate(zip(descs, chunks)):
+            results[d.uid] = out[i]
+            pos[d.slot] = d.seen_tokens + len(c)
+            self.state.commit(d.uid)
+        if not self.paged:        # idle rows keep their true positions
+            self.cache["pos"] = self._t(pos)
+        return results
+
     # ---- fused multi-step decode -----------------------------------------
     def _multi_decode(self, bt, slots, pos0, tok0, steps: int, valid):
         """``steps`` greedy decode iterations with the pool READ-ONLY: new KV
@@ -318,6 +378,8 @@ class InferenceEngineV2:
         """Advance every listed sequence ``steps`` greedy tokens from its
         ``batch_tokens`` entry; returns the generated tokens per uid
         ([steps] int32 each). One fetch regardless of ``steps``."""
+        if not self.packed:
+            raise ValueError("decode_batch needs the packed paged engine")
         if temperature != 0.0:
             raise NotImplementedError("sampling is not ported yet (greedy "
                                       "decoding only)")

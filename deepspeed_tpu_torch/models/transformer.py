@@ -1,6 +1,7 @@
 """Decoder-only transformer LM family in PyTorch (counterpart of
 ``deepspeed_tpu/models/transformer.py``; the dense GPT-2/Llama family and
-the serving entry points of the paged engine).
+the serving entry points of the engines, over the paged pool or a dense
+cache).
 
 Parameters are a plain nested dict of tensors with the JAX package's tree
 and orientation: per-layer weights STACKED on a leading layer axis
@@ -331,6 +332,21 @@ def mlp_block(x: torch.Tensor, w: Params, cfg: TransformerConfig
     return out + w["b_down"] if "b_down" in w else out
 
 
+def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Attention over a padded dense KV cache (the reference's :455, which
+    XLA computes: plain torch here too). q [B, t, H, d], k/v [B, S, K, d],
+    ``valid`` [B, t, S] bool per query row. Scores in q's dtype, masked with
+    its ``finfo.min``, softmax in fp32, probabilities cast to q's dtype
+    before the PV product."""
+    k, v = repeat_kv(k, v, q.shape[2])
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(q.shape[-1])
+    scores = torch.where(valid[:, None], scores,
+                         torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
 def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
                   freqs: Optional[torch.Tensor],
                   positions: Optional[torch.Tensor],
@@ -427,8 +443,8 @@ def _layer_views(layers: Params, dt: torch.dtype) -> Callable[[int], Params]:
 
 class TransformerLM:
     """The decoder-only LM family: parameter init, a plain full-sequence
-    forward (:meth:`logits`) and the three serving entry points of the paged
-    engine."""
+    forward (:meth:`logits`), the three serving entry points of the packed
+    paged engine and the two dense-tile ones (paged pool, dense cache)."""
 
     MAX_ATOM = 256       # widest prefill atom; engines chunk longer prompts
     PREFILL_MAX = 4096   # widest whole-prompt prefill
@@ -547,6 +563,14 @@ class TransformerLM:
             x = x + params["embed"]["pos"][safe].to(dt)
         return x
 
+    def _tile_positions(self, pos: torch.Tensor, t: int):
+        """(positions [B, t] of a dense tile from each slot's ``pos``, the
+        same clamped to the rotary table for rope). A padded row of a slot
+        at a deep ``pos`` can pass the table; the reference's gather clamps
+        such an index, so the port clamps it too (the row is don't-care)."""
+        positions = pos.long()[:, None] + torch.arange(t, device=pos.device)
+        return positions, torch.clamp_max(positions, self.cfg.max_seq_len - 1)
+
     def _window_segments(self):
         """Contiguous layer runs sharing one window setting:
         ``[(lo, hi, cfg_segment)]``; layers below ``window_start_layer``
@@ -585,10 +609,10 @@ class TransformerLM:
         pos = torch.arange(T, device=input_ids.device)[None].expand(B, T)
         x = self._embed(params, input_ids, pos)
         freqs = self.freqs(input_ids.device)
-        layers = _unstack(params["layers"], dt)
+        layer_at = _layer_views(params["layers"], dt)
         block = checkpoint_wrapper(transformer_block, cfg.remat_policy)
         for i, cseg in self._layers():
-            x = block(x, _layer(layers, i), cseg, freqs)
+            x = block(x, layer_at(i), cseg, freqs)
         return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
     def logits(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -641,6 +665,108 @@ class TransformerLM:
         dt = torch_dtype(cfg.dtype)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def init_kv_cache(self, batch_size: int,
+                      max_seq_len: Optional[int] = None,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+        """A dense per-layer KV cache (the reference's :933): ``k``/``v``
+        ``[L, batch, S, K, d]`` in the compute dtype and the per-row ``pos``
+        [batch] int32."""
+        from deepspeed_tpu_torch.utils import resolve_device
+
+        cfg = self.cfg
+        device = resolve_device(device)
+        S = max_seq_len or cfg.max_seq_len
+        dt = torch_dtype(cfg.dtype)
+        shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "pos": torch.zeros(batch_size, dtype=torch.int32,
+                                   device=device)}
+
+    def forward_with_cache(self, params: Params, input_ids: torch.Tensor,
+                           cache: Dict[str, torch.Tensor]):
+        """Prefill/decode step over the dense cache (the reference's :943,
+        whose ``valid`` only feeds MoE routing, not ported): append
+        ``input_ids`` [B, t] at each row's ``cache["pos"]`` and return
+        (logits [B, t, V], ``{k, v, pos + t}``). ``k``/``v`` are written in
+        place; every row advances by ``t`` (the engine restores the true
+        positions of padded rows). Writes at positions past the cache are
+        dropped, as the reference's scatter drops them. Attention is
+        :func:`_cached_attention`."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        B, t = input_ids.shape
+        S = cache["k"].shape[2]
+        positions, rope_pos = self._tile_positions(cache["pos"], t)
+        x = self._embed(params, input_ids, positions)
+        freqs = self.freqs(input_ids.device)
+        rows = torch.arange(B, device=input_ids.device)[:, None].expand(B, t)
+        inside = positions < S
+        wb, wp = rows[inside], positions[inside]
+        sidx = torch.arange(S, device=input_ids.device)[None, None, :]
+        layer_at = _layer_views(params["layers"], dt)
+        for i, cseg in self._layers():
+            wc = layer_at(i)
+            vmask = sidx <= positions[:, :, None]                # [B, t, S]
+            if cseg.sliding_window is not None:
+                vmask = vmask & (sidx > positions[:, :, None]
+                                 - cseg.sliding_window)
+
+            def attend(q, k, v, _i=i, _m=vmask):
+                ck, cv = cache["k"][_i], cache["v"][_i]
+                ck[wb, wp] = k[inside].to(ck.dtype)
+                cv[wb, wp] = v[inside].to(cv.dtype)
+                return _cached_attention(q, ck, cv, _m)
+
+            x = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+        x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return self._head_proj(params, x), {
+            "k": cache["k"], "v": cache["v"],
+            "pos": cache["pos"] + t}
+
+    def forward_with_paged_cache(self, params: Params,
+                                 input_ids: torch.Tensor,
+                                 cache: Dict[str, torch.Tensor],
+                                 block_tables: torch.Tensor,
+                                 pos: torch.Tensor,
+                                 valid: Optional[torch.Tensor] = None):
+        """Continuous-batching step of the ``packed=False`` engine over the
+        paged pool (the reference's :1047): ``input_ids`` [B, t] a dense
+        tile (per-slot chunks right-padded), ``block_tables`` [B, nb_max],
+        ``pos`` [B] tokens cached per slot, ``valid`` [B, t] real lanes.
+        Each layer first writes the tile's K/V into its blocks
+        (:func:`paged_update`; invalid lanes to the scratch block), then
+        runs kernel I (:func:`paged_attention`) over them. Returns (logits
+        [B, t, V], cache) -- the pools are updated in place."""
+        from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
+                                                             paged_update)
+
+        if "kv_scale" in cache:
+            raise NotImplementedError(
+                "the dense-tile escape hatch does not support the int8 KV "
+                "pool; use the packed path (packed=True)")
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        t = input_ids.shape[1]
+        positions, rope_pos = self._tile_positions(pos, t)
+        x = self._embed(params, input_ids, positions)
+        freqs = self.freqs(input_ids.device)
+        layer_at = _layer_views(params["layers"], dt)
+        for i, cseg in self._layers():
+            wc = layer_at(i)
+
+            def attend(q, k, v, _i=i, _w=cseg.sliding_window):
+                paged_update(cache["k"][_i], k, block_tables, pos, valid)
+                paged_update(cache["v"][_i], v, block_tables, pos, valid)
+                return paged_attention(q, cache["k"], cache["v"],
+                                       block_tables, pos, window=_w,
+                                       layer=_i)
+
+            x = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+        x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return self._head_proj(params, x), cache
 
     def _kv_bits(self, cache) -> int:
         """4 when the paged pool is int4-packed (``K*d/2`` lanes), else 8."""

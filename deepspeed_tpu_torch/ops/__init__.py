@@ -1,5 +1,8 @@
-"""Attention ops of the ported paths, each a hand-written Hopper kernel with a
-plain PyTorch version beside it (counterpart of ``deepspeed_tpu/ops``).
+"""Ops of the ported paths, each a hand-written Hopper kernel with a plain
+PyTorch version beside it (counterpart of ``deepspeed_tpu/ops``), and the
+op-builder registry (``OpBuilder``, ``ALL_OPS``, ``get_op_builder``,
+``op_report``: the reference's ``ds_report`` / ``OpBuilder.load()``
+surface).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from a CUDA tensor
@@ -7,6 +10,8 @@ to the plain version.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict, List, Type
 
 import torch
 
@@ -44,3 +49,80 @@ def int32_meta(t: torch.Tensor) -> torch.Tensor:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# op-builder registry (the reference's :18-85)
+# ---------------------------------------------------------------------------
+
+class OpBuilder:
+    """Discovery/compatibility shim (the reference's ``OpBuilder``): a
+    ported op's ``load()`` returns its function, whose kernels are built at
+    their first CUDA launch (``ops/_build.py``)."""
+
+    NAME = "base"
+
+    def is_compatible(self, verbose: bool = False) -> bool:
+        return True
+
+    def load(self) -> Callable:
+        raise NotImplementedError
+
+
+class FlashAttentionBuilder(OpBuilder):
+    NAME = "flash_attn"
+
+    def load(self):
+        from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention
+
+
+class RMSNormBuilder(OpBuilder):
+    NAME = "rms_norm"
+
+    def load(self):
+        from deepspeed_tpu_torch.ops.rms_norm import fused_rms_norm
+
+        return fused_rms_norm
+
+
+class _Unported(OpBuilder):
+    """An op of the reference the port does not have yet: listed under its
+    reference name, not compatible, and ``load()`` names the ROADMAP item
+    that ports it."""
+
+    ROADMAP = ""
+
+    def is_compatible(self, verbose: bool = False) -> bool:
+        return False
+
+    def load(self):
+        raise NotImplementedError(
+            f"op {self.NAME!r} is not ported yet (ROADMAP section 1, "
+            f"{self.ROADMAP})")
+
+
+class QuantizerBuilder(_Unported):
+    NAME = "quantizer"
+    ROADMAP = "item 10: the non-Pallas ops, ops/quantization.py"
+
+
+class RingAttentionBuilder(_Unported):
+    NAME = "ring_attention"
+    ROADMAP = "item 9: long context, ops/ring_attention.py"
+
+
+ALL_OPS: Dict[str, Type[OpBuilder]] = {
+    b.NAME: b for b in (FlashAttentionBuilder, RMSNormBuilder,
+                        QuantizerBuilder, RingAttentionBuilder)
+}
+
+
+def get_op_builder(name: str) -> OpBuilder:
+    return ALL_OPS[name]()
+
+
+def op_report() -> List[tuple]:
+    """``ds_report``'s op table: ``[(name, compatible)]``."""
+    return [(name, cls().is_compatible()) for name, cls in ALL_OPS.items()]

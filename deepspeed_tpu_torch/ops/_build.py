@@ -30,7 +30,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
             "flash_attention": "flash_attention.cu",
             "flash_backward": "flash_backward.cu",
-            "quant_matmul": "quant_matmul.cu"}
+            "quant_matmul": "quant_matmul.cu",
+            "rms_norm": "rms_norm.cu",
+            "hbm_stream": "hbm_stream.cu"}
 _HEADERS = ("flash_tile.cuh", "int_unpack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,6 +92,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "deepspeed_tpu/ops/paged_attention.py:782"),
     Kernel("paged_past_int4", "paged_attention",
            "deepspeed_tpu/ops/paged_attention.py:782"),
+    Kernel("paged_tile", "paged_attention",
+           "deepspeed_tpu/ops/paged_attention.py:110"),
+    Kernel("rms_norm", "rms_norm", "deepspeed_tpu/ops/rms_norm.py:20"),
+    Kernel("hbm_stream", "hbm_stream", "bench_infer.py:67"),
 )}
 
 
@@ -204,6 +210,10 @@ def _declare(lib, name: str) -> None:
                                     P, P, I, I, I, F, P, P, P, P],
             "dst_paged_past_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
                                     P, P, I, I, I, F, P, P, P, P],
+            # q kpool vpool layer nbp1 bs H K hd bt nb_max pos B t window
+            # scale out stream
+            "dst_paged_tile": [P, P, P, I, I, I, I, I, I, P, I, P, I, I, I,
+                               F, P, P],
         },
         "flash_attention": {
             # q ks vs alen m0 l0 a0 out A tq H K hd window scale stream
@@ -228,6 +238,14 @@ def _declare(lib, name: str) -> None:
             "dst_qmm": [P, P, P, P, P, I, I, I, I, I, I, P],
             # x w scales out work B D F G bits splits layer stream
             "dst_qmm_stacked": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+        },
+        "rms_norm": {
+            # x w out n D x_fp32 w_fp32 eps stream
+            "dst_rms_norm": [P, P, P, I, I, I, I, F, P],
+        },
+        "hbm_stream": {
+            # x partials out n_chunks chunk_words offset stream
+            "dst_hbm_stream": [P, P, P, I, I, I, P],
         },
     }[name]
     for fn, args in sigs.items():

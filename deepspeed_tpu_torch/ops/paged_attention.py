@@ -25,7 +25,12 @@ version named in brackets):
   per kv head [``plain_past_partials``]; ``paged_past_int8`` /
   ``paged_past_int4`` over a quantized pool;
 * C ``self_attention`` -- causal flash over each chunk atom's own tokens,
-  seeded from B's partials [``plain_self_attention``].
+  seeded from B's partials [``plain_self_attention``];
+* I ``paged_attention`` -- a dense query tile ``[B, t, H, d]`` (every slot a
+  row, chunks right-padded) over each slot's paged KV, causal from
+  ``pos[b]``: the ``packed=False`` engine's attention, after
+  :func:`paged_update` has written the tile's own K/V into the layer
+  [``plain_paged_attention``].
 
 Each wrapper gets its launcher's arguments from a ``*_kernel_args`` function
 (operand checks, int32 metadata, output allocation) and launches through
@@ -586,3 +591,110 @@ def packed_kv_append_quant(pool: torch.Tensor, scale_pool: torch.Tensor,
                                                  q.reshape(-1, lanes))
     scale_pool.view(-1).index_copy_(0, sidx.reshape(-1), sc.reshape(-1))
     return pool, scale_pool
+
+
+# ---------------------------------------------------------------------------
+# I: dense query tile over the paged pool (the packed=False engine)
+# ---------------------------------------------------------------------------
+
+def physical_positions(block_tables: torch.Tensor, positions: torch.Tensor,
+                       block_size: int):
+    """Global token positions [B, t] -> (physical block [B, t], offset
+    [B, t]). The logical block is clipped to ``nb_max - 1`` (the
+    reference's :76): a lane past the table lands in the slot's last
+    block, and redirecting it is the caller's concern (:func:`paged_update`'s
+    ``valid``)."""
+    logical = torch.clamp(torch.div(positions.long(), block_size,
+                                    rounding_mode="floor"),
+                          0, block_tables.shape[1] - 1)
+    phys = torch.gather(block_tables.long(), 1, logical)
+    return phys, positions.long() % block_size
+
+
+def paged_update(pool: torch.Tensor, new: torch.Tensor,
+                 block_tables: torch.Tensor, pos: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write new KV ``[B, t, K, d]`` into ONE layer's blocks IN PLACE at
+    each slot's positions ``pos[b] + i`` and return ``pool``. ``pool`` is
+    ``[nb+1, bs, ...]`` holding ``K*d`` values a row: the lane-folded
+    ``[nb+1, bs, K*d]`` view of a stacked pool's layer (``cache["k"][l]``),
+    or ``[nb+1, bs, K, d]``; the last block is scratch. Lanes with ``valid``
+    False land in the scratch block (the reference's :88)."""
+    nbp1, bs = pool.shape[:2]
+    B, t = new.shape[:2]
+    gpos = pos.long()[:, None] + torch.arange(t, device=pool.device)[None]
+    phys, off = physical_positions(block_tables, gpos, bs)
+    if valid is not None:
+        phys = torch.where(valid.bool(), phys, nbp1 - 1)
+    flat = pool.view(nbp1 * bs, -1)
+    flat.index_copy_(0, (phys * bs + off).reshape(-1),
+                     new.reshape(B * t, flat.shape[1]).to(pool.dtype))
+    return pool
+
+
+def plain_paged_attention(q, k_pool, v_pool, block_tables, pos,
+                          window: Optional[int] = None, layer: int = 0):
+    """Plain version of kernel I (the reference's ``xla_paged_attention``
+    :212): each slot's ``nb_max`` blocks gathered dense, fp32 scores per
+    kv-head group, row ``i`` of slot ``b`` (position ``pos[b] + i``) keeping
+    columns ``<= pos[b] + i`` (and ``> pos[b] + i - window``). A row with
+    nothing visible gives 0, as the TPU kernel's ``_finalize`` (:155).
+    q [B, t, H, d]; pools stacked lane-folded ``[L, nb+1, bs, K*d]`` read
+    at ``layer``. Returns [B, t, H, d] in q's dtype."""
+    B, t, H, d = q.shape
+    _, _, bs, K, rep = _pool_geometry((H, d), k_pool)
+    bt = block_tables.long()
+    S = bt.shape[1] * bs
+    kd = k_pool[layer][bt].reshape(B, S, K, d).float()
+    vd = v_pool[layer][bt].reshape(B, S, K, d).float()
+    qg = q.float().reshape(B, t, K, rep, d)
+    s = torch.einsum("btkrd,bskd->bkrts", qg, kd) / math.sqrt(d)
+    row = (pos.long()[:, None] + torch.arange(t, device=q.device)[None])
+    row = row[:, None, None, :, None]                       # [B,1,1,t,1]
+    col = torch.arange(S, device=q.device)
+    keep = col <= row
+    if window is not None:
+        keep = keep & (col > row - window)
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.where(keep, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    acc = torch.einsum("bkrts,bskd->btkrd", p, vd)
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)                   # [B, t, K, rep]
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, t, H, d).to(q.dtype)
+
+
+def paged_tile_kernel_args(q, k_pool, v_pool, block_tables, pos,
+                           window: Optional[int] = None, layer: int = 0):
+    """Kernel I's launcher arguments and its output ``(out,)`` [B, t, H, d]
+    bf16."""
+    B, t, H, d = q.shape
+    L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool)
+    cuda_operand(q, "q", torch.bfloat16)
+    _pool_operands(k_pool, v_pool, None, 8)
+    bt = int32_meta(block_tables)
+    out = torch.empty_like(q)
+    args = (q, k_pool, v_pool, int(layer), nbp1, bs, H, K, d, bt,
+            bt.shape[1], int32_meta(pos), B, t, int(window or 0),
+            1.0 / math.sqrt(d), out, stream_ptr(q))
+    return args, (out,)
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, pos,
+                    window: Optional[int] = None, layer: int = 0
+                    ) -> torch.Tensor:
+    """Attention of a dense query tile over each slot's paged KV (the
+    reference's :1379): ``q`` [B, t, H, d] in the model layout (rows past a
+    slot's chunk are don't-care); pools stacked lane-folded ``[L, nb+1, bs,
+    K*d]`` read at ``layer``; ``block_tables`` [B, nb_max]; ``pos`` [B]
+    tokens cached per slot BEFORE this tile, whose own K/V must already be
+    in the pool (:func:`paged_update`). Returns [B, t, H, d]. Kernel I on
+    CUDA, :func:`plain_paged_attention` on CPU."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if on_cpu(q, k_pool, v_pool, block_tables, pos):
+        return plain_paged_attention(q, k_pool, v_pool, block_tables, pos,
+                                     window, layer)
+    args, (out,) = paged_tile_kernel_args(q, k_pool, v_pool, block_tables,
+                                          pos, window, layer)
+    KERNELS["paged_tile"].launch(*args)
+    return out

@@ -156,9 +156,14 @@ def test_capacity_and_unported_options():
     with pytest.raises(CapacityError):
         eng.put([0], [np.arange(1, 66, dtype=np.int32)])      # > max_seq_len
     assert eng.state.sequences == {}
+    # the dense-tile engines are ported (tests/test_torch_dense_engines.py);
+    # a quantized pool still needs the packed paged engine (:153)
     for kw in (dict(packed=False), dict(paged=False)):
-        with pytest.raises(NotImplementedError):
-            InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
+        assert not InferenceEngineV2(tm, device="cpu", **kw,
+                                     **ENGINE_KW).packed
+        with pytest.raises(ValueError, match="quantized KV"):
+            InferenceEngineV2(tm, device="cpu", kv_dtype="int8", **kw,
+                              **ENGINE_KW)
     # quantized KV and weights are ported; a bad value raises as the
     # reference does (engine_v2.py:122-124, :149-151)
     for kw, what in ((dict(kv_dtype="int2"), "kv_dtype"),

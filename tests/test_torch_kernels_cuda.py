@@ -1,7 +1,9 @@
-"""Kernels A-H of the PyTorch port, and the int8 / int4 modes of A and B,
+"""Kernels A-K of the PyTorch port, and the int8 / int4 modes of A and B,
 against their plain versions on the card (bf16; atol = rtol = 2e-2 on
-normalised outputs and on G/H's products, 1e-2 on m and lse; the backward's
-dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs). Every test here is
+normalised outputs (A-C, I) and on G/H's products, 1e-2 on m and lse; the
+backward's dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs; J
+at 1e-2 in bf16 and 1e-5 in fp32, forward and autograd backward; K at
+relative 1e-6). Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on the machine with the card:
 
@@ -11,7 +13,7 @@ the JAX package, so it runs on the machine with the card:
 import pytest
 import torch
 
-from chip_smoke import close_tiles      # dq, dk, dv per 64-row tile
+from chip_smoke import close_tiles      # dq, dk, dv, I's out per 64-row tile
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 
@@ -432,3 +434,84 @@ def test_quant_engine_on_card_matches_plain_cpu_engine(cuda_device, wd, kd):
     names = ("qmm", "qmm_stacked", f"paged_decode_{kd}", f"paged_past_{kd}")
     assert all(KERNELS[n].launches > 0 for n in names), \
         {n: k.launches for n, k in KERNELS.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,pos,window", [
+    (1, [38, 129, 2047, 0], None),      # decode rows
+    (1, [38, 129, 2047, 0], 300),
+    (700, [0, 1, 1500, 1800], None),    # deep slots: padded rows pass 2048
+    (100, [0, 64, 700, 1999], 90),
+    (13, [5, 0, 2040, 300], 1)])
+def test_kernel_i_matches_plain_on_card(cuda_device, t, pos, window):
+    """Kernel I over the stacked pool at layer 1, GQA 32 over 8 heads; rows
+    whose positions pass the 16-block table included (both give a finite
+    value there, 0 where nothing is visible). Held per 64-row tile, slot and
+    head: late causal rows are small."""
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    kp, vp, bt, g = _card_pools(cuda_device)
+    q = torch.randn(4, t, 32, 128, generator=g, device=cuda_device).bfloat16()
+    ps = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    n = KERNELS["paged_tile"].launches
+    out = tpa.paged_attention(q, kp, vp, bt, ps, window=window, layer=1)
+    torch.cuda.synchronize()
+    assert KERNELS["paged_tile"].launches == n + 1
+    ref = tpa.plain_paged_attention(q, kp, vp, bt, ps, window=window, layer=1)
+    close_tiles("I out", out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,shape", [
+    (torch.bfloat16, torch.bfloat16, (4096, 4096)),
+    (torch.bfloat16, torch.bfloat16, (2, 3, 4096)),
+    (torch.float32, torch.float32, (4096, 4096)),
+    (torch.bfloat16, torch.float32, (5, 2048)),
+    (torch.float32, torch.bfloat16, (7, 136))])
+def test_kernel_j_matches_plain_on_card(cuda_device, xdt, wdt, shape):
+    """Kernel J's forward, and the gradients of ``fused_rms_norm`` (kernel
+    J forward, closed-form backward) against autograd through the plain
+    version."""
+    from deepspeed_tpu_torch.ops import rms_norm as trn
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[-1])
+    D = shape[-1]
+    x = (2 * torch.randn(*shape, generator=g, device=cuda_device)).to(xdt)
+    w = (1 + 0.3 * torch.randn(D, generator=g, device=cuda_device)).to(wdt)
+    gy = torch.randn(*shape, generator=g, device=cuda_device)
+    tol = (dict(atol=1e-2, rtol=1e-2) if torch.bfloat16 in (xdt, wdt)
+           else dict(atol=1e-5, rtol=1e-5))
+    grads = []
+    n = KERNELS["rms_norm"].launches
+    for fn in (trn.fused_rms_norm,
+               lambda a, b: trn.plain_rms_norm(a.reshape(-1, D), b)
+               .reshape(a.shape)):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xx, ww)
+        (y.float() * gy).sum().backward()
+        grads.append((y.detach(), xx.grad, ww.grad))
+    torch.cuda.synchronize()
+    assert KERNELS["rms_norm"].launches == n + 1
+    assert grads[0][0].dtype == xdt
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,offset", [(65536, 0), (65536, 1000),
+                                         (128, 1)])
+def test_kernel_k_matches_plain_on_card(cuda_device, rows, offset):
+    from deepspeed_tpu_torch.ops._build import KERNELS
+    from deepspeed_tpu_torch.tools import hbm_bandwidth as hb
+
+    x = torch.arange(rows * hb.ROW, dtype=torch.float32,
+                     device=cuda_device).reshape(rows, hb.ROW)
+    x[1::7] *= -0.5                       # not a sum of one sign only
+    n = KERNELS["hbm_stream"].launches
+    got = hb.hbm_stream(x, offset)
+    torch.cuda.synchronize()
+    assert KERNELS["hbm_stream"].launches == n + 1
+    want = hb.plain_hbm_stream(x, offset)
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    assert float(hb.hbm_stream(x, offset + 5)) == float(got)

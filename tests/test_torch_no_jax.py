@@ -45,7 +45,10 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.ops.flash_attention\n"
         "import deepspeed_tpu_torch.ops.paged_attention\n"
         "import deepspeed_tpu_torch.ops.quant_matmul\n"
+        "import deepspeed_tpu_torch.ops.rms_norm\n"
         "import deepspeed_tpu_torch.inference.quant\n"
+        "import deepspeed_tpu_torch.inference.engine\n"
+        "import deepspeed_tpu_torch.tools.hbm_bandwidth\n"
         "import deepspeed_tpu_torch.config, deepspeed_tpu_torch.runtime\n"
         "import deepspeed_tpu_torch.runtime.engine\n"
         "import deepspeed_tpu_torch.tools.train_profile\n"

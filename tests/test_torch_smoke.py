@@ -6,7 +6,11 @@ phase's ``TrainReplay`` and gradient cross-check (``GRAD_REL_L2``) driven
 through a tiny CPU training engine, its per-tile gate of the
 backward kernels (``close_tiles``), and its serve-quant phase's
 ``QuantReplay`` and weight cross-check (``WEIGHT_REL_L2``) on a tiny
-quantized CPU engine."""
+quantized CPU engine, and its serve-dense phase (``dense_runs``,
+``DenseReplay``, ``dense_controls``, ``dense_cross_check``:
+``DENSE_REL_L2``) on a tiny fp32 CPU model, where stand-ins for kernel I and
+for the dense cache's attention that drop each row's newest visible column
+must be caught, and kernel I's per-tile gate."""
 
 import functools
 import os
@@ -21,6 +25,7 @@ import torch
 
 import chip_smoke
 from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+from deepspeed_tpu_torch.models import transformer as tm
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
@@ -251,6 +256,28 @@ def test_tile_gate_sees_a_late_tile_fault_a_tensor_wide_gate_misses(grad):
         chip_smoke.close_tiles("late", got, want)
 
 
+def test_tile_gate_sees_a_late_kernel_i_fault_a_tensor_wide_gate_misses():
+    """Kernel I's t=700 tile (phase 3): late causal rows average hundreds of
+    columns and are small, so 5% off in the last quarter of the rows
+    passes the tensor-wide atol = rtol = 2e-2 but fails the per-tile gate;
+    the output rounded to bf16 passes it."""
+    rng = np.random.default_rng(3)
+    H, K, d, bs, nb, t = 4, 2, 128, 64, 12, 700
+    q = torch.from_numpy(rng.standard_normal((1, t, H, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal((1, nb + 1, bs, K * d))
+                               .astype(np.float32)) for _ in "kv")
+    bt = torch.from_numpy(rng.permutation(nb).astype(np.int32)[None])
+    want = tpa.plain_paged_attention(q, kp, vp, bt, torch.zeros(1, dtype=
+                                                                torch.int32))
+    chip_smoke.close_tiles("I bf16", want.bfloat16(), want)
+    got = want.clone()
+    got[:, 3 * t // 4:] *= 1.05
+    torch.testing.assert_close(got, want, atol=chip_smoke.ATOL,
+                               rtol=chip_smoke.RTOL)
+    with pytest.raises(AssertionError, match="tiles over the gate"):
+        chip_smoke.close_tiles("late", got, want)
+
+
 def _quant_engine(wd="int4", kd="int8", seed=0):
     """A tiny engine whose every matmul leaf quantizes (dims multiples of
     128), fp32 on the CPU."""
@@ -342,3 +369,113 @@ def test_weight_cross_check_passes_g_h_against_their_dense_weights(
     assert rel <= chip_smoke.WEIGHT_REL_L2 / 2
     assert chip_smoke.tree_bytes(eng.params) < \
         (0.6 if bits == 8 else 0.45) * chip_smoke.tree_bytes(params)
+
+
+def _dense_setup():
+    """A tiny fp32 model whose tree is already in the compute dtype (the
+    engines must not copy it), phase 7's traffic at a tiny size."""
+    cfg = get_preset("tiny", dtype="float32", num_kv_heads=2, num_layers=2,
+                     max_seq_len=256)
+    model = TransformerLM(cfg)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, n).astype(np.int32)
+               for n in (5, 9, 30, 17)]
+    v1_ids = [rng.integers(1, 256, 16).astype(np.int32) for _ in range(4)]
+    kw = dict(max_sequences=8, max_seq_len=128, block_size=8, device="cpu")
+    return model, model.init(seed=0, device="cpu"), prompts, v1_ids, kw
+
+
+def test_dense_runs_and_cross_check_pass_correct_engines():
+    model, tree, prompts, v1_ids, kw = _dense_setup()
+    originals = (tpa.paged_attention,)
+    res = chip_smoke.dense_runs(torch, tpa, model, tree, prompts, v1_ids, 3,
+                                noise_floor=True, **kw)
+    assert (tpa.paged_attention,) == originals
+    assert set(res["rel"]) == {"forward", "noise", "a", "b", "c"}
+    assert max(res["rel"].values()) < 1e-5          # fp32: the same function
+    assert set(res["replay"]) == {"paged_tile/put"}
+    assert res["generated"].shape == (4, chip_smoke.V1_NEW_TOKENS)
+    originals = (tpa.paged_attention, tm._cached_attention)
+    res = chip_smoke.dense_cross_check(torch, tpa, model, tree, prompts,
+                                       v1_ids, 3, **kw)
+    assert (tpa.paged_attention, tm._cached_attention) == originals
+    assert max(res["rel"].values()) < 1e-5
+    assert set(res["faulty"]) == {"a", "b", "c"}
+    assert min(res["faulty"].values()) > 10 * chip_smoke.DENSE_REL_L2
+
+
+def test_dense_replay_sees_a_kernel_i_that_drops_the_newest_column(
+        monkeypatch):
+    model, tree, prompts, v1_ids, kw = _dense_setup()
+    monkeypatch.setattr(tpa, "paged_attention", functools.wraps(
+        tpa.paged_attention)(chip_smoke.drops_newest_column(
+            tpa.paged_attention)))
+    with pytest.raises(AssertionError, match=r"replay paged_tile \(put\)"):
+        chip_smoke.dense_runs(torch, tpa, model, tree, prompts, v1_ids, 2,
+                              **kw)
+
+
+def test_dense_gates_see_a_dense_cache_that_drops_the_newest_column(
+        monkeypatch):
+    """(b)'s logits and (c)'s ``generate`` steps (the dense cache's
+    attention) both leave the gate when that attention drops each row's
+    newest column; (a) (kernel I's path) does not move."""
+    model, tree, prompts, v1_ids, kw = _dense_setup()
+    monkeypatch.setattr(tm, "_cached_attention",
+                        chip_smoke.cached_drops_newest_column(
+                            tm._cached_attention))
+    rel = chip_smoke.dense_runs(torch, tpa, model, tree, prompts, v1_ids, 2,
+                                **kw)["rel"]
+    assert rel["a"] < 1e-5 and rel["forward"] < 1e-5
+    assert min(rel["b"], rel["c"]) > 10 * chip_smoke.DENSE_REL_L2, rel
+
+
+def test_dense_cross_check_refuses_a_blind_gate(monkeypatch):
+    """A stand-in that is no fault at all must make the check raise: the
+    check proves on every run that its gate sees a dropped column."""
+    model, tree, prompts, v1_ids, kw = _dense_setup()
+    monkeypatch.setattr(chip_smoke, "drops_newest_column", lambda fn: fn)
+    with pytest.raises(AssertionError, match="blind"):
+        chip_smoke.dense_cross_check(torch, tpa, model, tree, prompts,
+                                     v1_ids, 2, **kw)
+
+
+def test_dense_cross_check_refuses_a_blind_dense_cache_control(monkeypatch):
+    model, tree, prompts, v1_ids, kw = _dense_setup()
+    monkeypatch.setattr(chip_smoke, "cached_drops_newest_column",
+                        lambda fn: fn)
+    with pytest.raises(AssertionError, match="blind.*'b'.*'c'"):
+        chip_smoke.dense_cross_check(torch, tpa, model, tree, prompts,
+                                     v1_ids, 2, **kw)
+
+
+def test_dense_runs_refuse_a_copied_tree():
+    """Phase 7 holds one tree for every engine: an fp32 tree under a bf16
+    model is cast by the engine, i.e. copied, and must raise."""
+    model, _, prompts, v1_ids, kw = _dense_setup()
+    bf16 = TransformerLM(get_preset("tiny", dtype="bfloat16", num_layers=2,
+                                    num_kv_heads=2, max_seq_len=256))
+    tree = bf16.init(seed=0, device="cpu")                 # fp32 leaves
+    with pytest.raises(AssertionError, match="copied"):
+        chip_smoke.dense_runs(torch, tpa, bf16, tree, prompts, v1_ids, 1,
+                              **kw)
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_dense_gate_passes_at_2e2_and_fails_a_fault(fault):
+    rel = {"a": 1e-3, "b": 1.5e-2, "c": 0.0}
+    limits = dict.fromkeys("abc", chip_smoke.DENSE_REL_L2)
+    if fault:
+        rel["b"] = 0.3
+        with pytest.raises(AssertionError, match="'b'"):
+            chip_smoke.gate_rel("t", rel, limits)
+    else:
+        chip_smoke.gate_rel("t", rel, limits)
+    # the full-depth limits: each control must clear its margin
+    limits = chip_smoke.DENSE_FULL_REL_L2
+    margin = chip_smoke.DENSE_FULL_CONTROL_MARGIN
+    faulty = {k: 1.01 * margin * lim for k, lim in limits.items()}
+    chip_smoke.gate_controls("t", faulty, limits, margin)
+    faulty["a"] = 0.99 * margin * limits["a"]
+    with pytest.raises(AssertionError, match="blind.*'a'"):
+        chip_smoke.gate_controls("t", faulty, limits, margin)
