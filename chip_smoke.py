@@ -7,22 +7,27 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 1. device  -- require CUDA; print the card's name and power limit;
 2. build   -- compile the port's CUDA kernels from ``deepspeed_tpu_torch/
-              csrc`` (one ``nvcc`` per source, in parallel), timed;
+              csrc`` (one ``nvcc`` per source, in parallel), timed; print
+              kernel D's ptxas report (registers, stack and spill bytes;
+              a spill fails the run) and shared memory per head dim;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
-              normalised outputs, 1e-2 on m / lse) and timed: the kernel
-              alone (its launcher on arguments prepared once), the whole
-              wrapper, its plain version, its bound and, for D, SDPA; the
-              int8 and int4 modes of A and B on the same atoms over the
-              pools quantized by ``packed_kv_append_quant``; G on the
+              normalised outputs, 1e-2 on m / lse; D's out per 64-row tile
+              like dq/dk/dv below) and timed: the kernel alone (its
+              launcher on arguments prepared once), the whole wrapper, its
+              plain version, its bound and, for D, SDPA (in turns: SDPA,
+              kernel, kernel, SDPA); the int8 and int4 modes of A and B on
+              the same atoms over the pools quantized by
+              ``packed_kv_append_quant``; G on the
               llama3-8b head (B=6, D=4096, F=128256) and H on w_gateup of a
               4-layer stack at layer 2 (D=4096, F=28672, B=6 and B=256),
               int4 and int8, beside cuBLAS on the dense bf16 weight (H's
               launches cycle over the stack's layers, each larger than L2);
-              then the training shapes: D, and the backward kernels E (dq)
-              and F (dk, dv) at Llama-3.2-1B's B=4 T=2048 H=32 K=8 d=64
-              (causal) and at d=128 (B=1), dq/dk/dv held per 64-row tile
+              then the training shapes: D (held and timed as above) and
+              the backward kernels E (dq) and F (dk, dv) at Llama-3.2-1B's
+              B=4 T=2048 H=32 K=8 d=64 (causal) and at d=128 (B=1),
+              dq/dk/dv held per 64-row tile
               (each batch row and head: max abs error <= 2e-2 x that
               tile's max |plain|), timed likewise beside one SDPA backward
               (its backend named); kernel I at the serve shapes (a t=1
@@ -120,6 +125,7 @@ import inspect
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -245,6 +251,72 @@ def timings(kernel, args, wrapper, plain) -> dict:
                 plain_ms=time_ms(plain, iters=5))
 
 
+def flash_fwd_build_report(build) -> None:
+    """Kernel D's ptxas report from the log of the build that made its
+    library -- registers, stack frame and spill bytes per head dim -- beside
+    the dynamic shared memory it launches with. Spilled bytes fail the run."""
+    import ctypes
+
+    path = build.build_log("flash_forward")
+    report = {}
+    for name, r in build.ptxas_report(path.read_text()).items():
+        m = re.search(r"flash_fwd_kernelILi(\d+)E", name)  # <HD> mangled
+        if m:
+            report[int(m.group(1))] = r
+    smem = (ctypes.c_int * 2).in_dll(build.library("flash_forward"),
+                                     "dst_flash_fwd_smem_bytes")
+    for i, hd in enumerate((64, 128)):
+        r = report.get(hd)
+        if r is None or "spill_stores" not in r:
+            raise AssertionError(f"kernel D at d={hd}: no ptxas report in "
+                                 f"{path}")
+        log(f"kernel flash_fwd ptxas (d={hd}): {r.get('registers')} "
+            f"registers, {r['stack']} bytes stack frame, "
+            f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} "
+            f"bytes spill loads; {smem[i]} bytes of dynamic shared memory")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"kernel D at d={hd} spills registers")
+
+
+def in_turns(kernel, args, library) -> dict:
+    """A kernel beside one library call computing the same function, timed
+    in turns in this call (library, kernel, kernel, library): ``ms`` and
+    ``library_ms`` the mean of each pair, ``turns`` the four readings."""
+    readings = (time_ms(library), time_ms(lambda: kernel.launch(*args)),
+                time_ms(lambda: kernel.launch(*args)), time_ms(library))
+    return dict(ms=(readings[1] + readings[2]) / 2,
+                library_ms=(readings[0] + readings[3]) / 2, turns=readings)
+
+
+def flash_fwd_checks(torch, fa, KERNELS, q, k, v, tag: str) -> dict:
+    """Kernel D causal on ``q`` [B,T,H,d], ``k``/``v`` [B,T,K,d]: out per
+    64-row tile, batch row and head (:func:`close_tiles`), lse at
+    ``STAT_TOL``; timed in turns with SDPA, beside its wrapper, its plain
+    version and its bound."""
+    B, T, H, d = q.shape
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    pout, plse = fa.plain_flash_forward(q, k, v, causal=True)
+    tiles = {"out": close_tiles(f"D out ({tag})", out, pout)}
+    close(f"D lse ({tag})", lse, plse, STAT_TOL, STAT_TOL)
+    del pout, plse
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * 2
+              + lse.numel() * 4)
+    flops = 4 * B * H * d * (T * (T + 1) // 2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    args, _ = fa.flash_kernel_args(q, k, v, causal=True)
+    return dict(
+        err=tiles["out"][0], tiles=tiles, bound=bound(nbytes, flops),
+        **in_turns(KERNELS["flash_fwd"], args,
+                   lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        wrapper_ms=time_ms(lambda: fa.flash_attention_lse(q, k, v,
+                                                          causal=True)),
+        plain_ms=time_ms(lambda: fa.plain_flash_forward(q, k, v,
+                                                        causal=True),
+                         iters=5),
+        shape=f"B={B} T=S={T} H={H} K={k.shape[2]} d={d}, causal")
+
+
 def kernel_checks(torch, pa, fa, KERNELS):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -342,23 +414,8 @@ def kernel_checks(torch, pa, fa, KERNELS):
     qd = torch.randn(B, T, H, d, generator=g, device=dev).to(torch.bfloat16)
     kd = torch.randn(B, T, K, d, generator=g, device=dev).to(torch.bfloat16)
     vd = torch.randn(B, T, K, d, generator=g, device=dev).to(torch.bfloat16)
-    outd, lse = fa.flash_attention_lse(qd, kd, vd, causal=True)
-    poutd, plse = fa.plain_flash_forward(qd, kd, vd, causal=True)
-    err = close("D out", outd, poutd, ATOL, RTOL)
-    close("D lse", lse, plse, STAT_TOL, STAT_TOL)
-    nbytes = ((qd.numel() + kd.numel() + vd.numel() + outd.numel()) * 2
-              + lse.numel() * 4)
-    flops = 4 * B * H * d * (T * (T + 1) // 2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qd, kd, vd))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    args, _ = fa.flash_kernel_args(qd, kd, vd, causal=True)
-    rows["flash_fwd"] = dict(
-        err=err, bound=bound(nbytes, flops), library_ms=lib,
-        **timings(KERNELS["flash_fwd"], args,
-                  lambda: fa.flash_attention_lse(qd, kd, vd, causal=True),
-                  lambda: fa.plain_flash_forward(qd, kd, vd, causal=True)),
-        shape="B=4 T=S=1024 H=32 K=8 d=128, causal")
+    rows["flash_fwd"] = flash_fwd_checks(torch, fa, KERNELS, qd, kd, vd,
+                                         "serve shape")
     rows.update(quant_pool_checks(
         torch, pa, KERNELS, kpool, vpool, layer, bt,
         decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq)))
@@ -368,6 +425,8 @@ def kernel_checks(torch, pa, fa, KERNELS):
             f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}, library {r['library_ms']}) [{r['shape']}]")
+        log_tiles(name, r)
+        log_turns(name, r)
     return rows
 
 
@@ -576,27 +635,10 @@ def backward_checks(torch, fa, KERNELS):
             rnd(B, T, K, d)
         shape = f"B={B} T=S={T} H={H} K={K} d={d}, causal"
         pairs = B * H * T * (T + 1) // 2          # live (row, col) per head
-        out, lse = fa.flash_forward(q, k, v, causal=True)
         if tag == "train":
-            pout, plse = fa.plain_flash_forward(q, k, v, causal=True)
-            err = close("D out (train shape)", out, pout, ATOL, RTOL)
-            close("D lse (train shape)", lse, plse, STAT_TOL, STAT_TOL)
-            del pout, plse
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True))
-            del qt, kt, vt
-            args, _ = fa.flash_kernel_args(q, k, v, causal=True)
-            rows["flash_fwd/train"] = dict(
-                err=err, library_ms=lib, shape=shape,
-                bound=bound((q.numel() + k.numel() + v.numel()
-                             + out.numel()) * 2 + lse.numel() * 4,
-                            4 * d * pairs),
-                **timings(KERNELS["flash_fwd"], args,
-                          lambda: fa.flash_forward(q, k, v, causal=True),
-                          lambda: fa.plain_flash_forward(q, k, v,
-                                                         causal=True)))
+            rows["flash_fwd/train"] = flash_fwd_checks(
+                torch, fa, KERNELS, q, k, v, "train shape")
+        out, lse = fa.flash_forward(q, k, v, causal=True)
         delta = fa.flash_delta(out, do)
         ins = (q, k, v, do, lse, delta)
         dq = fa.flash_bwd_dq(*ins, causal=True)
@@ -638,6 +680,7 @@ def backward_checks(torch, fa, KERNELS):
             f"{r['bound'][1]}, library {r['library_ms']} "
             f"{r.get('library', 'SDPA')}) [{r['shape']}]")
         log_tiles(name, r)
+        log_turns(name, r)
     return rows
 
 
@@ -647,6 +690,15 @@ def log_tiles(name: str, r: dict) -> None:
         log(f"kernel {name} {t}: max abs err {err:.3e}, max |plain| "
             f"{scale:.3e}, worst {TILE}-row tile err / tile max |plain| "
             f"{worst:.3e} (gate {BWD_REL})")
+
+
+def log_turns(name: str, r: dict) -> None:
+    """A row's :func:`in_turns` readings and the kernel / library ratio."""
+    if "turns" in r:
+        lib0, k0, k1, lib1 = r["turns"]
+        log(f"kernel {name} in turns: library {lib0:.4f}, kernel {k0:.4f}, "
+            f"kernel {k1:.4f}, library {lib1:.4f} ms; kernel / library "
+            f"{r['ms'] / r['library_ms']:.2f}")
 
 
 def tile_checks(torch, pa, KERNELS):
@@ -1818,6 +1870,7 @@ def main() -> int:
     spent = _build.build_all()
     log(f"build: {time.perf_counter() - t:.1f} s {spent} -> "
         f"{_build.build_dir()}")
+    flash_fwd_build_report(_build)
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
     rows.update(qmm_checks(torch, qm, _build.KERNELS))
@@ -1850,6 +1903,9 @@ def main() -> int:
             e["tile_rel_gate"] = BWD_REL
         if "grad_err" in r:
             e["grad_max_abs_err"] = r["grad_err"]
+        if "turns" in r:
+            e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",
+                                      "library_again"), r["turns"]))
         return e
 
     kernels = []

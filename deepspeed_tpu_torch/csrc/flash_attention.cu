@@ -1,24 +1,19 @@
-// Causal flash attention with an optional seed on Hopper: kernels C and D of
-// the serving path.
+// Seeded causal flash attention on Hopper: kernel C of the serving path.
 //
-// Replaces:
-//   C  deepspeed_tpu/ops/paged_attention.py _self_kernel (:891) via
-//      _prefill_attention (:952): causal flash over a chunk atom's own
-//      right-padded tokens, its online state SEEDED from kernel B's past
-//      partials, masks col <= row, col < atom_len and the window, rows
-//      >= atom_len written as zeros;
-//   D  deepspeed_tpu/ops/flash_attention.py _fwd_kernel (:66) via
-//      _fwd_pallas (:121): causal GQA flash forward with window and a static
-//      rel_offset, returning out and lse = m + log(l).
+// Replaces deepspeed_tpu/ops/paged_attention.py _self_kernel (:891) via
+// _prefill_attention (:952): causal flash over a chunk atom's own
+// right-padded tokens, its online state SEEDED from kernel B's past partials,
+// masks col <= row, col < atom_len and the window, rows >= atom_len written
+// as zeros. (Kernel D, the unseeded flash forward, is csrc/flash_forward.cu.)
 //
 // What bounds it on the card: at prefill widths (hundreds to thousands of
 // rows) the causal QK^T and PV products, about 2 * 2 * d FLOPs per live
 // (row, col) pair, against 989 TFLOP/s bf16 -- the KV bytes are small next to
 // that. The design's answer in this first version:
 //   * bf16 tensor cores (wmma 16x16x16, fp32 accumulate) for both products;
-//   * a CTA per (batch or atom, head, 64-row q tile) walks only the live
-//     column range: tiles entirely above the causal diagonal or older than
-//     the window are never visited (the TPU kernel's _block_live skip);
+//   * a CTA per (atom, head, 64-row q tile) walks only the live column range:
+//     tiles entirely above the causal diagonal or older than the window are
+//     never visited (the TPU kernel's _block_live skip);
 //   * q, k and v are read in the model's own [rows, heads, d] layout through
 //     strides: no transposes or padding copies around the launch.
 // Not yet: wgmma/TMA, register-resident O, K/V tile reuse across the rep
@@ -78,54 +73,6 @@ struct SelfMode {
   }
 };
 
-// D: grid (B, H, ceil(T / 64)). q [B, T, H, hd]; k/v [B, S, K, hd];
-// out [B, T, H, hd]; lse [B, H, T]. Query row t sits at global position
-// t + rel_offset against key column c (start-aligned, as the TPU kernel).
-struct FwdMode {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
-  float* lse;
-  int T, S, H, K, hd, causal, window, rel;
-  // per-CTA
-  int b, h, kk, t0;
-
-  __device__ void setup() {
-    b = blockIdx.x;
-    h = blockIdx.y;
-    t0 = blockIdx.z * BM;
-    kk = h / (H / K);
-  }
-  __device__ int rows() const { return min(BM, T - t0); }
-  __device__ const bf16* q_row(int r) const {
-    return q + ((size_t(b) * T + t0 + r) * H + h) * hd;
-  }
-  __device__ int col_lo() const {
-    return window > 0 ? max(0, t0 + rel - (window - 1)) : 0;
-  }
-  __device__ int col_hi() const {
-    return causal ? max(0, min(S, t0 + rows() + rel)) : S;
-  }
-  __device__ const bf16* k_row(int c) const { return k + ((size_t(b) * S + c) * K + kk) * hd; }
-  __device__ const bf16* v_row(int c) const { return v + ((size_t(b) * S + c) * K + kk) * hd; }
-  __device__ bool keep(int r, int c) const {
-    const int qp = t0 + r + rel;
-    return (!causal || qp >= c) && (window <= 0 || qp - c <= window - 1);
-  }
-  __device__ float seed_m(int) const { return NEG_INF; }
-  __device__ float seed_l(int) const { return 0.f; }
-  __device__ float seed_acc(int, int) const { return 0.f; }
-  __device__ void finish(int r, const float* o, float m, float l, int lane) const {
-    const float denom = fmaxf(l, 1e-30f);
-    const float inv = 1.f / denom;
-    const int t = t0 + r;
-    bf16* dst = out + ((size_t(b) * T + t) * H + h) * hd;
-    for (int j = lane; j < hd; j += 32) dst[j] = __float2bfloat16(o[j] * inv);
-    if (lane == 0) lse[(size_t(b) * H + h) * T + t] = m + logf(denom);
-  }
-};
-
 }  // namespace dst
 
 using dst::bf16;
@@ -146,24 +93,6 @@ int dst_chunk_self(const void* q, const void* ks, const void* vs, const int* ale
   md.out = static_cast<bf16*>(out);
   md.H = H; md.K = K; md.hd = hd; md.tq = tq; md.window = window;
   return dst::launch_any_hd(md, hd, dim3(A, H, (tq + dst::BM - 1) / dst::BM), scale,
-                            static_cast<cudaStream_t>(stream));
-}
-
-// Kernel D. Returns cudaError_t.
-int dst_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                  int T, int S, int H, int K, int hd, int causal, int window, int rel_offset,
-                  float scale, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
-  dst::FwdMode md{};
-  md.q = static_cast<const bf16*>(q);
-  md.k = static_cast<const bf16*>(k);
-  md.v = static_cast<const bf16*>(v);
-  md.out = static_cast<bf16*>(out);
-  md.lse = lse;
-  md.T = T; md.S = S; md.H = H; md.K = K; md.hd = hd;
-  md.causal = causal; md.window = window; md.rel = rel_offset;
-  return dst::launch_any_hd(md, hd, dim3(B, H, (T + dst::BM - 1) / dst::BM), scale,
                             static_cast<cudaStream_t>(stream));
 }
 

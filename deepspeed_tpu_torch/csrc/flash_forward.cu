@@ -1,0 +1,418 @@
+// Causal GQA flash forward on Hopper: kernel D of the serving and training
+// paths, register-resident.
+//
+// Replaces deepspeed_tpu/ops/flash_attention.py _fwd_kernel (:66) via
+// _fwd_pallas (:121): causal (or full) GQA flash attention with a window and
+// a static rel_offset, returning out and lse = m + log(l). Query row t sits at
+// position t + rel against key column c (start-aligned, as the TPU kernel);
+// causal keeps t + rel >= c, a window keeps t + rel - c <= window - 1. A row
+// that sees no column gets out = 0 and lse = -1e30 + log(1e-30), as
+// plain_flash_forward.
+//
+// What bounds it on the card: operations. Each live (row, column) pair costs
+// about 4 d FLOPs (S = Q K^T and O += P V, 2 d each) against 989 TFLOP/s bf16;
+// q, k, v and the outputs are a few percent of that time at prefill and
+// training widths. The design's answer (FlashAttention-2's tiling on mma.sync):
+//   * a CTA owns 16 x WARPS query rows of one head, 16 rows a warp, and walks
+//     only its live column range in 64-column tiles (the TPU kernel's
+//     _block_live skip); grid (H, B, q tiles) with the q tile index
+//     reversed, so the longest causal tiles launch first and the tail is
+//     short;
+//   * Q is copied once (cp.async) and held in registers as mma A fragments
+//     (ldmatrix) for the whole walk; its shared tile lies in the ring's last
+//     stage, which is refilled only after every warp has taken its fragments;
+//   * S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 accumulate) into registers,
+//     K fragments by ldmatrix from K's [column, d] rows (the col-major B);
+//   * the online softmax stays in registers: a thread holds rows g and g + 8 of
+//     its warp's 16; a row max is two quad shuffles;
+//   * P is packed from the S accumulators into bf16 A fragments (two n8 tiles
+//     make one k16 step) and never touches shared memory; O += P V with V
+//     fragments by ldmatrix.trans; O is rescaled in registers and written once,
+//     normalised by l, staged through the warp's own Q rows for 16-byte stores;
+//   * K and V arrive through a STAGES-deep ring of 16-byte cp.async.cg copies:
+//     tile i + STAGES - 1 is issued before tile i's math, one barrier a tile;
+//     rows past the valid range are zero-filled through the copy's src-size
+//     (stale shared memory can hold NaN bits, and NaN x 0 is NaN); rows are
+//     padded by 16 bytes so every ldmatrix phase hits 8 distinct bank quads;
+//   * masks are computed only on tiles that cross the causal diagonal, the
+//     window's edge or the last valid column for some of a warp's rows (a
+//     second instantiation of the tile body); masked entries get p = 0.
+// A prompt served whole (kernel D) and in chunks (kernels B then C, on the
+// tile engine of flash_tile.cuh) must give the same logits: at full depth any
+// change of rounding grows to several percent of them. So D keeps the tile
+// engine's arithmetic exactly -- its 64-column tiles from column 0 in order,
+// scores scaled before the max, p = expf(score - m), each tile's row sum in
+// the engine's warp_sum order, l = l * corr + sum, the same mma k order --
+// and the two agree bit for bit (a card test holds D against C).
+// Not yet: wgmma and TMA with a producer warp, and K/V reuse across the heads
+// of a GQA group beyond what L2 gives (neighbouring CTAs are those heads).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dst {
+
+using bf16 = __nv_bfloat16;
+constexpr int BN = 64;  // the tile engine's column tile (flash_tile.cuh)
+// WARPS warps of 16 query rows a CTA, STAGES K/V tiles in the ring, MINB
+// CTAs per SM for __launch_bounds__: the fastest shape without spills at
+// d = 64 and d = 128 (chip_smoke prints ptxas's registers and spill bytes)
+constexpr int WARPS = 4, STAGES = 3, MINB = 2;
+constexpr float FWD_NEG_INF = -1e30f;  // masked score, empty running max
+
+// Shared memory: the K/V ring only. Q's tile lies in the ring's last stage,
+// whose first tile is issued after every warp has taken its Q fragments;
+// the epilogue stages O there again once the ring is idle.
+template <int HD>
+struct FwdTiles {
+  static constexpr int BM = 16 * WARPS;  // query rows a CTA
+  static constexpr int LD = HD + 8;      // bf16 row pitch: 16 bytes of skew
+  static constexpr int Q_ELEMS = BM * LD;
+  static constexpr int KV_ELEMS = BN * LD;  // one K or V tile
+  static constexpr size_t BYTES = size_t(2 * STAGES * KV_ELEMS) * sizeof(bf16);
+  static_assert(Q_ELEMS <= 2 * KV_ELEMS, "Q fits one stage");
+};
+
+// q [B, T, H, hd]; k/v [B, S, K, hd]; out [B, T, H, hd]; lse [B, H, T]
+struct FwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  float* lse;
+  int T, S, H, K, causal, window, rel;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b, m16n8k16, bf16 in, fp32 accumulate. Lane = 4 g + t: a holds rows
+// g, g + 8 at k 2t, 2t + 1 (+8); b holds column g at k 2t, 2t + 1 (+8); c holds
+// rows g (c0, c1) and g + 8 (c2, c3) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ROWS rows of HD bf16 from src (row pitch ld elements), rows row0 .. into
+// dst (pitch HD + 8) by cp.async, NT threads; rows >= n are zero-filled.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, size_t ld, int row0, int n) {
+  constexpr int CH = HD / 8;
+  static_assert(ROWS * CH % NT == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < n;
+    const bf16* p = src + (ok ? size_t(row0 + r) * ld : 0) + c * 8;
+    cp_async16(smem_u32(dst + r * (HD + 8) + c * 8), p, ok ? 16 : 0);
+  }
+}
+
+// The tile engine's arithmetic (flash_tile.cuh), spelled out so that the
+// compiler cannot contract it differently here: score = s * scale, p =
+// expf(score - m), l = fma(l, corr, the tile's row sum) -- the engine's
+// `l * corr + psum`, which nvcc contracts.
+__device__ __forceinline__ float score_of(float s, float scale) { return __fmul_rn(s, scale); }
+
+__device__ __forceinline__ float p_of(float score, float m) { return expf(__fsub_rn(score, m)); }
+
+// A row's sum over a 64-column tile in the tile engine's order (its
+// warp_sum over lanes holding columns c and c + 32): column bits b5, b4 and
+// b3 (this thread's n8 tiles j), then b2 and b1 (across the quad), then b0.
+// s[j][e0 + b0] holds column 8 j + 2 t + b0 of the row.
+__device__ __forceinline__ float tile_row_sum(const float (&s)[BN / 8][4], int e0) {
+  float z[2];
+#pragma unroll
+  for (int b0 = 0; b0 < 2; ++b0) {
+    const int e = e0 + b0;
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = s[j][e] + s[j + 4][e];  // b5
+    z[b0] = (x[0] + x[2]) + (x[1] + x[3]);                      // b4, b3
+    z[b0] += __shfl_xor_sync(0xffffffffu, z[b0], 2);            // b2
+    z[b0] += __shfl_xor_sync(0xffffffffu, z[b0], 1);            // b1
+  }
+  return z[0] + z[1];  // b0
+}
+
+// S = Q K^T for a warp's 16 rows and one 64-column tile (raw scores).
+template <int HD>
+__device__ __forceinline__ void tile_scores(const bf16* ks, const uint32_t (&qf)[HD / 16][4],
+                                            float (&s)[BN / 8][4], int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < HD / 16; ++kd) {
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      // matrices: (cols np*16 .. +7, d kd*16 .. +7), (.., d +8), (cols +8, d), (cols +8, d +8)
+      uint32_t kb[4];
+      ldsm_x4(kb, smem_u32(ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kd * 16 +
+                           ((lane >> 3) & 1) * 8));
+      mma_bf16(s[2 * np], qf[kd], kb[0], kb[1]);
+      mma_bf16(s[2 * np + 1], qf[kd], kb[2], kb[3]);
+    }
+  }
+}
+
+// The online softmax update of m / l / O from a tile's raw scores s, then
+// O += P V. EDGE: the tile crosses the causal diagonal, the window's edge or
+// c_hi for some of the warp's rows, and masked entries get score NEG_INF
+// and p = 0.
+template <int HD, bool EDGE>
+__device__ __forceinline__ void tile_softmax_pv(const bf16* vs, float (&s)[BN / 8][4],
+                                                float (&o)[HD / 8][4], float (&m)[2],
+                                                float (&l)[2], int c0, int c_hi, int qp0,
+                                                int causal, int window, float scale, int lane) {
+  constexpr int LD = HD + 8;
+  const int tq = lane & 3;
+  auto keep = [&](int j, int e) {
+    const int c = c0 + j * 8 + 2 * tq + (e & 1);
+    const int qp = qp0 + (e >> 1) * 8;
+    return c < c_hi && (!causal || qp >= c) && (window <= 0 || qp - c < window);
+  };
+  float mx[2] = {m[0], m[1]};  // any order of the max gives the same bits
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = !EDGE || keep(j, e) ? score_of(s[j][e], scale) : FWD_NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = !EDGE || keep(j, e) ? p_of(s[j][e], mx[e >> 1]) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float psum = tile_row_sum(s, 2 * r);
+    const float corr = expf(m[r] - mx[r]);  // 0 when m was empty, 1 when nothing new
+    m[r] = mx[r];
+    l[r] = __fmaf_rn(l[r], corr, psum);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][2 * r] *= corr;
+      o[n][2 * r + 1] *= corr;
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < HD / 16; ++dn) {
+      // matrices: (cols kk*16 .. +7, d dn*16 .. +7), (cols +8, d), (cols, d +8), (cols +8, d +8)
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, smem_u32(vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                 dn * 16 + (lane >> 4) * 8));
+      mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdArgs a) {
+  using Tiles = FwdTiles<HD>;
+  constexpr int LD = Tiles::LD, BM = Tiles::BM, NT = WARPS * 32;
+  static_assert(STAGES >= 2, "a ring");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // stage s: K at 2 s KV_ELEMS, V after it
+  bf16* Qs = ring + (STAGES - 1) * 2 * Tiles::KV_ELEMS;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest causal tiles first
+  const int nrows = min(BM, a.T - t0);
+  const int kvh = h / (a.H / a.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // live columns [c_lo, c_hi) of the CTA's query positions [q_lo, q_hi]; D
+  // walks the tile engine's 64-column tiles from column 0 (no window) or
+  // c_lo, in order, so its sums meet kernels B and C's bit for bit
+  const int q_lo = t0 + a.rel, q_hi = t0 + nrows - 1 + a.rel;
+  const int c_lo = a.window > 0 ? max(0, q_lo - (a.window - 1)) : 0;
+  const int c_hi = a.causal ? max(0, min(a.S, q_hi + 1)) : a.S;
+  const int ntiles = c_hi > c_lo ? (c_hi - c_lo + BN - 1) / BN : 0;
+
+  const size_t q_ld = size_t(a.H) * HD, kv_ld = size_t(a.K) * HD;
+  const bf16* qg = a.q + (size_t(b) * a.T * a.H + h) * HD;
+  const bf16* kg = a.k + (size_t(b) * a.S * a.K + kvh) * HD;
+  const bf16* vg = a.v + (size_t(b) * a.S * a.K + kvh) * HD;
+
+  copy_rows<HD, BM, NT>(Qs, qg, q_ld, t0, nrows);
+  auto issue = [&](int i) {  // tile i's K and V into stage i % STAGES
+    if (i < ntiles) {
+      const int c0 = c_lo + i * BN;
+      const int nc = min(BN, c_hi - c0);
+      bf16* ks = ring + (i % STAGES) * 2 * Tiles::KV_ELEMS;
+      copy_rows<HD, BN, NT>(ks, kg, kv_ld, c0, nc);
+      copy_rows<HD, BN, NT>(ks + Tiles::KV_ELEMS, vg, kv_ld, c0, nc);
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);  // Q rides in the first group
+
+  uint32_t qf[HD / 16][4];
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {FWD_NEG_INF, FWD_NEG_INF};  // running max of scores, rows g, g + 8
+  float l[2] = {0.f, 0.f};
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qp0 = t0 + r0 + a.rel;
+  const int w_lo = t0 + warp * 16 + a.rel, w_hi = w_lo + 15;  // the warp's rows
+
+  if (ntiles > 0) {  // Q's fragments, before any warp may refill Q's stage
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd)
+      ldsm_x4(qf[kd], smem_u32(Qs + (warp * 16 + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8));
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i landed for this thread's copies
+    __syncthreads();              // ... for every thread's; tile i - 1's (Q's) stage is free
+    issue(i + STAGES - 1);
+    const int c0 = c_lo + i * BN;
+    const bf16* ks = ring + (i % STAGES) * 2 * Tiles::KV_ELEMS;
+    const bf16* vs = ks + Tiles::KV_ELEMS;
+    float sc[BN / 8][4];
+    tile_scores<HD>(ks, qf, sc, lane);
+    // masks only where the tile crosses the diagonal, the window's edge or
+    // c_hi for one of the warp's rows
+    if (c0 + BN > c_hi || (a.causal && c0 + BN - 1 > w_lo) ||
+        (a.window > 0 && c0 < w_hi - (a.window - 1)))
+      tile_softmax_pv<HD, true>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window, a.scale, lane);
+    else
+      tile_softmax_pv<HD, false>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window, a.scale, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: O / l in bf16 into this warp's own Q rows, then 16-byte stores
+  // of whole rows; lse = m + log(l), -1e30 + log(1e-30) where nothing was seen
+  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+  const float inv0 = 1.f / den0, inv1 = 1.f / den1;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(Qs + r0 * LD + n * 8 + 2 * tq) =
+        pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(Qs + (r0 + 8) * LD + n * 8 + 2 * tq) =
+        pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  }
+  if (tq == 0) {
+    float* lse = a.lse + (size_t(b) * a.H + h) * a.T + t0;
+    if (r0 < nrows) lse[r0] = m[0] + logf(den0);
+    if (r0 + 8 < nrows) lse[r0 + 8] = m[1] + logf(den1);
+  }
+  __syncwarp();
+  constexpr int CH = HD / 8;
+  bf16* og = a.out + (size_t(b) * a.T * a.H + h) * HD;
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int idx = lane + it * 32;
+    const int r = warp * 16 + idx / CH, c = idx % CH;
+    if (r < nrows)
+      *reinterpret_cast<uint4*>(og + size_t(t0 + r) * q_ld + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + r * LD + c * 8);
+  }
+}
+
+template <int HD>
+int launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
+  using Tiles = FwdTiles<HD>;
+  auto kern = flash_fwd_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(Tiles::BYTES));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(a.H, B, (a.T + Tiles::BM - 1) / Tiles::BM), WARPS * 32, Tiles::BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dst
+
+using dst::bf16;
+
+extern "C" {
+
+// Kernel D. Returns cudaError_t.
+int dst_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                  int T, int S, int H, int K, int hd, int causal, int window, int rel_offset,
+                  float scale, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
+  dst::FwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.out = static_cast<bf16*>(out);
+  a.lse = lse;
+  a.T = T; a.S = S; a.H = H; a.K = K;
+  a.causal = causal; a.window = window; a.rel = rel_offset;
+  a.scale = scale;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return dst::launch_fwd<64>(a, B, st);
+  if (hd == 128) return dst::launch_fwd<128>(a, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel D's dynamic shared memory in bytes at d = 64 and d = 128 (extern:
+// a const has internal linkage otherwise).
+extern const int dst_flash_fwd_smem_bytes[2] = {static_cast<int>(dst::FwdTiles<64>::BYTES),
+                                                static_cast<int>(dst::FwdTiles<128>::BYTES)};
+
+}  // extern "C"

@@ -1,6 +1,8 @@
-// One flash-attention tile engine shared by the four attention kernels of the
-// serving path (paged decode partials, paged chunk-past partials, seeded
-// chunk-self flash, causal flash forward).
+// One flash-attention tile engine shared by the paged attention kernels (paged
+// decode partials, paged chunk-past partials and their int modes, the
+// dense-tile paged kernel) and the seeded chunk-self flash. Kernel D, the
+// causal flash forward, has its own register-resident kernel
+// (flash_forward.cu).
 //
 // A CTA owns BM = 64 query rows of ONE kv head group and walks a column range
 // in BN = 64-wide tiles with an fp32 online softmax:

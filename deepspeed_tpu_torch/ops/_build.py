@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import threading
 import time
 from pathlib import Path
@@ -29,6 +30,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
             "flash_attention": "flash_attention.cu",
+            "flash_forward": "flash_forward.cu",
             "flash_backward": "flash_backward.cu",
             "quant_matmul": "quant_matmul.cu",
             "rms_norm": "rms_norm.cu",
@@ -75,7 +77,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "deepspeed_tpu/ops/paged_attention.py:782"),
     Kernel("chunk_self", "flash_attention",
            "deepspeed_tpu/ops/paged_attention.py:891"),
-    Kernel("flash_fwd", "flash_attention",
+    Kernel("flash_fwd", "flash_forward",
            "deepspeed_tpu/ops/flash_attention.py:66"),
     Kernel("flash_bwd_dq", "flash_backward",
            "deepspeed_tpu/ops/flash_attention.py:173"),
@@ -130,6 +132,40 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> Path:
+    """The ``nvcc`` output of the build of ``csrc/<name>.cu`` that made
+    the library :func:`library` loads (the same hash in its name)."""
+    return _lib_path(name).with_suffix(".build.log")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel of an ``nvcc -Xptxas -v`` log, by mangled name: its
+    registers, stack frame and spill bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            (cur["stack"], cur["spill_stores"],
+             cur["spill_loads"]) = map(int, m.groups())
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def build_all() -> Dict[str, float]:
     """Compile every missing library, one ``nvcc`` per source, all at once.
     Returns seconds spent per library built now (empty when all cached).
@@ -155,7 +191,7 @@ def build_all() -> Dict[str, float]:
         for name, (proc, tmp, path) in procs.items():
             log, _ = proc.communicate()
             spent[name] = time.perf_counter() - t0
-            (out_dir / f"{name}.build.log").write_text(log)
+            build_log(name).write_text(log)
             if proc.returncode != 0:
                 failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
             else:
@@ -219,6 +255,8 @@ def _declare(lib, name: str) -> None:
             # q ks vs alen m0 l0 a0 out A tq H K hd window scale stream
             "dst_chunk_self": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
                                P],
+        },
+        "flash_forward": {
             # q k v out lse B T S H K hd causal window rel scale stream
             "dst_flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
                               P],

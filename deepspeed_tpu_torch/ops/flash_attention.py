@@ -6,7 +6,7 @@
 ``h // (H/K)``) and are differentiable in both outputs through
 ``torch.autograd.Function`` (the counterpart of the reference's
 ``custom_vjp``s ``_flash`` / ``_flash_lse``). On CUDA tensors the forward
-launches kernel D (``csrc/flash_attention.cu``, replacing the TPU
+launches kernel D (``csrc/flash_forward.cu``, replacing the TPU
 ``_fwd_kernel``) and the backward kernels E then F (``csrc/
 flash_backward.cu``, replacing ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
 on CPU tensors each runs its plain version, the same math in fp32.

@@ -41,7 +41,7 @@ TRAIN_CONFIG = {
 }
 
 # kernel-name fragments of the port's attention kernels in profiler rows
-ATTENTION_KERNELS = {"D": "FwdMode", "E": "flash_bwd_dq_kernel",
+ATTENTION_KERNELS = {"D": "flash_fwd_kernel", "E": "flash_bwd_dq_kernel",
                      "F": "flash_bwd_dkv_kernel"}
 
 

@@ -1,11 +1,11 @@
 """Kernels A-K of the PyTorch port, and the int8 / int4 modes of A and B,
 against their plain versions on the card (bf16; atol = rtol = 2e-2 on
-normalised outputs (A-C, I) and on G/H's products, 1e-2 on m and lse; the
-backward's dq/dk/dv per 64-row tile within 2e-2 of that tile's max-abs; J
-at 1e-2 in bf16 and 1e-5 in fp32, forward and autograd backward; K at
-relative 1e-6). Every test here is
-marked ``cuda`` and skips without a card. The file imports neither JAX nor
-the JAX package, so it runs on the machine with the card:
+normalised outputs (A-C) and on G/H's products, 1e-2 on m and lse; D's
+out, the backward's dq/dk/dv and I's out per 64-row tile within 2e-2 of
+that tile's max-abs; J at 1e-2 in bf16 and 1e-5 in fp32, forward and
+autograd backward; K at relative 1e-6). Every test here is marked
+``cuda`` and skips without a card. The file imports neither JAX nor the
+JAX package, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -13,7 +13,7 @@ the JAX package, so it runs on the machine with the card:
 import pytest
 import torch
 
-from chip_smoke import close_tiles      # dq, dk, dv, I's out per 64-row tile
+from chip_smoke import close_tiles  # D's out, dq/dk/dv, I's out: 64-row tiles
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 
@@ -26,23 +26,66 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,window,rel", [(1024, None, 0), (333, None, 0),
-                                          (256, 64, 0), (128, None, 64)])
-def test_kernel_d_matches_plain_on_card(cuda_device, T, window, rel):
+@pytest.mark.parametrize("d,B,T,S,causal,window,rel", [
+    (128, 2, 1024, 1024, True, None, 0),
+    (64, 2, 1024, 1024, True, None, 0),
+    (128, 1, 2048, 2048, True, None, 0),
+    (64, 2, 2048, 2048, True, None, 0),
+    (128, 2, 333, 333, True, None, 0),
+    (64, 2, 333, 333, True, None, 0),
+    (128, 2, 37, 37, True, None, 0),
+    (64, 2, 37, 37, True, None, 0),
+    (128, 2, 256, 256, True, 64, 0),
+    (128, 2, 128, 192, True, None, 64),
+    (64, 2, 128, 192, True, None, 64),
+    (128, 2, 333, 200, False, None, 0),
+    (64, 2, 100, 130, False, None, 0),
+    (128, 2, 200, 200, True, 50, -20),
+    (64, 2, 200, 200, True, 50, -20)])
+def test_kernel_d_matches_plain_on_card(cuda_device, d, B, T, S, causal,
+                                        window, rel):
+    """D at d = 64 and 128 (H=32, K=8): T below one 64-row tile and not a
+    multiple of it, S != T without a causal mask, rel_offset 64, and -20
+    under a window of 50, whose first 20 rows see nothing (out = 0, lse the
+    plain version's -1e30 sentinel). ``out`` per 64-row tile, batch row and
+    head (``close_tiles``), lse at 1e-2."""
     from deepspeed_tpu_torch.ops._build import KERNELS
 
-    g = torch.Generator(device=cuda_device).manual_seed(T)
-    q, k, v = (torch.randn(2, T, h, 128, generator=g, device=cuda_device)
-               .to(torch.bfloat16) for h in (32, 8, 8))
+    g = torch.Generator(device=cuda_device).manual_seed(T * 3 + S + d)
+    q = torch.randn(B, T, 32, d, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(B, S, 8, d, generator=g, device=cuda_device)
+            .bfloat16() for _ in "kv")
     n = KERNELS["flash_fwd"].launches
-    out, lse = tfa.flash_attention_lse(q, k, v, causal=True, window=window,
-                                 rel_offset=rel)
+    out, lse = tfa.flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       rel_offset=rel)
     torch.cuda.synchronize()
     assert KERNELS["flash_fwd"].launches == n + 1
-    ref, ref_lse = tfa.plain_flash_forward(q, k, v, causal=True,
+    ref, ref_lse = tfa.plain_flash_forward(q, k, v, causal=causal,
                                            window=window, rel_offset=rel)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    close_tiles("D out", out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-2)
+    if rel < 0:
+        assert float(out[:, :-rel].abs().max()) == 0.0
+        assert bool((lse[..., :-rel] == ref_lse[..., :-rel]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,T", [(128, 1024), (128, 333), (64, 2048),
+                                 (64, 37)])
+def test_kernel_d_equals_kernel_c_bitwise_on_card(cuda_device, d, T):
+    """D keeps the tile engine's arithmetic, so a causal pass over one
+    prompt gives the same bits as kernel C over it as one unseeded atom:
+    the property that lets a prompt served in chunks (B, then C) and whole
+    (D) agree at full depth."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + T)
+    q = torch.randn(1, T, 32, d, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(1, T, 8, d, generator=g, device=cuda_device)
+            .bfloat16() for _ in "kv")
+    out, _ = tfa.flash_forward(q, k, v, causal=True)
+    alen = torch.tensor([T], dtype=torch.int32, device=cuda_device)
+    out_c = tpa.self_attention(q[0], k[0], v[0], alen, T)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out_c)
 
 
 @pytest.mark.cuda
