@@ -8,8 +8,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 1. device  -- require CUDA; print the card's name and power limit;
 2. build   -- compile the port's CUDA kernels from ``deepspeed_tpu_torch/
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
-              kernel D's ptxas report (registers, stack and spill bytes;
-              a spill fails the run) and shared memory per head dim;
+              the ptxas report (registers, stack and spill bytes; a spill
+              fails the run) and shared memory of kernel D per head dim
+              and of G/H's multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -20,10 +21,14 @@ Phases, in order (any failure raises and the script exits non-zero):
               kernel, kernel, SDPA); the int8 and int4 modes of A and B on
               the same atoms over the pools quantized by
               ``packed_kv_append_quant``; G on the
-              llama3-8b head (B=6, D=4096, F=128256) and H on w_gateup of a
-              4-layer stack at layer 2 (D=4096, F=28672, B=6 and B=256),
-              int4 and int8, beside cuBLAS on the dense bf16 weight (H's
-              launches cycle over the stack's layers, each larger than L2);
+              llama3-8b head (B=6, D=4096, F=128256) and H at layer 2 of a
+              4-layer stack of each layer product at B=256 -- wqkv (D=4096,
+              F=6144), wo (4096, 4096), w_gateup (4096, 28672), w_down
+              (14336, 4096) -- and of w_gateup at B=6, int4 and int8,
+              beside cuBLAS on the dense bf16 weight (H's launches cycle
+              over the stack's layers, each larger than L2); B=256 outputs
+              also per 64-row tile like dq/dk/dv below, and every output
+              bit for bit against a second launch;
               then the training shapes: D (held and timed as above) and
               the backward kernels E (dq) and F (dk, dv) at Llama-3.2-1B's
               B=4 T=2048 H=32 K=8 d=64 (causal) and at d=128 (B=1),
@@ -251,31 +256,46 @@ def timings(kernel, args, wrapper, plain) -> dict:
                 plain_ms=time_ms(plain, iters=5))
 
 
-def flash_fwd_build_report(build) -> None:
-    """Kernel D's ptxas report from the log of the build that made its
-    library -- registers, stack frame and spill bytes per head dim -- beside
-    the dynamic shared memory it launches with. Spilled bytes fail the run."""
+def build_report(build, lib: str, kernel: str, pattern: str, variants,
+                 unit: str, smem_symbol: str) -> None:
+    """A kernel's ptxas report from the log of the build that made its
+    library -- registers, stack frame and spill bytes per instantiation
+    (``pattern`` captures its template argument from the mangled name) --
+    beside the dynamic shared memory it launches with (``smem_symbol``, one
+    int per variant). Spilled bytes fail the run."""
     import ctypes
 
-    path = build.build_log("flash_forward")
+    path = build.build_log(lib)
     report = {}
     for name, r in build.ptxas_report(path.read_text()).items():
-        m = re.search(r"flash_fwd_kernelILi(\d+)E", name)  # <HD> mangled
+        m = re.search(pattern, name)
         if m:
             report[int(m.group(1))] = r
-    smem = (ctypes.c_int * 2).in_dll(build.library("flash_forward"),
-                                     "dst_flash_fwd_smem_bytes")
-    for i, hd in enumerate((64, 128)):
-        r = report.get(hd)
+    smem = (ctypes.c_int * len(variants)).in_dll(build.library(lib),
+                                                 smem_symbol)
+    for i, v in enumerate(variants):
+        r = report.get(v)
         if r is None or "spill_stores" not in r:
-            raise AssertionError(f"kernel D at d={hd}: no ptxas report in "
-                                 f"{path}")
-        log(f"kernel flash_fwd ptxas (d={hd}): {r.get('registers')} "
+            raise AssertionError(f"kernel {kernel} at {unit}={v}: no ptxas "
+                                 f"report in {path}")
+        log(f"kernel {kernel} ptxas ({unit}={v}): {r.get('registers')} "
             f"registers, {r['stack']} bytes stack frame, "
             f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} "
             f"bytes spill loads; {smem[i]} bytes of dynamic shared memory")
         if r["spill_stores"] or r["spill_loads"]:
-            raise AssertionError(f"kernel D at d={hd} spills registers")
+            raise AssertionError(f"kernel {kernel} at {unit}={v} spills "
+                                 f"registers")
+
+
+def build_reports(build) -> None:
+    """Kernel D per head dim, and G/H's multi-row kernel (16 < B <= 256)
+    per weight width."""
+    build_report(build, "flash_forward", "flash_fwd",
+                 r"flash_fwd_kernelILi(\d+)E", (64, 128), "d",
+                 "dst_flash_fwd_smem_bytes")
+    build_report(build, "quant_matmul", "qmm_tile",
+                 r"qmm_tile_kernelILi(\d+)E", (4, 8), "bits",
+                 "dst_qmm_tile_smem_bytes")
 
 
 def in_turns(kernel, args, library) -> dict:
@@ -515,16 +535,27 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
 
 def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape):
     """G (``layer`` None) or H on one product, held against the plain
-    version, and timed beside cuBLAS on the dense bf16 weight. H's launches
-    cycle over the stack's layers: each (58.7 MB int4 for w_gateup) is
-    larger than the 50 MB L2, so every launch reads its weights from HBM,
-    as in serving; G's head is larger than L2 too."""
+    version -- per 64-row tile as well when there are more rows than one
+    tile (``close_tiles``), and bit for bit against a second launch -- and
+    timed beside cuBLAS on the dense bf16 weight. H's launches cycle over
+    the stack's layers: each (58.7 MB int4 for w_gateup) is larger than the
+    50 MB L2, so every launch reads its weights from HBM, as in serving;
+    G's head is larger than L2 too."""
     name = "qmm" if layer is None else "qmm_stacked"
     out = qm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
     ref = qm.plain_quantized_matmul(x, packed, scales, bits, layer)
     err = close(f"{name} int{bits} {shape}", out, ref, ATOL, RTOL)
     B, D = x.shape
     G, F = scales.shape[-2:]
+    extra = {}
+    if B > TILE:
+        extra["tiles"] = {"out": close_tiles(
+            f"{name} int{bits} {shape}", out.view(1, B, 1, F),
+            ref.view(1, B, 1, F))}
+    again = qm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
+    if not torch.equal(again, out):
+        raise AssertionError(f"{name} int{bits} {shape}: two launches on the "
+                             f"same inputs differ")
     one = (packed, scales) if layer is None else (packed[layer],
                                                   scales[layer])
     dense = qm.dequantize_matmul_weight(*one, bits, D)
@@ -551,16 +582,22 @@ def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape):
                      x, packed, scales, bits, layer), iters=5))
     return dict(err=err, bound=bound(nbytes, 2.0 * B * D * F),
                 library_ms=lib, library="torch.matmul (cuBLAS), dense bf16",
-                shape=shape, **t)
+                shape=shape, splits=qm.qmm_splits(B, F, G), **extra, **t)
+
+
+# llama3-8b's four quantized layer products (D, F): H runs each at B=256 in
+# the serve-quant phase's 256-row chunk steps, w_gateup at B=6 in decode too
+QMM_LEAVES = (("w_gateup", 4096, 28672), ("wqkv", 4096, 6144),
+              ("wo", 4096, 4096), ("w_down", 14336, 4096))
 
 
 def qmm_checks(torch, qm, KERNELS):
-    """G on the llama3-8b head (B=6, D=4096, F=128256) and H on w_gateup
-    (D=4096, F=28672) of a 4-layer stack at layer 2, B=6 and B=256, int4
-    and int8, from seeded random weights quantized by the port."""
+    """G on the llama3-8b head (B=6, D=4096, F=128256); H on each layer
+    product of a 4-layer stack at layer 2, B=256, and on w_gateup at B=6
+    too; int4 and int8, from seeded random weights quantized by the port."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5678)
-    D, V, FGU = 4096, 128256, 28672
+    D, V = 4096, 128256
     xs = {B: torch.randn(B, D, generator=g, device=dev).bfloat16()
           for B in (6, 256)}
     rows = {}
@@ -573,27 +610,36 @@ def qmm_checks(torch, qm, KERNELS):
         del p, sc
     del head
     for bits in (4, 8):
-        ps, ss = [], []
-        for _ in range(4):
-            w = torch.randn(D, FGU, generator=g, device=dev) / D ** 0.5
-            p, sc = qm.quantize_matmul_weight(w, bits=bits)
-            ps.append(p)
-            ss.append(sc.bfloat16())
-        stack = (torch.stack(ps), torch.stack(ss))
-        del ps, ss, w
-        for B, x in sorted(xs.items()):
-            rows[f"qmm_stacked/int{bits}/B{B}"] = qmm_row(
-                torch, qm, KERNELS, x, *stack, bits, 2,
-                f"w_gateup, layer 2 of 4: B={B} D={D} F={FGU}, int{bits}")
-        del stack
-        torch.cuda.empty_cache()
+        for leaf, DL, F in QMM_LEAVES:
+            ps, ss = [], []
+            for _ in range(4):
+                w = torch.randn(DL, F, generator=g, device=dev) / DL ** 0.5
+                p, sc = qm.quantize_matmul_weight(w, bits=bits)
+                ps.append(p)
+                ss.append(sc.bfloat16())
+            stack = (torch.stack(ps), torch.stack(ss))
+            del ps, ss, w
+            for B in ((6, 256) if leaf == "w_gateup" else (256,)):
+                x = (xs[B] if DL == D else
+                     torch.randn(B, DL, generator=g, device=dev).bfloat16())
+                key = f"qmm_stacked/int{bits}/B{B}"
+                rows[key if leaf == "w_gateup" else f"{key}/{leaf}"] = \
+                    qmm_row(torch, qm, KERNELS, x, *stack, bits, 2,
+                            f"{leaf}, layer 2 of 4: B={B} D={DL} F={F}, "
+                            f"int{bits}")
+            del stack
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for name, r in rows.items():
-        log(f"kernel {name}: max_abs_err {r['err']:.3e}, kernel "
+        tiles = (f", worst 64-row tile err / tile max |plain| "
+                 f"{r['tiles']['out'][2]:.3e} (gate {BWD_REL})"
+                 if "tiles" in r else "")
+        log(f"kernel {name}: max_abs_err {r['err']:.3e}{tiles}, kernel "
             f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
-            f"{r['bound'][1]}, library {r['library_ms']:.4f} ms cuBLAS) "
-            f"[{r['shape']}]")
+            f"{r['bound'][1]}, library {r['library_ms']:.4f} ms cuBLAS; "
+            f"{r['splits']} split(s), kernel / cuBLAS "
+            f"{r['ms'] / r['library_ms']:.2f}) [{r['shape']}]")
     return rows
 
 
@@ -1870,7 +1916,7 @@ def main() -> int:
     spent = _build.build_all()
     log(f"build: {time.perf_counter() - t:.1f} s {spent} -> "
         f"{_build.build_dir()}")
-    flash_fwd_build_report(_build)
+    build_reports(_build)
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
     rows.update(qmm_checks(torch, qm, _build.KERNELS))
@@ -1903,6 +1949,8 @@ def main() -> int:
             e["tile_rel_gate"] = BWD_REL
         if "grad_err" in r:
             e["grad_max_abs_err"] = r["grad_err"]
+        if "splits" in r:
+            e["splits"] = r["splits"]
         if "turns" in r:
             e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",
                                       "library_again"), r["turns"]))

@@ -12,34 +12,67 @@
 // Arithmetic (the reference's _qmm_body :59): per group, one product of x
 // with the EXACT integer weights (int -> bf16 is exact for |v| <= 128) into
 // fp32, scaled by the group's column scales upcast to fp32, summed over
-// groups. The weights are never scaled before the product.
+// groups in ascending order. The weights are never scaled before the product.
+// int4: byte row r of a group holds rows r (low nibble) and r + group/2 (high
+// nibble), the in-group de-interleave of quantize_matmul_weight; each kernel
+// unpacks a run of byte rows into two runs of weight rows and reads the
+// matching two column runs of x.
 //
-// What bounds it on the card: at decode (B <= 16) the packed weight bytes --
-// 2 B FLOPs per weight byte (int8) or 4 (int4), far below the ~295 FLOP/byte
-// ridge -- so the floor is weight bytes / 3.35 TB/s. The design:
-//   * a CTA owns a 64-column tile and a 16-row (B <= 16) or 64-row tile of x
-//     and walks its groups in 128-row chunks: the chunk's packed weight tile
-//     comes in with 16-byte loads, is unpacked to bf16 in shared memory, and
-//     the four warps each take one wmma 16x16x16 product per 16 columns; the
-//     next chunk's weight loads are issued before this chunk's products, so
-//     they are in flight while the tensor cores work;
-//   * after each group the fp32 product is scaled by the group's column
-//     scales in registers and added to the running sum;
-//   * a product too narrow to give every SM two CTAs (wo, w_down, wqkv at
-//     decode) splits its groups over grid.z; each split writes fp32 partials
-//     and a second kernel adds them in split order (deterministic);
-//   * int4: byte row r of a group holds rows r (low nibble) and r + group/2
-//     (high nibble), the in-group de-interleave of quantize_matmul_weight:
-//     a 64-byte-row chunk unpacks into 128 weight rows, low nibbles to tile
-//     rows [0, 64), high to [64, 128), and the x tile reads the matching two
-//     column runs. Nibbles sign-extend by shifts on a signed int.
-// What it does not do yet: TMA / cp.async staging, wgmma, or reuse of one
-// unpacked weight tile across row tiles at B > 16 (each row tile re-reads the
-// weights, from L2). Those are tuning work.
+// Two kernels, by the row count B:
+//
+// qmm_rows_kernel, B <= 16 (decode). Bound: the packed weight bytes -- 2 B
+// FLOPs per weight byte (int8) or 4 (int4), far below the ~295 FLOP/byte
+// ridge -- so weight bytes / 3.35 TB/s. A CTA owns 16 rows x 64 columns and
+// walks its groups in 128-row chunks: the chunk's packed tile comes in with
+// 16-byte loads (the next chunk's are issued before this chunk's products),
+// is unpacked to bf16 in shared memory, and four warps each take one wmma
+// 16x16x16 product per 16 columns; after each group the product is scaled in
+// registers. A product too narrow to give every SM eight CTAs splits its
+// groups over grid.z.
+//
+// qmm_tile_kernel, 16 < B <= 256 (chunk steps of prefill and mixed batches).
+// Bound at B = 256 on w_gateup (D = 4096, F = 28672): operations, 60.1 GFLOP
+// -> 0.0608 ms at 989 TFLOP/s; its weights are 117 / 58.7 MB (int8 / int4)
+// -> 0.035 / 0.018 ms at 3.35 TB/s. That peak needs wgmma (this kernel runs
+// mma.sync), and every column tile re-reads its x rows from L2, so the
+// design keeps as little as possible between the tensor cores and the data:
+//   * a CTA owns TM x TN = 128 x 128 outputs with 8 warps, each a 64 x 32
+//     sub-tile of fp32 accumulators in registers; products by mma.sync
+//     m16n8k16 (bf16 in, fp32 accumulate), x fragments by ldmatrix. At B =
+//     256 each weight tile is read by the two CTAs of its column tile,
+//     launched side by side (grid.x), so the second read comes from L2;
+//   * x, the packed weight bytes and the group's scales travel through a
+//     STAGES-deep ring of 16-byte cp.async.cg copies, TK weight rows a
+//     stage, rows of x past B zero-filled by the copy's src-size. The bytes
+//     stay bytes in shared memory, 1/2 (int8) or 1/4 (int4) of a bf16 tile;
+//   * the bytes become bf16 straight in B fragments, in registers: an
+//     ldmatrix.trans of bytes hands each thread two k-adjacent bytes of two
+//     adjacent columns, which a few bit operations turn into the bf16x2
+//     words of an even-column and an odd-column n8 tile, exactly (see
+//     frag_int8). No bf16 tile is written to shared memory and read back:
+//     the two warps sharing a column range each convert it, which costs
+//     less than that round trip did;
+//   * mbarriers run the ring: copies land on a stage's FULL barrier, warps
+//     arrive on its EMPTY barrier when their products are done, and no
+//     CTA-wide barrier stops every warp each stage;
+//   * per-group scaling in registers: each thread keeps its fragments' sum
+//     for the current group and, at the group's end, adds sum * scale[g, col]
+//     (its columns from the mma layout; the scales came in with the ring) to
+//     its running accumulators. No shared-memory round trip;
+//   * a product too narrow to fill one wave of CTAs (one CTA an SM at B = 256:
+//     wo and w_down) splits its groups over grid.z, as many splits as keep
+//     the grid within one wave (ops/quant_matmul.py::qmm_splits).
+// Splits write fp32 partials and split_sum_kernel adds them in split order:
+// no atomics, so two launches on the same inputs give the same bits.
+// Not yet: wgmma and TMA (one multicast x tile for a cluster of column
+// tiles would halve the x reads), and a persistent grid (w_gateup at B = 256
+// is 3.4 waves of CTAs).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "int_unpack.cuh"
 
@@ -48,28 +81,35 @@ namespace dq {
 using bf16 = __nv_bfloat16;
 using dst::pack_bf16x2;
 using dst::unpack16;
+
+// qmm_rows_kernel (B <= 16)
 constexpr int BN = 64;          // output columns per CTA
 constexpr int KC = 128;         // weight rows per chunk
 constexpr int NTHREADS = 128;   // 4 warps; warp w owns columns [16 w, 16 w + 16)
 constexpr int XLD = KC + 8;     // padded bf16 leading dims: wmma needs ldm % 8 == 0
 constexpr int WLD = BN + 8;     // and 32-byte aligned tile pointers
 
-template <int MT>
-struct Smem {
+// qmm_tile_kernel (16 < B <= 256)
+constexpr int TM = 128;         // rows of x per CTA
+constexpr int TN = 128;         // output columns per CTA
+constexpr int TK = 128;         // weight rows per stage
+constexpr int STAGES = 3;       // depth of the cp.async ring
+constexpr int TWARPS = 8;       // 2 x 4 warps of 64 rows x 32 columns
+
+struct RowSmem {
   static constexpr size_t x_off = 0;
-  static constexpr size_t w_off = x_off + size_t(16 * MT) * XLD * 2;
+  static constexpr size_t w_off = x_off + size_t(16) * XLD * 2;
   static constexpr size_t c_off = w_off + size_t(KC) * WLD * 2;
-  static constexpr size_t bytes = c_off + size_t(4 * MT) * 256 * 4;
+  static constexpr size_t bytes = c_off + size_t(4) * 256 * 4;
 };
 
-template <int BITS, int MT>
+template <int BITS>
 __global__ void __launch_bounds__(NTHREADS)
-    qmm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-               const bf16* __restrict__ scales, bf16* __restrict__ out,
-               float* __restrict__ work, int B, int D, int F, int G, int per) {
+    qmm_rows_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                    const bf16* __restrict__ scales, bf16* __restrict__ out,
+                    float* __restrict__ work, int B, int D, int F, int G, int per) {
   using namespace nvcuda;
-  using SM = Smem<MT>;
-  constexpr int BM = 16 * MT;
+  using SM = RowSmem;
   // packed weight bytes of one chunk, and 16-byte loads per thread
   constexpr int WROWS = BITS == 8 ? KC : KC / 2;
   constexpr int WV = WROWS * BN / 16 / NTHREADS;
@@ -79,18 +119,16 @@ __global__ void __launch_bounds__(NTHREADS)
   float* Cs = reinterpret_cast<float*>(smem + SM::c_off);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
   const int g_lo = blockIdx.z * per, g_hi = min(G, g_lo + per);
   const int group = D / G, chunks = group / KC;
-  // this lane's 8 fragment elements of each 16x16 tile: row er, columns
+  // this lane's 8 fragment elements of the 16x16 tile: row er, columns
   // ec .. ec + 7 (read back through Cs, whose layout is row-major)
   const int er = lane / 2, ec = (lane % 2) * 8;
   const int col = n0 + warp * 16 + ec;
-  float acc[MT][8];
+  float acc[8];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[m][e] = 0.f;
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 
   // first packed row (in W's row units) of chunk c of group g
   auto w_row0 = [&](int g, int c) { return g * (group * WROWS / KC) + c * WROWS; };
@@ -119,7 +157,7 @@ __global__ void __launch_bounds__(NTHREADS)
   };
   // x columns of tile row kk in chunk c of group g (see the int4 note above)
   auto load_x = [&](int g, int c) {
-    for (int i = threadIdx.x; i < BM * (KC / 8); i += NTHREADS) {
+    for (int i = threadIdx.x; i < 16 * (KC / 8); i += NTHREADS) {
       const int r = i / (KC / 8), kk = (i % (KC / 8)) * 8;
       int xc;
       if (BITS == 8) {
@@ -128,16 +166,15 @@ __global__ void __launch_bounds__(NTHREADS)
         xc = g * group + c * (KC / 2) + (kk < KC / 2 ? kk : group / 2 + kk - KC / 2);
       }
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < B) v = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * D + xc);
+      if (r < B) v = *reinterpret_cast<const uint4*>(x + size_t(r) * D + xc);
       *reinterpret_cast<uint4*>(Xs + r * XLD + kk) = v;
     }
   };
 
   if (g_lo < g_hi) load_w(g_lo, 0);
   for (int g = g_lo; g < g_hi; ++g) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) wmma::fill_fragment(cf[m], 0.f);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
+    wmma::fill_fragment(cf, 0.f);
     for (int c = 0; c < chunks; ++c) {
       __syncthreads();  // the previous chunk's products are done with Xs / Ws
       store_w();
@@ -152,44 +189,395 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int k0 = 0; k0 < KC; k0 += 16) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
         wmma::load_matrix_sync(bfr, Ws + k0 * WLD + warp * 16, WLD);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-          wmma::load_matrix_sync(afr, Xs + m * 16 * XLD + k0, XLD);
-          wmma::mma_sync(cf[m], afr, bfr, cf[m]);
-        }
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
+        wmma::load_matrix_sync(afr, Xs + k0, XLD);
+        wmma::mma_sync(cf, afr, bfr, cf);
       }
     }
     // scale this group's products by its column scales, in fp32
     const uint4 sraw = *reinterpret_cast<const uint4*>(scales + size_t(g) * F + col);
     const bf16* sv = reinterpret_cast<const bf16*>(&sraw);
+    float* cs = Cs + warp * 256;
+    wmma::store_matrix_sync(cs, cf, 16, wmma::mem_row_major);
+    __syncwarp();
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float* cs = Cs + (warp * MT + m) * 256;
-      wmma::store_matrix_sync(cs, cf[m], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[m][e] += cs[er * 16 + ec + e] * __bfloat162float(sv[e]);
-      __syncwarp();
-    }
+    for (int e = 0; e < 8; ++e) acc[e] += cs[er * 16 + ec + e] * __bfloat162float(sv[e]);
+    __syncwarp();
   }
 
+  if (er >= B) return;
+  if (work == nullptr) {
+    uint4 o;
+    o.x = pack_bf16x2(acc[0], acc[1]); o.y = pack_bf16x2(acc[2], acc[3]);
+    o.z = pack_bf16x2(acc[4], acc[5]); o.w = pack_bf16x2(acc[6], acc[7]);
+    *reinterpret_cast<uint4*>(out + size_t(er) * F + col) = o;
+  } else {
+    float4* p = reinterpret_cast<float4*>(work + (size_t(blockIdx.z) * B + er) * F + col);
+    p[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    p[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+// ---- qmm_tile_kernel ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// mbarriers in shared memory (addresses from smem_u32)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival once every cp.async this thread issued before has landed
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b, m16n8k16, bf16 in, fp32 accumulate. Lane = 4 g + t: a holds rows
+// g, g + 8 at k 2t, 2t + 1 (+8); b holds column g at k 2t, 2t + 1 (+8); c holds
+// rows g (c0, c1) and g + 8 (c2, c3) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b (a zero accumulator in)
+__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// f(std::integral_constant<int, i>) for i = 0 .. N - 1, unrolled at compile time
+template <typename Fn, int... I>
+__device__ __forceinline__ void unroll_seq(Fn&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, typename Fn>
+__device__ __forceinline__ void unroll(Fn&& f) {
+  unroll_seq(f, std::make_integer_sequence<int, N>{});
+}
+
+// (a & b) | c in one instruction
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// B fragments straight from the packed bytes. ldmatrix.trans on bytes (an
+// 8 x 8 matrix of b16 = 8 byte rows k of 16 columns) gives thread (g, t) one
+// 32-bit word: bytes 0, 1 = row 2t at columns 2g, 2g + 1, and bytes 2, 3 =
+// row 2t + 1 at the same columns. Bytes 0 and 2 make the B fragment word of
+// column 2g, bytes 1 and 3 that of column 2g + 1: one matrix feeds two n8
+// tiles, the even and the odd columns of 16.
+//
+// int8: a byte q is its low seven bits minus 128 times its sign bit; the low
+// seven bits or-ed into the mantissa of bf16 128, the sign bit into the
+// exponent's lowest bit (128 or 256), the second subtracted from the first
+// in bf16x2 -- exact. Returns the even (x) and odd (y) columns' words.
+__device__ __forceinline__ uint2 frag_int8(uint32_t r) {
+  const uint32_t lo7 = 0x007F007Fu, sign = 0x00800080u, bf128 = 0x43004300u;
+  const uint32_t r8 = r >> 8;
+  return make_uint2(bf16x2_sub(and_or(r, lo7, bf128), and_or(r, sign, bf128)),
+                    bf16x2_sub(and_or(r8, lo7, bf128), and_or(r8, sign, bf128)));
+}
+
+// int4: each byte holds two rows (low nibble: row kb, high: kb + group/2).
+// A nibble q biased to 8 + q is or-ed into the mantissa of bf16 128 and 136
+// comes off -- exact. lo / hi get the even (x) and odd (y) columns' words.
+__device__ __forceinline__ void frag_int4(uint32_t r, uint2& lo, uint2& hi) {
+  const uint32_t u = r ^ 0x88888888u, nib = 0x000F000Fu, bf128 = 0x43004300u;
+  const uint32_t bias = 0x43084308u;  // bf16x2 136
+  lo = make_uint2(bf16x2_sub(and_or(u, nib, bf128), bias),
+                  bf16x2_sub(and_or(u >> 8, nib, bf128), bias));
+  hi = make_uint2(bf16x2_sub(and_or(u >> 4, nib, bf128), bias),
+                  bf16x2_sub(and_or(u >> 12, nib, bf128), bias));
+}
+
+// Shared memory: a STAGES-deep ring of slots [x tile | packed weight bytes |
+// the group's scales]. Row pitches carry 16 bytes of skew so every ldmatrix
+// phase hits 8 distinct bank quads.
+template <int BITS>
+struct TileSmem {
+  static constexpr int XP = TK + 8;                        // bf16 pitch of the x tile
+  static constexpr int WP = TN + 16;                       // byte pitch of the packed bytes
+  static constexpr int WROWS = BITS == 8 ? TK : TK / 2;    // packed byte rows a stage
+  static constexpr size_t W_OFF = size_t(TM) * XP * 2;
+  static constexpr size_t S_OFF = W_OFF + size_t(WROWS) * WP;
+  static constexpr size_t STAGE = S_OFF + size_t(TN) * 2;
+  static constexpr size_t BYTES = STAGES * STAGE;
+};
+
+template <int BITS>
+__global__ void __launch_bounds__(TWARPS * 32, 1)
+    qmm_tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                    const bf16* __restrict__ scales, bf16* __restrict__ out,
+                    float* __restrict__ work, int B, int D, int F, int G, int per) {
+  using SM = TileSmem<BITS>;
+  constexpr int NT = TWARPS * 32, XP = SM::XP, WP = SM::WP, WROWS = SM::WROWS;
+  // 16-byte pieces a thread copies each stage: thread t takes piece column
+  // t % XC of x rows t / XC + (NT / XC) i (i < XN), and piece column t % WC
+  // of byte rows t / WC + (NT / WC) i (i < WN)
+  constexpr int XC = TK / 8, WC = TN / 16, XR = NT / XC, WR = NT / WC;
+  constexpr int XN = TM / XR, WN = WROWS / WR;
+  static_assert(NT % XC == 0 && NT % WC == 0 && TM % XR == 0 && WROWS % WR == 0,
+                "whole rows of 16-byte pieces a pass");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = smem_u32(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 1, wn = warp >> 1;  // rows 64 wm .. +64, columns 32 wn .. +32
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  const int g_lo = blockIdx.z * per, g_hi = min(G, g_lo + per);
+  const int group = D / G, spg = group / TK;  // stages a group
+  const int nstages = max(0, g_hi - g_lo) * spg;
+
+  // Stage t is part j of group g (t = (g - g_lo) spg + j): weight rows
+  // [j TK, +TK) of the group (int8), or the byte rows [j TK/2, +TK/2) whose
+  // nibbles are weight rows [j TK/2, +TK/2) and [group/2 + j TK/2, +TK/2);
+  // x tile columns [0, TK/2) pair with the low nibbles, [TK/2, TK) with the
+  // high. Byte rows (and int8's x columns) advance with the absolute stage.
+  const int xr = tid / XC, xc = tid % XC, wr = tid / WC, wc = tid % WC;
+  const bf16* x_src =
+      x + size_t(m0 + xr) * D +
+      (BITS == 8 ? xc * 8 : (xc < XC / 2 ? xc * 8 : group / 2 + (xc - XC / 2) * 8));
+  const int8_t* w_src = w + size_t(wr) * F + n0 + wc * 16;
+  const uint32_t x_dst = (xr * XP + xc * 8) * 2, w_dst = SM::W_OFF + wr * WP + wc * 16;
+  const int x_rows = B - m0 - xr;  // piece i's row is valid when XR i < x_rows
+  int ig = g_lo, ij = 0;           // the next stage to issue: group and part
+  // The ring's mbarriers: FULL(k) completes when every thread's copies of
+  // the stage in slot k have landed, EMPTY(k) when every warp is done with
+  // its products from slot k. Copies run STAGES - 2 stages ahead of the
+  // products, into the slot of the stage two back: a warp waits for the
+  // data it reads and for every warp's products of two stages back, so
+  // warps may drift a stage apart (a CTA-wide barrier each stage would make
+  // every warp wait for the slowest).
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + STAGES * 8;
+  if (tid == 0) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int row = m0 + m * 16 + er;
-    if (row >= B) continue;
-    if (work == nullptr) {
-      uint4 o;
-      o.x = pack_bf16x2(acc[m][0], acc[m][1]); o.y = pack_bf16x2(acc[m][2], acc[m][3]);
-      o.z = pack_bf16x2(acc[m][4], acc[m][5]); o.w = pack_bf16x2(acc[m][6], acc[m][7]);
-      *reinterpret_cast<uint4*>(out + size_t(row) * F + col) = o;
-    } else {
-      float4* p = reinterpret_cast<float4*>(work + (size_t(blockIdx.z) * B + row) * F + col);
-      p[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      p[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+    for (int k = 0; k < STAGES; ++k) {
+      mbar_init(full0 + k * 8, NT);
+      mbar_init(empty0 + k * 8, TWARPS);
+    }
+  }
+  __syncthreads();
+  // stage t into slot t % STAGES, once the products of stage t - STAGES are done
+  auto issue = [&](int t) {
+    if (t < nstages) {
+      const int k = t % STAGES;
+      if (t >= STAGES) mbar_wait(empty0 + k * 8, (t / STAGES - 1) & 1);
+      const uint32_t st = ring + k * SM::STAGE;
+      const size_t a = size_t(ig) * spg + ij;  // absolute stage
+      const size_t col = BITS == 8 ? a * TK : (a + size_t(ig) * spg) * (TK / 2);
+#pragma unroll
+      for (int i = 0; i < XN; ++i) {
+        const bool ok = XR * i < x_rows;
+        cp_async16(st + x_dst + i * XR * XP * 2, ok ? x_src + i * XR * size_t(D) + col : x,
+                   ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < WN; ++i)
+        cp_async16(st + w_dst + i * WR * WP, w_src + (a * WROWS + i * WR) * F, 16);
+      if (tid < TN / 8)
+        cp_async16(st + SM::S_OFF + tid * 16, scales + size_t(ig) * F + n0 + tid * 8, 16);
+      mbar_arrive_on_copies(full0 + k * 8);
+      if (++ij == spg) ij = 0, ++ig;
+    }
+  };
+
+  // [m tile][n tile][fragment]: the running sum, and the current group's
+  // product. n tile 2 h + o holds columns 32 wn + 16 h + 2 n + o (n < 8): its
+  // fragment column 2t + e is column 16 h + 4t + 2e + o.
+  float acc[4][4][4], gsum[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  static_assert(STAGES >= 3, "a slot being filled, one being read, one for drift");
+#pragma unroll
+  for (int t = 0; t < STAGES - 2; ++t) issue(t);
+  int cj = 0;  // part of the group the products are in
+  for (int s = 0; s < nstages; ++s) {
+    issue(s + STAGES - 2);
+    const int k = s % STAGES;
+    mbar_wait(full0 + k * 8, (s / STAGES) & 1);  // stage s landed
+    const uint32_t xs = ring + k * SM::STAGE, ws = xs + SM::W_OFF;
+    const bool first = cj == 0, last = ++cj == spg;
+    if (last) cj = 0;
+    // the warp's 32 columns x 16 byte rows from kb: matrices (rows +0, cols
+    // +0), (rows +8, cols +0), (rows +0, cols +16), (rows +8, cols +16)
+    auto load_bytes = [&](int kb, uint32_t(&r)[4]) {
+      ldsm_x4_trans(r, ws + (kb + ((lane >> 3) & 1) * 8 + (lane & 7)) * WP + wn * 32 +
+                           (lane >> 4) * 16);
+    };
+    // The stage's products; FIRST: the group's first stage, whose first k
+    // step starts from zero (a template argument, so the unrolled body has
+    // no branch). Each k step's bytes are loaded one step ahead.
+    auto products = [&](auto first_stage) {
+      constexpr bool FIRST = decltype(first_stage)::value;
+      // k step kk: 16 weight rows as B fragments of the warp's four n tiles
+      auto mma_step = [&](auto kk_c, const uint32_t(&b)[4][2]) {
+        constexpr int kk = decltype(kk_c)::value;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t a[4];
+          ldsm_x4(a,
+                  xs + ((wm * 64 + mt * 16 + (lane & 15)) * XP + kk * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (FIRST && kk == 0)
+              mma_bf16_zero(gsum[mt][nt], a, b[nt][0], b[nt][1]);
+            else
+              mma_bf16(gsum[mt][nt], a, b[nt][0], b[nt][1]);
+          }
+        }
+      };
+      uint32_t r[2][4];
+      load_bytes(0, r[0]);
+      if constexpr (BITS == 8) {
+        auto step = [&](auto kk_c) {
+          constexpr int kk = decltype(kk_c)::value;
+          if constexpr (kk + 1 < TK / 16) load_bytes((kk + 1) * 16, r[(kk + 1) & 1]);
+          uint32_t b[4][2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint2 k0 = frag_int8(r[kk & 1][2 * h]), k8 = frag_int8(r[kk & 1][2 * h + 1]);
+            b[2 * h][0] = k0.x, b[2 * h][1] = k8.x;          // even columns
+            b[2 * h + 1][0] = k0.y, b[2 * h + 1][1] = k8.y;  // odd columns
+          }
+          mma_step(kk_c, b);
+        };
+        unroll<TK / 16>(step);
+      } else {
+        // byte rows [16 kb, +16) hold the weight rows of k steps kb (low
+        // nibbles) and kb + TK/32 (high nibbles)
+        auto step = [&](auto kb_c) {
+          constexpr int kb = decltype(kb_c)::value;
+          if constexpr (kb + 1 < TK / 32) load_bytes((kb + 1) * 16, r[(kb + 1) & 1]);
+          uint32_t lo[4][2], hi[4][2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint2 l0, h0, l8, h8;
+            frag_int4(r[kb & 1][2 * h], l0, h0);
+            frag_int4(r[kb & 1][2 * h + 1], l8, h8);
+            lo[2 * h][0] = l0.x, lo[2 * h][1] = l8.x, lo[2 * h + 1][0] = l0.y,
+                      lo[2 * h + 1][1] = l8.y;
+            hi[2 * h][0] = h0.x, hi[2 * h][1] = h8.x, hi[2 * h + 1][0] = h0.y,
+                      hi[2 * h + 1][1] = h8.y;
+          }
+          mma_step(kb_c, lo);
+          mma_step(std::integral_constant<int, kb + TK / 32>{}, hi);
+        };
+        unroll<TK / 32>(step);
+      }
+    };
+    if (first)
+      products(std::true_type{});
+    else
+      products(std::false_type{});
+    if (last) {  // the group ends: acc += its product x its column scales
+      const unsigned char* sc = smem + (s % STAGES) * SM::STAGE + SM::S_OFF;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // columns 32 wn + 16 h + 4t .. +3: scale of n tile 2h + o, fragment
+        // column e is sv[2e + o]
+        const uint2 raw = *reinterpret_cast<const uint2*>(
+            sc + (wn * 32 + h * 16 + 4 * (lane & 3)) * 2);
+        const __nv_bfloat162 s01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+        const __nv_bfloat162 s23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+        const float sv[4] = {__low2float(s01), __high2float(s01), __low2float(s23),
+                             __high2float(s23)};
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][2 * h + o][e] =
+                  fmaf(gsum[mt][2 * h + o][e], sv[2 * (e & 1) + o], acc[mt][2 * h + o][e]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + k * 8);  // EMPTY(k): this warp is done with it
+  }
+
+  // each thread's outputs: rows g and g + 8 of each m16 tile, columns
+  // 16 h + 4t .. +3 of the warp's 32 (n tiles 2h, 2h + 1, fragment columns 0, 1)
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int row = m0 + wm * 64 + mt * 16 + (lane >> 2) + rh * 8;
+      if (row >= B) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + wn * 32 + h * 16 + 4 * (lane & 3);
+        const float v0 = acc[mt][2 * h][2 * rh], v1 = acc[mt][2 * h + 1][2 * rh];
+        const float v2 = acc[mt][2 * h][2 * rh + 1], v3 = acc[mt][2 * h + 1][2 * rh + 1];
+        if (work == nullptr)
+          *reinterpret_cast<uint2*>(out + size_t(row) * F + col) =
+              make_uint2(pack_bf16x2(v0, v1), pack_bf16x2(v2, v3));
+        else
+          *reinterpret_cast<float4*>(work + (size_t(blockIdx.z) * B + row) * F + col) =
+              make_float4(v0, v1, v2, v3);
+      }
     }
   }
 }
+
+// ---- launch ----------------------------------------------------------------
 
 // out = sum of the splits' fp32 partials, in split order, as bf16
 __global__ void split_sum_kernel(const float* __restrict__ work, bf16* __restrict__ out,
@@ -202,18 +590,17 @@ __global__ void split_sum_kernel(const float* __restrict__ work, bf16* __restric
   }
 }
 
-template <int BITS, int MT>
-int launch_mt(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float* work, int B,
-              int D, int F, int G, int splits, cudaStream_t stream) {
-  auto kern = qmm_kernel<BITS, MT>;
-  const size_t bytes = Smem<MT>::bytes;
+// kern on grid, then the split sum when there are splits
+template <typename Kern>
+int launch_split(Kern kern, size_t smem_bytes, dim3 grid, int threads, const bf16* x,
+                 const int8_t* w, const bf16* s, bf16* out, float* work, int B, int D, int F,
+                 int G, int splits, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
+                                       static_cast<int>(smem_bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int per = (G + splits - 1) / splits;
-  const dim3 grid(F / BN, (B + 16 * MT - 1) / (16 * MT), splits);
-  kern<<<grid, NTHREADS, bytes, stream>>>(x, w, s, out, splits > 1 ? work : nullptr, B, D, F,
-                                          G, per);
+  kern<<<grid, threads, smem_bytes, stream>>>(x, w, s, out, splits > 1 ? work : nullptr, B, D,
+                                              F, G, per);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const size_t n = size_t(B) * F;
@@ -222,21 +609,29 @@ int launch_mt(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float* w
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BITS>
+int launch_bits(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float* work, int B,
+                int D, int F, int G, int splits, cudaStream_t stream) {
+  if (B <= 16)
+    return launch_split(qmm_rows_kernel<BITS>, RowSmem::bytes, dim3(F / BN, 1, splits),
+                        NTHREADS, x, w, s, out, work, B, D, F, G, splits, stream);
+  return launch_split(qmm_tile_kernel<BITS>, TileSmem<BITS>::BYTES,
+                      dim3((B + TM - 1) / TM, F / TN, splits), TWARPS * 32, x, w, s, out, work,
+                      B, D, F, G, splits, stream);
+}
+
 int launch(const void* x, const void* w, const void* s, void* out, float* work, int B, int D,
            int F, int G, int bits, int splits, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (B > 256 || D % KC || F % 128 || G <= 0 || D % G || (D / G) % KC || splits < 1 ||
-      (splits > 1 && work == nullptr) || (bits != 4 && bits != 8))
+  if (B > 256 || D % KC || F % TN || F % BN || G <= 0 || D % G || (D / G) % KC ||
+      (D / G) % TK || splits < 1 || (splits > 1 && work == nullptr) || (bits != 4 && bits != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
   const int8_t* wb = static_cast<const int8_t*>(w);
   const bf16* sb = static_cast<const bf16*>(s);
   bf16* ob = static_cast<bf16*>(out);
-  if (bits == 8)
-    return B <= 16 ? launch_mt<8, 1>(xb, wb, sb, ob, work, B, D, F, G, splits, stream)
-                   : launch_mt<8, 4>(xb, wb, sb, ob, work, B, D, F, G, splits, stream);
-  return B <= 16 ? launch_mt<4, 1>(xb, wb, sb, ob, work, B, D, F, G, splits, stream)
-                 : launch_mt<4, 4>(xb, wb, sb, ob, work, B, D, F, G, splits, stream);
+  if (bits == 8) return launch_bits<8>(xb, wb, sb, ob, work, B, D, F, G, splits, stream);
+  return launch_bits<4>(xb, wb, sb, ob, work, B, D, F, G, splits, stream);
 }
 
 }  // namespace dq
@@ -260,5 +655,10 @@ int dst_qmm_stacked(const void* x, const void* w, const void* scales, void* out,
   return dq::launch(x, wl, sl, out, work, B, D, F, G, bits, splits,
                     static_cast<cudaStream_t>(stream));
 }
+
+// qmm_tile_kernel's dynamic shared memory in bytes, int4 and int8 (extern: a
+// const has internal linkage otherwise).
+extern const int dst_qmm_tile_smem_bytes[2] = {static_cast<int>(dq::TileSmem<4>::BYTES),
+                                               static_cast<int>(dq::TileSmem<8>::BYTES)};
 
 }  // extern "C"

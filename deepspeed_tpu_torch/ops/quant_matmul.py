@@ -34,9 +34,12 @@ from deepspeed_tpu_torch.ops import cuda_operand, on_cpu, stream_ptr
 from deepspeed_tpu_torch.ops._build import KERNELS
 
 MAX_ROWS = 256          # widest activation batch the kernels take
-_BN = 64                # output columns per CTA (csrc/quant_matmul.cu)
+# csrc/quant_matmul.cu's tiles: B <= 16 rows take qmm_rows_kernel (16 rows x
+# _BN columns a CTA), more take qmm_tile_kernel (_TM rows x _TN columns)
+_BN = 64
+_TM = _TN = 128
 _SMS = 132              # H100 SXM streaming multiprocessors
-_CTAS_PER_SM = 8        # the split target of qmm_splits
+_CTAS_PER_SM = 8        # the split target of qmm_splits at B <= 16
 
 
 def quantize_matmul_weight(w: torch.Tensor, bits: int = 4, group: int = 128
@@ -116,12 +119,18 @@ def uses_kernel(x: torch.Tensor, scales: torch.Tensor) -> bool:
 
 
 def qmm_splits(B: int, F: int, G: int) -> int:
-    """Contraction splits so a narrow product still fills the card: enough
-    CTAs for eight per SM (each split sums a range of groups; a second pass
-    adds the splits in order). The kernels are latency-bound at decode, so
-    more CTAs in flight is the cheapest speed (``tools/qmm_sweep.py``)."""
-    ctas = (F // _BN) * -(-B // (16 if B <= 16 else 64))
-    per = -(-G // min(G, max(1, -(-_CTAS_PER_SM * _SMS // ctas))))
+    """Contraction splits so a narrow product still fills the card (each
+    split sums a range of groups; a second pass adds the splits in order).
+    At B <= 16 the kernel is latency-bound, so more CTAs in flight is the
+    cheapest speed: enough for eight per SM (``tools/qmm_sweep.py``). Above,
+    one 256-thread CTA holds an SM and each does the same work, so the most
+    splits that keep the grid within one wave: more would only add waves
+    and partial-sum traffic."""
+    if B <= 16:
+        want = -(-_CTAS_PER_SM * _SMS // (F // _BN))
+    else:
+        want = _SMS // ((F // _TN) * -(-B // _TM))
+    per = -(-G // min(G, max(1, want)))
     return -(-G // per)
 
 

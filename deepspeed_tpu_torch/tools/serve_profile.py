@@ -4,10 +4,13 @@ warm ``decode_batch`` and mixed ``put`` steps of the engine.
     python -m deepspeed_tpu_torch.tools.serve_profile [--preset llama3-8b]
         [--batch 6] [--steps 8] [--past 700]
 
-Two configurations, one after the other: the bf16 engine (``decode_batch``
-and a mixed ``put``), then Q1, the quantized engine of ``chip_smoke.py``'s
-serve-quant phase (int4 weights through kernels G/H, an int8 KV pool
-through A/B's int8 modes), ``decode_batch`` only. Prints, for each
+Three configurations, one after the other: the bf16 engine
+(``decode_batch`` and a mixed ``put``), then Q1 and Q2, the quantized
+engines of ``chip_smoke.py``'s serve-quant phase (int4 / int8 weights
+through kernels G/H, an int8 / int4 KV pool through A/B's int modes):
+``decode_batch`` and a 256-row chunk step (a ``put`` of the next 256
+tokens of a prompt already started: every layer product goes through H at
+B=256, as in the chunk steps of a mixed ``put``). Prints, for each
 profiled phase, the wall time per step (profiler on, so above an
 unprofiled run), the device time the profiler recorded (sum of CUDA kernel
 durations, one stream), the device's idle share of the wall time, the
@@ -94,7 +97,8 @@ def main(argv=None) -> int:
     uids = list(range(args.batch))
     toks = [1] * args.batch
     for tag, quant in (("bf16", {}),
-                       ("Q1", dict(weight_dtype="int4", kv_dtype="int8"))):
+                       ("Q1", dict(weight_dtype="int4", kv_dtype="int8")),
+                       ("Q2", dict(weight_dtype="int8", kv_dtype="int4"))):
         eng = InferenceEngineV2(TransformerLM(cfg), max_sequences=8,
                                 max_seq_len=2048, block_size=128,
                                 device="cuda", **quant)
@@ -115,6 +119,14 @@ def main(argv=None) -> int:
                 eng.flush([spare])
 
             profile_phase(f"{tag} mixed put B={args.batch}+256", mixed, 1)
+        else:
+            spare = 7
+            eng.put([spare], [rng.integers(1, cfg.vocab_size,
+                                           256).astype(np.int32)])
+            chunk = rng.integers(1, cfg.vocab_size, 256).astype(np.int32)
+            profile_phase(f"{tag} 256-row chunk put",
+                          lambda: eng.put([spare], [chunk]), 1)
+            eng.flush([spare])
         del eng
         gc.collect()
         torch.cuda.empty_cache()

@@ -330,31 +330,47 @@ def test_train_steps_on_card_match_the_cpu_engine(cuda_device):
                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("B,D,F,group,layer", [
-    (1, 4096, 4096, 128, None), (6, 4096, 28672, 128, 2),
-    (16, 14336, 4096, 128, 1), (17, 512, 384, 256, None),
-    (256, 4096, 1024, 128, 0), (200, 256, 128, 128, 3)])
-def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
-                                         layer):
-    """G (one matrix) and H (layer of a 4-deep stack), row tiles of 16 and
-    64, split and unsplit contractions, groups of 128 and 256."""
+def _card_qmm_operands(dev, bits, B, D, F, group, layer):
+    """x [B, D] and a 4-deep stack (one matrix for ``layer`` None) of
+    seeded random weights quantized by the port."""
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    from deepspeed_tpu_torch.ops._build import KERNELS
 
-    g = torch.Generator(device=cuda_device).manual_seed(B + D + F + bits)
+    g = torch.Generator(device=dev).manual_seed(B + D + F + bits)
     L = 1 if layer is None else 4
     ps, ss = [], []
     for _ in range(L):
-        w = torch.randn(D, F, generator=g, device=cuda_device) / D ** 0.5
+        w = torch.randn(D, F, generator=g, device=dev) / D ** 0.5
         p, sc = tqm.quantize_matmul_weight(w, bits=bits, group=group)
         ps.append(p)
         ss.append(sc.bfloat16())
     packed, scales = torch.stack(ps), torch.stack(ss)
     if layer is None:
         packed, scales = packed[0], scales[0]
-    x = torch.randn(B, D, generator=g, device=cuda_device).bfloat16()
+    x = torch.randn(B, D, generator=g, device=dev).bfloat16()
+    return x, packed, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,D,F,group,layer", [
+    (1, 4096, 4096, 128, None), (6, 4096, 28672, 128, 2),
+    (16, 14336, 4096, 128, 1), (17, 512, 384, 256, None),
+    (256, 4096, 1024, 128, 0), (200, 256, 128, 128, 3),
+    (128, 4096, 4096, 128, 2), (129, 4096, 6144, 128, None),
+    (255, 4096, 28672, 128, 3), (256, 14336, 4096, 128, 1)])
+def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
+                                         layer):
+    """G (one matrix) and H (layer of a 4-deep stack): the decode kernel
+    (B <= 16) and the 128-row tile kernel at its edges (one full tile, one
+    row past it, one row short of two), split and unsplit contractions
+    (w_down at B=256 splits), groups of 128 and 256. Past 64 rows the
+    output is held per 64-row tile too, so a fault in a later row tile
+    cannot hide under the tensor-wide tolerance."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    x, packed, scales = _card_qmm_operands(cuda_device, bits, B, D, F, group,
+                                           layer)
     name = "qmm" if layer is None else "qmm_stacked"
     n = KERNELS[name].launches
     out = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
@@ -362,6 +378,26 @@ def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
     assert KERNELS[name].launches == n + 1
     ref = tqm.plain_quantized_matmul(x, packed, scales, bits, layer)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if B > 64:
+        close_tiles(f"G/H int{bits} B={B}", out.view(1, B, 1, F),
+                    ref.view(1, B, 1, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("D,F", [(4096, 28672), (14336, 4096)])
+def test_kernel_h_is_deterministic_on_card(cuda_device, bits, D, F):
+    """Two launches on the same inputs give the same bits at B=256, with
+    the contraction unsplit (w_gateup) and split (w_down): the splits are
+    added in order by a second kernel, never by atomics."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+
+    assert tqm.qmm_splits(256, F, D // 128) == (2 if F == 4096 else 1)
+    x, packed, scales = _card_qmm_operands(cuda_device, bits, 256, D, F, 128,
+                                           1)
+    a = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=1)
+    b = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=1)
+    assert torch.equal(a, b)
 
 
 def _card_quant_pools(dev, bits, nbp1=65, bs=128, K=8, d=128):

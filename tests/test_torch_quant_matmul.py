@@ -18,6 +18,9 @@ most bytes (checked), so a kernel or unpack that swapped the in-group
 de-interleave for the KV pool's global pairing would fail here.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,7 @@ from deepspeed_tpu_torch.ops import quant_matmul as tqm
 from deepspeed_tpu_torch.ops._build import KERNELS
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _w(shape, seed):
@@ -130,15 +134,61 @@ def test_kernel_args_refuse_a_mismatched_stack():
         tqm.qmm_kernel_args(x, packed, scales.bfloat16(), 4, layer=2)
 
 
-@pytest.mark.parametrize("B,F,G,want", [(6, 128256, 32, 1), (6, 4096, 32, 16),
-                                        (6, 4096, 112, 16), (6, 28672, 32, 3),
-                                        (256, 28672, 32, 1), (8, 6144, 32, 11),
-                                        (17, 384, 2, 2)])
+@pytest.mark.parametrize("B,F,G,want", [
+    (6, 128256, 32, 1), (6, 4096, 32, 16), (6, 4096, 112, 16),
+    (6, 28672, 32, 3), (256, 28672, 32, 1), (8, 6144, 32, 11),
+    (17, 384, 2, 2),
+    # the 128 x 128 tile kernel at B=256: wo and w_down (64 CTAs) split in
+    # two, wqkv (96) and w_gateup (448) fill a wave already
+    (256, 4096, 32, 2), (256, 4096, 112, 2), (256, 6144, 32, 1),
+    (128, 4096, 32, 4), (129, 6144, 32, 1), (64, 6144, 32, 2)])
 def test_splits_fill_the_card_and_cover_every_group(B, F, G, want):
     splits = tqm.qmm_splits(B, F, G)
     assert splits == want
     per = -(-G // splits)
     assert (splits - 1) * per < G <= splits * per
+    if B > 16:          # one CTA an SM: the grid stays within one wave
+        ctas = (F // tqm._TN) * -(-B // tqm._TM)
+        assert splits == 1 or ctas * splits <= tqm._SMS
+
+
+def _cu_constants():
+    """``constexpr int NAME = value;`` lines of the kernels' source."""
+    src = (ROOT / "deepspeed_tpu_torch/csrc/quant_matmul.cu").read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^constexpr int (\w+) = (\d+);", src, re.M)}
+
+
+def test_wrapper_tiles_are_the_kernels():
+    """The split rule's tile sizes are the kernels' own: the decode
+    kernel's columns a CTA, the tile kernel's rows and columns a CTA."""
+    c = _cu_constants()
+    assert (c["BN"], c["TM"], c["TN"]) == (tqm._BN, tqm._TM, tqm._TN)
+    assert tqm.MAX_ROWS == 2 * c["TM"]        # B=256 is two row tiles
+
+
+def test_tile_kernel_source_keeps_its_contract():
+    """The multi-row kernel: mma.sync on ldmatrix fragments (no wmma), a
+    cp.async ring of at least three stages run by mbarriers (one CTA-wide
+    barrier, after they are set up, none a stage), the packed bytes turned
+    into B fragments in registers (ldmatrix.trans on bytes, then
+    frag_int8 / frag_int4), and the per-group scaling in registers."""
+    src = (ROOT / "deepspeed_tpu_torch/csrc/quant_matmul.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    body = code[code.index("qmm_tile_kernel(const"):
+                code.index("split_sum_kernel(const")]
+    assert "wmma" not in body and "store_matrix_sync" not in body
+    assert body.count("__syncthreads()") == 1
+    for call in ("mma_bf16(", "mma_bf16_zero(", "ldsm_x4(", "ldsm_x4_trans(",
+                 "cp_async16(", "mbar_wait(", "mbar_arrive_on_copies(",
+                 "mbar_arrive(", "frag_int8(", "frag_int4("):
+        assert call in body, call
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global",
+                   "cp.async.mbarrier.arrive.noinc.shared::cta.b64"):
+        assert needle in code, needle
+    assert _cu_constants()["STAGES"] >= 3
 
 
 @pytest.mark.parametrize("bits", [4, 8])
