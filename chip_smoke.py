@@ -9,8 +9,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build   -- compile the port's CUDA kernels from ``deepspeed_tpu_torch/
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
-              fails the run) and shared memory of kernel D per head dim
-              and of G/H's multi-row kernel per weight width;
+              fails the run) and shared memory of kernels D, E and F per
+              head dim and of G/H's multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -35,7 +35,8 @@ Phases, in order (any failure raises and the script exits non-zero):
               dq/dk/dv held per 64-row tile
               (each batch row and head: max abs error <= 2e-2 x that
               tile's max |plain|), timed likewise beside one SDPA backward
-              (its backend named); kernel I at the serve shapes (a t=1
+              (its backend named; E then F in turns with it, as one
+              ratio); kernel I at the serve shapes (a t=1
               tile over 8 slots at A's pasts, a t=700 tile over 4 slots
               from position 0; its output held per 64-row tile like
               dq/dk/dv), J on [4096, 4096] and [6, 4096] bf16 and
@@ -287,23 +288,36 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
                                  f"registers")
 
 
+# (library, kernel, pattern of its mangled name, variants, unit, shared
+# memory symbol): kernels D, E and F per head dim, and G/H's multi-row kernel
+# (16 < B <= 256) per weight width
+PTXAS_REPORTS = (
+    ("flash_forward", "flash_fwd", r"flash_fwd_kernelILi(\d+)E", (64, 128),
+     "d", "dst_flash_fwd_smem_bytes"),
+    ("flash_backward", "flash_bwd_dq", r"flash_bwd_dq_kernelILi(\d+)E",
+     (64, 128), "d", "dst_flash_bwd_dq_smem_bytes"),
+    ("flash_backward", "flash_bwd_dkv", r"flash_bwd_dkv_kernelILi(\d+)E",
+     (64, 128), "d", "dst_flash_bwd_dkv_smem_bytes"),
+    ("quant_matmul", "qmm_tile", r"qmm_tile_kernelILi(\d+)E", (4, 8),
+     "bits", "dst_qmm_tile_smem_bytes"),
+)
+
+
 def build_reports(build) -> None:
-    """Kernel D per head dim, and G/H's multi-row kernel (16 < B <= 256)
-    per weight width."""
-    build_report(build, "flash_forward", "flash_fwd",
-                 r"flash_fwd_kernelILi(\d+)E", (64, 128), "d",
-                 "dst_flash_fwd_smem_bytes")
-    build_report(build, "quant_matmul", "qmm_tile",
-                 r"qmm_tile_kernelILi(\d+)E", (4, 8), "bits",
-                 "dst_qmm_tile_smem_bytes")
+    for row in PTXAS_REPORTS:
+        build_report(build, *row)
 
 
 def in_turns(kernel, args, library) -> dict:
     """A kernel beside one library call computing the same function, timed
     in turns in this call (library, kernel, kernel, library): ``ms`` and
     ``library_ms`` the mean of each pair, ``turns`` the four readings."""
-    readings = (time_ms(library), time_ms(lambda: kernel.launch(*args)),
-                time_ms(lambda: kernel.launch(*args)), time_ms(library))
+    return in_turns_fn(lambda: kernel.launch(*args), library)
+
+
+def in_turns_fn(fn, library) -> dict:
+    """:func:`in_turns` for any call ``fn``, such as two kernels in turn."""
+    readings = (time_ms(library), time_ms(fn), time_ms(fn), time_ms(library))
     return dict(ms=(readings[1] + readings[2]) / 2,
                 library_ms=(readings[0] + readings[3]) / 2, turns=readings)
 
@@ -643,30 +657,10 @@ def qmm_checks(torch, qm, KERNELS):
     return rows
 
 
-def sdpa_backward_ms(torch, q, k, v, do):
-    """One SDPA backward (dq, dk, dv) at the shape of ``q`` [B,T,H,d] /
-    ``k``, ``v`` [B,S,K,d], causal GQA: ``(ms, backend name)``, trying the
-    flash, cuDNN and memory-efficient backends in turn."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    dot = do.transpose(1, 2).contiguous()
-    xs = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION):
-        try:
-            with sdpa_kernel([backend]):
-                out = sdpa(*xs, is_causal=True, enable_gqa=True)
-        except RuntimeError:          # this backend does not take the call
-            continue
-        return time_ms(lambda: torch.autograd.grad(
-            out, xs, dot, retain_graph=True)), backend.name
-    raise RuntimeError("no SDPA backend takes a causal GQA call")
-
-
 def backward_checks(torch, fa, KERNELS):
     """Kernel D at the training shape, and kernels E and F at the training
     shape (d = 64) and at d = 128, against their plain versions."""
+    from deepspeed_tpu_torch.tools.flash_bwd_time import sdpa_backward
     from deepspeed_tpu_torch.tools.train_profile import TRAIN_SEQ
 
     dev = torch.device("cuda")
@@ -696,21 +690,33 @@ def backward_checks(torch, fa, KERNELS):
         tiles_dkv = {"dk": close_tiles(f"F dk ({tag})", dk, pdk),
                      "dv": close_tiles(f"F dv ({tag})", dv, pdv)}
         del pdk, pdv
-        lib, backend = sdpa_backward_ms(torch, q, k, v, do)
+        sdpa_bwd, backend = sdpa_backward(q, k, v, do)
         in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
             + (lse.numel() + delta.numel()) * 4
         args_e, _ = fa.flash_bwd_kernel_args(*ins, part="dq", causal=True)
         args_f, _ = fa.flash_bwd_kernel_args(*ins, part="dkv", causal=True)
+        # E then F, the whole backward, in turns with SDPA's whole backward
+        pair = in_turns_fn(
+            lambda: (KERNELS["flash_bwd_dq"].launch(*args_e),
+                     KERNELS["flash_bwd_dkv"].launch(*args_f)), sdpa_bwd)
+        lib = pair["library_ms"]
+        e_plus_f = dict(ms=pair["ms"], library_ms=lib,
+                        ratio=pair["ms"] / lib)
+        log(f"kernels E+F ({tag}) in turns with one SDPA backward "
+            f"({backend}): library {pair['turns'][0]:.4f}, E+F "
+            f"{pair['turns'][1]:.4f}, E+F {pair['turns'][2]:.4f}, library "
+            f"{pair['turns'][3]:.4f} ms; (E+F) / SDPA backward "
+            f"{e_plus_f['ratio']:.2f} [{shape}]")
         rows[f"flash_bwd_dq/{tag}"] = dict(
             err=tiles_dq["dq"][0], tiles=tiles_dq, library_ms=lib,
-            library=backend, shape=shape,
+            library=backend, shape=shape, e_plus_f=e_plus_f,
             bound=bound(in_bytes + dq.numel() * 2, 6 * d * pairs),
             **timings(KERNELS["flash_bwd_dq"], args_e,
                       lambda: fa.flash_bwd_dq(*ins, causal=True),
                       lambda: fa.plain_flash_bwd_dq(*ins, causal=True)))
         rows[f"flash_bwd_dkv/{tag}"] = dict(
             err=max(t[0] for t in tiles_dkv.values()), tiles=tiles_dkv,
-            library_ms=lib, library=backend, shape=shape,
+            library_ms=lib, library=backend, shape=shape, e_plus_f=e_plus_f,
             bound=bound(in_bytes + (dk.numel() + dv.numel()) * 2,
                         8 * d * pairs),
             **timings(KERNELS["flash_bwd_dkv"], args_f,
@@ -1954,6 +1960,8 @@ def main() -> int:
         if "turns" in r:
             e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",
                                       "library_again"), r["turns"]))
+        if "e_plus_f" in r:                  # E then F vs SDPA's backward
+            e["e_plus_f"] = r["e_plus_f"]
         return e
 
     kernels = []

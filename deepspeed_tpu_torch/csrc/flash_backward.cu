@@ -1,5 +1,5 @@
 // Flash-attention backward on Hopper: kernels E (dq) and F (dk, dv) of the
-// training path.
+// training path, register-resident.
 //
 // Replaces:
 //   E  deepspeed_tpu/ops/flash_attention.py _bwd_dq_kernel (:173) via
@@ -8,7 +8,7 @@
 //   F  deepspeed_tpu/ops/flash_attention.py _bwd_dkv_kernel (:208) via
 //      _bwd_pallas (:249), with the GQA group sum of :311-313 folded in: the
 //      TPU writes per-query-head dk_h / dv_h [B, H, S, d] and sums each kv
-//      head's group afterwards; here one CTA owns a kv head's 64-row tile,
+//      head's group afterwards; here one CTA owns 64 kv rows of one kv head,
 //      walks every query head of its group and writes [B, S, K, d] once --
 //      no atomics and no intermediate buffer.
 //
@@ -16,56 +16,80 @@
 //   p  = exp(s - lse)         masked entries p = 0 (never exp(0) garbage)
 //   dp = dO v^T,  ds = p * (dp - delta)
 //   E: dq = scale * ds k      F: dv = p^T dO,  dk = scale * ds^T q
-// p and ds are rounded to bf16 before their products, as the TPU kernels do.
-// Masking is start-aligned like the forward (kernel D): query row t sits at
-// position t + rel against key column c; causal keeps t + rel >= c, a window
-// keeps t + rel - c <= window - 1.
+// p and ds are rounded to bf16 before their products, as the TPU kernels do;
+// p is taken as exp2(s * scale * log2 e - lse * log2 e). Masking is
+// start-aligned like the forward (kernel D): query row t sits at position
+// t + rel against key column c; causal keeps t + rel >= c, a window keeps
+// t + rel - c <= window - 1.
 //
-// What bounds it on the card: the products, 2 * d FLOPs each per live (row,
+// What bounds it on the card: the products, 2 d FLOPs each per live (row,
 // col) pair and query head -- three in E (s, dp, dq), four in F (s, dp, dv,
 // dk) -- against 989 TFLOP/s bf16; at training widths (T = 2048, d = 64) the
-// bytes of q, k, v, dO and the outputs are a few percent of that time. The
-// design's answer in this first version:
-//   * bf16 tensor cores (wmma 16x16x16, fp32 accumulate) for every product,
-//     on flash_tile.cuh's 64 x 64 tiles and 16-byte row loads;
-//   * only live tiles are visited: E walks the column range its 64 query rows
-//     can see, F the query-row range its 64 kv rows are seen by (the TPU
-//     kernels' _block_live skip);
-//   * q, k, v, dO and the gradients are read and written in the model's own
-//     [rows, heads, d] layout: no transposes around the launches;
-//   * F's group sum lives in its fp32 shared-memory accumulators.
-// Not yet: wgmma/TMA, register-resident accumulators, more than one CTA per
-// SM (F holds ~190 KB of shared memory at d = 128), pipelined loads, and one
-// fused kernel that shares s and dp between dq and dk/dv -- later tuning.
-#include <type_traits>
-
-#include "flash_tile.cuh"
+// bytes of q, k, v, dO and the outputs are a few percent of that time. On
+// mma.sync each warp also reads its B operands from shared memory by
+// ldmatrix, one 16-byte row a lane for every two mma's, so shared memory
+// bandwidth is the nearer limit. The design (FlashAttention-2's backward on
+// mma.sync, the tiles of kernel D):
+//   * a CTA is 4 warps of 16 rows: F owns 64 kv rows (the TRANSPOSED
+//     products S^T = K Q^T, dP^T = V dO^T, so every product of a warp has the
+//     warp's own kv rows as its M dimension), E 64 query rows;
+//   * the rows a CTA owns are copied once and held as mma A fragments in
+//     registers for the whole walk (E: Q and dO; F: K and V at d = 64, which
+//     re-reads them from shared memory at d = 128, where they do not fit), with
+//     their fp32 accumulators (F: dK and dV; E: dQ) and row statistics (E:
+//     lse and delta of the thread's two rows); they are scaled and written
+//     once, staged through the CTA's own rows for 16-byte stores;
+//   * S and dP live in registers only: p and ds are computed from the
+//     accumulators and packed into bf16 A fragments for dV += P^T dO, dK +=
+//     dS^T Q (F) and dQ += dS K (E), whose B operands come by ldmatrix.trans;
+//     at d = 128 a tile's columns are taken 32 at a time, so that S and dP
+//     fit beside the accumulators;
+//   * the streamed operands arrive through a cp.async ring, one barrier a
+//     tile: E streams K/V tiles over its live column range (Q and dO lie in
+//     the ring's last stage, as Q does in kernel D); F streams (Q, dO, lse,
+//     delta) tiles over its live query rows of every query head of the group
+//     as ONE flattened sequence, so the ring does not drain between heads;
+//   * only tiles that cross the causal diagonal, the window's edge or a
+//     ragged end take the masked body (a second instantiation of the tile
+//     body); rows past the valid range load as zeros and only ever reach
+//     their own unwritten output rows;
+//   * grids launch the heaviest CTAs first: E reverses its query tiles, as
+//     D; F's kv tile 0 sees every query row under a causal mask.
+// No atomics: the sums run in a fixed order, and two launches on the same
+// inputs give the same bits.
+// Not yet: wgmma/TMA, and one fused kernel that shares s and dp between dq and
+// dk/dv (it needs an fp32 dq buffer with atomics, and dq stops being
+// deterministic).
+#include "flash_mma.cuh"
 
 namespace dst {
 
+constexpr int BT = 64;  // rows of a tile: a CTA's own, and a streamed one's
+// WARPS warps of 16 rows a CTA, STAGES tiles in a ring, MINB CTAs per SM
+// for __launch_bounds__ (F at d = 128 runs one: its shared memory)
+constexpr int WARPS = 4, NT = WARPS * 32, STAGES = 3, MINB = 2;
+static_assert(STAGES >= 2, "a ring");
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int HD>
-struct BwdSmem {
-  // bf16 [64, HD] tiles, fp32 [64, 64] scores, bf16 [64, 64] p / ds, fp32
-  // [64, HD] accumulators; every region a multiple of 128 bytes (wmma wants
-  // 32-byte aligned tile pointers and ldm % 8 == 0 / % 4 == 0)
-  static constexpr int LD = HD + 8;
-  static constexpr int SLD = BN + 4;
-  static constexpr int PLD = BN + 8;
-  static constexpr int ALD = HD + 4;
-  static constexpr size_t tile = size_t(BM) * LD * 2;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + tile;
-  static constexpr size_t k_off = do_off + tile;
-  static constexpr size_t v_off = k_off + tile;
-  static constexpr size_t s_off = v_off + tile;
-  static constexpr size_t dp_off = s_off + size_t(BM) * SLD * 4;
-  static constexpr size_t p_off = dp_off + size_t(BM) * SLD * 4;
-  static constexpr size_t ds_off = p_off + size_t(BM) * PLD * 2;
-  static constexpr size_t st_off = ds_off + size_t(BM) * PLD * 2;  // lse, delta
-  static constexpr size_t acc_off = st_off + 2 * BM * 4;
-  static constexpr size_t acc_bytes = size_t(BM) * ALD * 4;
-  static constexpr size_t bytes(int n_acc) { return acc_off + n_acc * acc_bytes; }
+struct BwdTiles {
+  static constexpr int LD = HD + 8;       // bf16 row pitch: 16 bytes of skew
+  static constexpr int TILE = BT * LD;    // elements of one [64, HD] tile
+  static constexpr int SUB = HD == 64 ? 64 : 32;  // columns of S and dP held at once
+  // F holds K's and V's fragments in registers at d = 64; at d = 128 it
+  // re-reads them from shared memory each tile (its registers are full)
+  static constexpr bool KV_REGS = HD == 64;
+  // E: a ring of (K, V) tile pairs; Q and dO lie in the last stage
+  static constexpr size_t E_BYTES = size_t(STAGES) * 2 * TILE * sizeof(bf16);
+  // F: its K and V tiles, then a ring of (Q, dO, lse, delta) stages
+  static constexpr size_t F_STAGE = 2 * TILE * sizeof(bf16) + 2 * BT * sizeof(float);
+  static constexpr size_t F_BYTES = 2 * TILE * sizeof(bf16) + STAGES * F_STAGE;
+  static_assert(F_STAGE % 128 == 0, "stages stay 128-byte aligned");
 };
+
+// F's K or V fragments (a placeholder where it re-reads them)
+template <int HD>
+using KvFrags = uint32_t[BwdTiles<HD>::KV_REGS ? HD / 16 : 1][4];
 
 struct BwdArgs {
   const bf16* q;     // [B, T, H, hd]
@@ -84,217 +108,399 @@ struct BwdArgs {
     const int qp = t + rel;
     return (!causal || qp >= c) && (window <= 0 || qp - c <= window - 1);
   }
-  __device__ const bf16* q_row(const bf16* base, int b, int t, int h, int hd) const {
-    return base + ((size_t(b) * T + t) * H + h) * hd;
-  }
-  __device__ size_t kv_off(int b, int c, int kk, int hd) const {
-    return ((size_t(b) * S + c) * K + kk) * hd;
-  }
 };
 
-// C[r0 : r0+16, 0 : 64] = A[r0 : r0+16, 0 : HD] * B[0 : 64, 0 : HD]^T, fp32
-// into shared memory: one warp's 16 rows of s = q k^T or dp = dO v^T
+// s += A B^T for one k16 step kd: A the warp's 16 rows (fragment af), B the
+// NC rows of a [*, HD] bf16 tile in shared memory (the col-major B operand).
+template <int HD, int NC>
+__device__ __forceinline__ void scores_step(float (&s)[NC / 8][4], const uint32_t (&af)[4],
+                                            const bf16* rows, int kd, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int np = 0; np < NC / 16; ++np) {
+    // matrices: (rows np*16 .. +7, d kd*16 .. +7), (.., d +8), (rows +8, d), (rows +8, d +8)
+    uint32_t b[4];
+    ldsm_x4(b, smem_u32(rows + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kd * 16 +
+                        ((lane >> 3) & 1) * 8));
+    mma_bf16(s[2 * np], af, b[0], b[1]);
+    mma_bf16(s[2 * np + 1], af, b[2], b[3]);
+  }
+}
+
+template <int HD, int NC>
+__device__ __forceinline__ void scores(float (&s)[NC / 8][4], const uint32_t (&af)[HD / 16][4],
+                                       const bf16* rows, int lane) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < HD / 16; ++kd) scores_step<HD, NC>(s, af[kd], rows, kd, lane);
+}
+
+// The A fragment of k16 step kd of the warp's 16 rows of a [64, HD] tile.
 template <int HD>
-__device__ __forceinline__ void gemm_abt(const bf16* A, const bf16* B, int ld, float* C,
-                                         int ldc, int r0) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int k0 = 0; k0 < HD; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + r0 * ld + k0, ld);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + j * 16 * ld + k0, ld);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(C + r0 * ldc + j * 16, acc[j], ldc, wmma::mem_row_major);
+__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const bf16* tile, int warp, int kd,
+                                       int lane) {
+  ldsm_x4(f, smem_u32(tile + (warp * 16 + (lane & 15)) * (HD + 8) + kd * 16 + (lane >> 4) * 8));
 }
 
-// C[r0 : r0+16, 0 : HD] += op(A)[r0 : r0+16, 0 : 64] * B[0 : 64, 0 : HD], the
-// fp32 accumulator in shared memory. TRANS_A: A is stored [64 x 64] with the
-// product's rows as its COLUMNS (p^T dO, ds^T q in F); else as its rows
-// (ds k in E).
-template <int HD, bool TRANS_A>
-__device__ __forceinline__ void gemm_acc(const bf16* A, int lda, const bf16* B, int ldb,
-                                         float* C, int ldc, int r0) {
-  using namespace nvcuda;
-  using ALayout = typename std::conditional<TRANS_A, wmma::col_major, wmma::row_major>::type;
+// scores() with A the warp's rows of the [64, HD] tile `own`: its fragments
+// af when HELD, else taken from shared memory a k16 step at a time.
+template <int HD, int NC, bool HELD>
+__device__ __forceinline__ void scores_of(float (&s)[NC / 8][4],
+                                          const uint32_t (&af)[HELD ? HD / 16 : 1][4],
+                                          const bf16* own, const bf16* rows, int warp, int lane) {
+  if constexpr (HELD) {
+    scores<HD, NC>(s, af, rows, lane);
+  } else {
 #pragma unroll
-  for (int n0 = 0; n0 < HD; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    float* cptr = C + r0 * ldc + n0;
-    wmma::load_matrix_sync(acc, cptr, ldc, wmma::mem_row_major);
+    for (int j = 0; j < NC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int k0 = 0; k0 < BN; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, TRANS_A ? A + k0 * lda + r0 : A + r0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(acc, a, b, acc);
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      uint32_t f[4];
+      a_frag<HD>(f, own, warp, kd, lane);
+      scores_step<HD, NC>(s, f, rows, kd, lane);
     }
-    wmma::store_matrix_sync(cptr, acc, ldc, wmma::mem_row_major);
   }
 }
 
-// One warp's 16 rows: p and ds of the tile from s and dp. Rows >= nr,
-// columns >= nc and masked entries give p = ds = 0.
-template <bool WRITE_P>
-__device__ __forceinline__ void tile_grads(const BwdArgs& a, const float* Ss, const float* dPs,
-                                           const float* lse_s, const float* delta_s, bf16* Ps,
-                                           bf16* dSs, int r0, int nr, int nc, int t0, int c0,
-                                           int lane, int sld, int pld) {
-  for (int i = lane; i < 16 * BN; i += 32) {
-    const int r = r0 + i / BN, c = i % BN;
-    float p = 0.f, ds = 0.f;
-    if (r < nr && c < nc && a.keep(t0 + r, c0 + c)) {
-      p = expf(Ss[r * sld + c] * a.scale - lse_s[r]);
-      ds = p * (dPs[r * sld + c] - delta_s[r]);
-    }
-    if (WRITE_P) Ps[r * pld + c] = __float2bfloat16(p);
-    dSs[r * pld + c] = __float2bfloat16(ds);
-  }
-}
-
-// E: grid (B, H, ceil(T / 64)); a CTA owns 64 query rows of one head and
-// walks the live kv columns.
+// acc[16, HD] += A[16, 16] B[16, HD]: A packed from the k16 step's two n8
+// accumulator tiles x[0], x[1] (columns 2t, 2t + 1 of rows g, g + 8 each), B
+// rows k0 .. k0 + 15 of a [*, HD] bf16 tile (row-major [k, n]: ldmatrix.trans).
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdArgs a) {
-  using SM = BwdSmem<HD>;
+__device__ __forceinline__ void acc_product(float (&acc)[HD / 8][4], const float (&x0)[4],
+                                            const float (&x1)[4], const bf16* rows, int k0,
+                                            int lane) {
+  constexpr int LD = HD + 8;
+  const uint32_t a[4] = {pack_bf16(x0[0], x0[1]), pack_bf16(x0[2], x0[3]),
+                         pack_bf16(x1[0], x1[1]), pack_bf16(x1[2], x1[3])};
+#pragma unroll
+  for (int dn = 0; dn < HD / 16; ++dn) {
+    // matrices: (k 0..7, n dn*16 .. +7), (k 8..15, n), (k, n +8), (k +8, n +8)
+    uint32_t b[4];
+    ldsm_x4_trans(b, smem_u32(rows + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dn * 16 +
+                              (lane >> 4) * 8));
+    mma_bf16(acc[2 * dn], a, b[0], b[1]);
+    mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+  }
+}
+
+// Write a warp's 16 rows of an fp32 accumulator, times mul, as bf16 into rows
+// warp*16 .. of a [64, HD] tile in shared memory (for 16-byte stores).
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[HD / 8][4], float mul,
+                                           int warp, int lane) {
+  constexpr int LD = HD + 8;
+  const int r = warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(tile + r * LD + n * 8 + c) =
+        pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<uint32_t*>(tile + (r + 8) * LD + n * 8 + c) =
+        pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// Rows warp*16 .. of a staged [64, HD] tile to global rows row0 + r (pitch
+// ld elements), r < n, 16 bytes a lane.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int row0, int n,
+                                           const bf16* tile, int warp, int lane) {
+  constexpr int CH = HD / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int idx = lane + it * 32;
+    const int r = warp * 16 + idx / CH, c = idx % CH;
+    if (r < n)
+      *reinterpret_cast<uint4*>(dst + size_t(row0 + r) * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * (HD + 8) + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// E: dq. A CTA owns 64 query rows of one head; a warp 16 of them.
+// ---------------------------------------------------------------------------
+
+// One 64-column K/V tile: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K. EDGE: the
+// tile crosses the causal diagonal, the window's edge or c_hi for some of
+// the warp's rows; masked entries get p = ds = 0.
+template <int HD, bool EDGE>
+__device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* ks, const bf16* vs,
+                                        const uint32_t (&qf)[HD / 16][4],
+                                        const uint32_t (&dof)[HD / 16][4],
+                                        float (&dq)[HD / 8][4], const float (&lse2)[2],
+                                        const float (&delta)[2], int c0, int c_hi, int t_row,
+                                        float scale2, int lane) {
+  constexpr int SUB = BwdTiles<HD>::SUB, LD = HD + 8;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int sb = 0; sb < BT / SUB; ++sb) {
+    float s[SUB / 8][4], dp[SUB / 8][4];
+    scores<HD, SUB>(s, qf, ks + sb * SUB * LD, lane);
+    scores<HD, SUB>(dp, dof, vs + sb * SUB * LD, lane);
+#pragma unroll
+    for (int j = 0; j < SUB / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale2, -lse2[r]));
+        if (EDGE) {
+          const int c = c0 + sb * SUB + j * 8 + 2 * tq + (e & 1);
+          if (c >= c_hi || !a.keep(t_row + 8 * r, c)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - delta[r]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SUB / 16; ++k)
+      acc_product<HD>(dq, dp[2 * k], dp[2 * k + 1], ks, sb * SUB + k * 16, lane);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, MINB) flash_bwd_dq_kernel(const BwdArgs a) {
+  using Tl = BwdTiles<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q_off);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + SM::do_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + SM::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + SM::dp_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + SM::ds_off);
-  float* lse_s = reinterpret_cast<float*>(smem + SM::st_off);
-  float* delta_s = lse_s + BM;
-  float* dQs = reinterpret_cast<float*>(smem + SM::acc_off);
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // stage s: K at 2 s TILE, V after it
+  bf16* Qs = ring + (STAGES - 1) * 2 * Tl::TILE;
+  bf16* dOs = Qs + Tl::TILE;
 
-  const int b = blockIdx.x, h = blockIdx.y, t0 = blockIdx.z * BM;
-  const int kk = h / (a.H / a.K);
-  const int nr = min(BM, a.T - t0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * BT;  // longest causal tiles first
+  const int nrows = min(BT, a.T - t0);
+  const int kvh = h / (a.H / a.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_rows<HD>(Qs, SM::LD, nr, [&](int r) { return a.q_row(a.q, b, t0 + r, h, HD); });
-  load_rows<HD>(dOs, SM::LD, nr, [&](int r) { return a.q_row(a.dout, b, t0 + r, h, HD); });
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-    const size_t row = (size_t(b) * a.H + h) * a.T + t0 + r;
-    lse_s[r] = r < nr ? a.lse[row] : 0.f;
-    delta_s[r] = r < nr ? a.delta[row] : 0.f;
+  // live columns [c_lo, c_hi) of the CTA's query positions [q_lo, q_hi]
+  const int q_lo = t0 + a.rel, q_hi = t0 + nrows - 1 + a.rel;
+  const int c_lo = a.window > 0 ? max(0, q_lo - (a.window - 1)) : 0;
+  const int c_hi = a.causal ? max(0, min(a.S, q_hi + 1)) : a.S;
+  const int ntiles = c_hi > c_lo ? (c_hi - c_lo + BT - 1) / BT : 0;
+
+  const size_t q_ld = size_t(a.H) * HD, kv_ld = size_t(a.K) * HD;
+  const size_t q_off = (size_t(b) * a.T * a.H + h) * HD;
+  const bf16* kg = a.k + (size_t(b) * a.S * a.K + kvh) * HD;
+  const bf16* vg = a.v + (size_t(b) * a.S * a.K + kvh) * HD;
+
+  copy_rows<HD, BT, NT>(Qs, a.q + q_off, q_ld, t0, nrows);
+  copy_rows<HD, BT, NT>(dOs, a.dout + q_off, q_ld, t0, nrows);
+  auto issue = [&](int i) {  // tile i's K and V into stage i % STAGES
+    if (i < ntiles) {
+      const int c0 = c_lo + i * BT;
+      const int nc = min(BT, c_hi - c0);
+      bf16* ks = ring + (i % STAGES) * 2 * Tl::TILE;
+      copy_rows<HD, BT, NT>(ks, kg, kv_ld, c0, nc);
+      copy_rows<HD, BT, NT>(ks + Tl::TILE, vg, kv_ld, c0, nc);
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);  // Q and dO ride in the first group
+
+  // the thread's rows g and g + 8 of the warp: lse (times log2 e) and delta
+  const int r0 = warp * 16 + (lane >> 2);
+  const float* lse_g = a.lse + (size_t(b) * a.H + h) * a.T + t0;
+  const float* delta_g = a.delta + (size_t(b) * a.H + h) * a.T + t0;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = r0 + 8 * r < nrows;
+    lse2[r] = ok ? lse_g[r0 + 8 * r] * LOG2E : 0.f;
+    delta[r] = ok ? delta_g[r0 + 8 * r] : 0.f;
   }
-  for (int i = threadIdx.x; i < BM * SM::ALD; i += NTHREADS) dQs[i] = 0.f;
-  __syncthreads();
+  const float scale2 = a.scale * LOG2E;
+  const int t_row = t0 + r0;                                     // the thread's row g
+  const int w_lo = t0 + warp * 16 + a.rel, w_hi = w_lo + 15;    // the warp's positions
 
-  const int c_lo = a.window > 0 ? max(0, t0 + a.rel - (a.window - 1)) : 0;
-  const int c_hi = a.causal ? max(0, min(a.S, t0 + nr + a.rel)) : a.S;
-  for (int c0 = c_lo; c0 < c_hi; c0 += BN) {
-    const int nc = min(BN, c_hi - c0);
-    load_rows<HD>(Ks, SM::LD, nc, [&](int r) { return a.k + a.kv_off(b, c0 + r, kk, HD); });
-    load_rows<HD>(Vs, SM::LD, nc, [&](int r) { return a.v + a.kv_off(b, c0 + r, kk, HD); });
+  uint32_t qf[HD / 16][4], dof[HD / 16][4];
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  if (ntiles > 0) {  // Q's and dO's fragments, before any warp may refill their stage
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    gemm_abt<HD>(Qs, Ks, SM::LD, Ss, SM::SLD, r0);
-    gemm_abt<HD>(dOs, Vs, SM::LD, dPs, SM::SLD, r0);
-    __syncwarp();
-    tile_grads<false>(a, Ss, dPs, lse_s, delta_s, nullptr, dSs, r0, nr, nc, t0, c0, lane,
-                      SM::SLD, SM::PLD);
-    __syncwarp();
-    gemm_acc<HD, false>(dSs, SM::PLD, Ks, SM::LD, dQs, SM::ALD, r0);
-    __syncthreads();  // K/V are rewritten by the next tile
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      a_frag<HD>(qf[kd], Qs, warp, kd, lane);
+      a_frag<HD>(dof[kd], dOs, warp, kd, lane);
+    }
   }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i landed for this thread's copies
+    __syncthreads();              // ... for every thread's; tile i - 1's stage is free
+    issue(i + STAGES - 1);
+    const int c0 = c_lo + i * BT;
+    const bf16* ks = ring + (i % STAGES) * 2 * Tl::TILE;
+    const bf16* vs = ks + Tl::TILE;
+    if (c0 + BT > c_hi || (a.causal && c0 + BT - 1 > w_lo) ||
+        (a.window > 0 && c0 < w_hi - (a.window - 1)))
+      dq_tile<HD, true>(a, ks, vs, qf, dof, dq, lse2, delta, c0, c_hi, t_row, scale2, lane);
+    else
+      dq_tile<HD, false>(a, ks, vs, qf, dof, dq, lse2, delta, c0, c_hi, t_row, scale2, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is idle: stage dQ in the warp's own Q rows
 
-  for (int r = warp; r < nr; r += NTHREADS / 32) {
-    bf16* dst = a.dq + ((size_t(b) * a.T + t0 + r) * a.H + h) * HD;
-    for (int j = lane; j < HD; j += 32) dst[j] = __float2bfloat16(dQs[r * SM::ALD + j] * a.scale);
+  stage_rows<HD>(Qs, dq, a.scale, warp, lane);
+  __syncwarp();
+  store_rows<HD>(a.dq + q_off, q_ld, t0, nrows, Qs, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// F: dk, dv. A CTA owns 64 kv rows of one kv head; a warp 16 of them.
+// ---------------------------------------------------------------------------
+
+// One streamed tile of 64 query rows (Q, dO, and their lse and delta): S^T =
+// K Q^T, P^T, dP^T = V dO^T, dS^T, dV += P^T dO, dK += dS^T Q. EDGE: the tile
+// crosses the causal diagonal, the window's edge or t_hi for some of the
+// warp's kv rows; masked entries get p = ds = 0.
+template <int HD, bool EDGE>
+__device__ __forceinline__ void dkv_tile(const BwdArgs& a, const bf16* qs, const bf16* dos,
+                                         const float* lse_s, const float* delta_s,
+                                         const KvFrags<HD>& kf, const KvFrags<HD>& vf,
+                                         const bf16* Ks, const bf16* Vs, float (&dk)[HD / 8][4],
+                                         float (&dv)[HD / 8][4], int t0, int t_hi, int c_row,
+                                         float scale2, int warp, int lane) {
+  using Tl = BwdTiles<HD>;
+  constexpr int SUB = Tl::SUB, LD = HD + 8;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int sb = 0; sb < BT / SUB; ++sb) {
+    const bf16* qrows = qs + sb * SUB * LD;
+    const bf16* dorows = dos + sb * SUB * LD;
+    float s[SUB / 8][4], dp[SUB / 8][4];
+    scores_of<HD, SUB, Tl::KV_REGS>(s, kf, Ks, qrows, warp, lane);
+    scores_of<HD, SUB, Tl::KV_REGS>(dp, vf, Vs, dorows, warp, lane);
+#pragma unroll
+    for (int j = 0; j < SUB / 8; ++j) {
+      const int col = sb * SUB + j * 8 + 2 * tq;  // the tile's query rows col, col + 1
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], scale2, -(e & 1 ? l.y : l.x) * LOG2E));
+        if (EDGE) {
+          const int t = t0 + col + (e & 1);
+          if (t >= t_hi || !a.keep(t, c_row + 8 * (e >> 1))) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - (e & 1 ? dl.y : dl.x));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SUB / 16; ++k) {
+      acc_product<HD>(dv, s[2 * k], s[2 * k + 1], dorows, k * 16, lane);
+      acc_product<HD>(dk, dp[2 * k], dp[2 * k + 1], qrows, k * 16, lane);
+    }
   }
 }
 
-// F: grid (B, K, ceil(S / 64)); a CTA owns 64 kv rows of one kv head and
-// walks the live query rows of every query head of its group.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a) {
-  using SM = BwdSmem<HD>;
+__global__ void __launch_bounds__(NT, MINB) flash_bwd_dkv_kernel(const BwdArgs a) {
+  using Tl = BwdTiles<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q_off);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + SM::do_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + SM::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + SM::dp_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::p_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + SM::ds_off);
-  float* lse_s = reinterpret_cast<float*>(smem + SM::st_off);
-  float* delta_s = lse_s + BM;
-  float* dKs = reinterpret_cast<float*>(smem + SM::acc_off);
-  float* dVs = dKs + BM * SM::ALD;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + Tl::TILE;
+  unsigned char* ring = smem + 2 * Tl::TILE * sizeof(bf16);  // stage: Q, dO, lse, delta
 
-  const int b = blockIdx.x, kk = blockIdx.y, c0 = blockIdx.z * BN;
+  const int kk = blockIdx.x, b = blockIdx.y, c0 = blockIdx.z * BT;
   const int rep = a.H / a.K;
-  const int nc = min(BN, a.S - c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-
-  load_rows<HD>(Ks, SM::LD, nc, [&](int r) { return a.k + a.kv_off(b, c0 + r, kk, HD); });
-  load_rows<HD>(Vs, SM::LD, nc, [&](int r) { return a.v + a.kv_off(b, c0 + r, kk, HD); });
-  for (int i = threadIdx.x; i < 2 * BM * SM::ALD; i += NTHREADS) dKs[i] = 0.f;
-  __syncthreads();
+  const int nc = min(BT, a.S - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // query rows t that see a column of [c0, c0 + nc): causal t + rel >= c0,
-  // window t + rel - (c0 + nc - 1) <= window - 1
+  // window t + rel - (c0 + nc - 1) <= window - 1; walked as n_t tiles of
+  // every query head h = kk * rep + rr of the group, one sequence of tiles
   const int t_lo = a.causal ? min(a.T, max(0, c0 - a.rel)) : 0;
   const int t_hi = a.window > 0 ? max(0, min(a.T, c0 + nc + a.window - 1 - a.rel)) : a.T;
-  for (int rr = 0; rr < rep; ++rr) {
-    const int h = kk * rep + rr;
-    for (int t0 = t_lo; t0 < t_hi; t0 += BM) {
-      const int nr = min(BM, t_hi - t0);
-      load_rows<HD>(Qs, SM::LD, nr, [&](int r) { return a.q_row(a.q, b, t0 + r, h, HD); });
-      load_rows<HD>(dOs, SM::LD, nr, [&](int r) { return a.q_row(a.dout, b, t0 + r, h, HD); });
-      for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-        const size_t row = (size_t(b) * a.H + h) * a.T + t0 + r;
-        lse_s[r] = r < nr ? a.lse[row] : 0.f;
-        delta_s[r] = r < nr ? a.delta[row] : 0.f;
-      }
-      __syncthreads();
-      // this warp's 16 query rows against the 64 kv columns
-      gemm_abt<HD>(Qs, Ks, SM::LD, Ss, SM::SLD, r0);
-      gemm_abt<HD>(dOs, Vs, SM::LD, dPs, SM::SLD, r0);
-      __syncwarp();
-      tile_grads<true>(a, Ss, dPs, lse_s, delta_s, Ps, dSs, r0, nr, nc, t0, c0, lane, SM::SLD,
-                       SM::PLD);
-      __syncthreads();
-      // this warp's 16 kv rows against every query row of the tile
-      gemm_acc<HD, true>(Ps, SM::PLD, dOs, SM::LD, dVs, SM::ALD, r0);
-      gemm_acc<HD, true>(dSs, SM::PLD, Qs, SM::LD, dKs, SM::ALD, r0);
-      __syncthreads();  // Q/dO/P/dS are rewritten by the next tile
+  const int n_t = t_hi > t_lo ? (t_hi - t_lo + BT - 1) / BT : 0;
+  const int ntiles = rep * n_t;
+
+  const size_t q_ld = size_t(a.H) * HD, kv_ld = size_t(a.K) * HD;
+  const size_t kv_off = (size_t(b) * a.S * a.K + kk) * HD;
+  copy_rows<HD, BT, NT>(Ks, a.k + kv_off, kv_ld, c0, nc);
+  copy_rows<HD, BT, NT>(Vs, a.v + kv_off, kv_ld, c0, nc);
+  auto issue = [&](int i) {  // tile i into stage i % STAGES
+    if (i < ntiles) {
+      const int rr = i / n_t, h = kk * rep + rr;
+      const int t0 = t_lo + (i - rr * n_t) * BT;
+      const int nr = min(BT, t_hi - t0);
+      unsigned char* st = ring + (i % STAGES) * Tl::F_STAGE;
+      bf16* qs = reinterpret_cast<bf16*>(st);
+      const size_t q_off = (size_t(b) * a.T * a.H + h) * HD;
+      copy_rows<HD, BT, NT>(qs, a.q + q_off, q_ld, t0, nr);
+      copy_rows<HD, BT, NT>(qs + Tl::TILE, a.dout + q_off, q_ld, t0, nr);
+      // thread x < 64 copies lse of row x, thread x >= 64 delta of row x - 64
+      static_assert(NT == 2 * BT, "one statistic a thread");
+      const int r = threadIdx.x % BT;
+      const float* src = (threadIdx.x < BT ? a.lse : a.delta) + (size_t(b) * a.H + h) * a.T + t0;
+      float* stats = reinterpret_cast<float*>(st + 2 * Tl::TILE * sizeof(bf16));
+      cp_async4(smem_u32(stats + threadIdx.x), src + (r < nr ? r : 0), r < nr ? 4 : 0);
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);  // K and V ride in the first group
+
+  KvFrags<HD> kf, vf;
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  if constexpr (Tl::KV_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      a_frag<HD>(kf[kd], Ks, warp, kd, lane);
+      a_frag<HD>(vf[kd], Vs, warp, kd, lane);
     }
   }
 
-  for (int r = warp; r < nc; r += NTHREADS / 32) {
-    const size_t off = a.kv_off(b, c0 + r, kk, HD);
-    for (int j = lane; j < HD; j += 32) {
-      a.dk[off + j] = __float2bfloat16(dKs[r * SM::ALD + j] * a.scale);
-      a.dv[off + j] = __float2bfloat16(dVs[r * SM::ALD + j]);
-    }
+  const float scale2 = a.scale * LOG2E;
+  const int cw = c0 + warp * 16;        // the warp's first kv row
+  const int c_row = cw + (lane >> 2);   // the thread's row g
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i landed for this thread's copies
+    __syncthreads();              // ... for every thread's; tile i - 1's stage is free
+    issue(i + STAGES - 1);
+    const int rr = i / n_t;
+    const int t0 = t_lo + (i - rr * n_t) * BT;
+    const unsigned char* st = ring + (i % STAGES) * Tl::F_STAGE;
+    const bf16* qs = reinterpret_cast<const bf16*>(st);
+    const bf16* dos = qs + Tl::TILE;
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * Tl::TILE * sizeof(bf16));
+    const float* delta_s = lse_s + BT;
+    if (t0 + BT > t_hi || (a.causal && t0 + a.rel < cw + 15) ||
+        (a.window > 0 && t0 + BT - 1 + a.rel - cw > a.window - 1))
+      dkv_tile<HD, true>(a, qs, dos, lse_s, delta_s, kf, vf, Ks, Vs, dk, dv, t0, t_hi, c_row,
+                         scale2, warp, lane);
+    else
+      dkv_tile<HD, false>(a, qs, dos, lse_s, delta_s, kf, vf, Ks, Vs, dk, dv, t0, t_hi, c_row,
+                          scale2, warp, lane);
   }
+  cp_async_wait<0>();
+
+  // a warp reads only its own rows of K and V: stage dK and dV there
+  stage_rows<HD>(Ks, dk, a.scale, warp, lane);
+  stage_rows<HD>(Vs, dv, 1.f, warp, lane);
+  __syncwarp();
+  store_rows<HD>(a.dk + kv_off, kv_ld, c0, nc, Ks, warp, lane);
+  store_rows<HD>(a.dv + kv_off, kv_ld, c0, nc, Vs, warp, lane);
 }
 
 template <int HD, bool DKV>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  using Tl = BwdTiles<HD>;
   auto kern = DKV ? flash_bwd_dkv_kernel<HD> : flash_bwd_dq_kernel<HD>;
-  const size_t bytes = BwdSmem<HD>::bytes(DKV ? 2 : 1);
+  const size_t bytes = DKV ? Tl::F_BYTES : Tl::E_BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid = DKV ? dim3(a.B, a.K, (a.S + BN - 1) / BN)
-                        : dim3(a.B, a.H, (a.T + BM - 1) / BM);
-  kern<<<grid, NTHREADS, bytes, stream>>>(a);
+  // F: kv tile 0 first, the heaviest under a causal mask; E reverses its own
+  const dim3 grid = DKV ? dim3(a.K, a.B, (a.S + BT - 1) / BT)
+                        : dim3(a.H, a.B, (a.T + BT - 1) / BT);
+  kern<<<grid, NT, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,5 +556,12 @@ int dst_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
   a.dv = static_cast<dst::bf16*>(dv);
   return dst::launch_bwd_any_hd<true>(a, hd, static_cast<cudaStream_t>(stream));
 }
+
+// Kernels E and F's dynamic shared memory in bytes at d = 64 and d = 128
+// (extern: a const has internal linkage otherwise).
+extern const int dst_flash_bwd_dq_smem_bytes[2] = {
+    static_cast<int>(dst::BwdTiles<64>::E_BYTES), static_cast<int>(dst::BwdTiles<128>::E_BYTES)};
+extern const int dst_flash_bwd_dkv_smem_bytes[2] = {
+    static_cast<int>(dst::BwdTiles<64>::F_BYTES), static_cast<int>(dst::BwdTiles<128>::F_BYTES)};
 
 }  // extern "C"

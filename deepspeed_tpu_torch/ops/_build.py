@@ -35,7 +35,7 @@ _SOURCES = {"paged_attention": "paged_attention.cu",
             "quant_matmul": "quant_matmul.cu",
             "rms_norm": "rms_norm.cu",
             "hbm_stream": "hbm_stream.cu"}
-_HEADERS = ("flash_tile.cuh", "int_unpack.cuh")
+_HEADERS = ("flash_tile.cuh", "flash_mma.cuh", "int_unpack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,6 +12,7 @@ zeros. Those rows get dO = 0 and dlse = 0, which keeps the TPU's dk/dv clean
 of them."""
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -170,3 +171,53 @@ def test_backward_kernel_args_reject_unsupported_head_dim():
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_bwd_kernel_args(q, k, k, q, lse, lse, part="dq")
+
+
+def test_kernels_e_f_source_keep_s_and_dp_in_registers():
+    """No wmma (whose fragments go through shared memory for S, dP and the
+    accumulators): mma.sync on ldmatrix fragments, a cp.async ring with the
+    row statistics copied 4 bytes at a time, no atomics (two launches give
+    the same bits), and the kernel names the profiler tools read."""
+    from tests.test_torch_flash_forward import source_code
+
+    code = source_code("flash_backward.cu")
+    assert "wmma" not in code and "mma.h" not in code
+    assert "flash_tile.cuh" not in code and "atomic" not in code
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global", "cp.async.ca.shared.global",
+                   "cp.async.wait_group", "flash_bwd_dq_kernel(",
+                   "flash_bwd_dkv_kernel(", "dst_flash_bwd_dq_smem_bytes",
+                   "dst_flash_bwd_dkv_smem_bytes"):
+        assert needle in code, needle
+
+
+@pytest.mark.parametrize("kernel,lib", [("flash_bwd_dq", "flash_backward"),
+                                        ("flash_bwd_dkv", "flash_backward"),
+                                        ("flash_fwd", "flash_forward")])
+def test_chip_smoke_reads_ptxas_of_each_flash_kernel(kernel, lib):
+    """chip_smoke prints (and fails on a spill of) each flash kernel's ptxas
+    report per head dim: its pattern must find both instantiations' mangled
+    names, and no other kernel's."""
+    import chip_smoke
+
+    row = next(r for r in chip_smoke.PTXAS_REPORTS if r[1] == kernel)
+    assert row[0] == lib and row[3] == (64, 128)
+    args = {"flash_fwd": "FwdArgs"}.get(kernel, "BwdArgs")
+    names = {d: f"_ZN3dst{len(kernel) + 7}{kernel}_kernelILi{d}EEEvNS_"
+                f"{len(args)}{args}E" for d in (64, 128)}
+    for d, name in names.items():
+        assert re.search(row[2], name).group(1) == str(d)
+    others = [r[2] for r in chip_smoke.PTXAS_REPORTS if r[1] != kernel]
+    assert not any(re.search(p, n) for p in others for n in names.values())
+
+
+def test_flash_bwd_time_refuses_to_run_without_a_card(monkeypatch):
+    """The timing tool measures the card only: without one it stops before
+    it builds or times anything, rather than timing the plain versions."""
+    from deepspeed_tpu_torch.tools import flash_bwd_time
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        flash_bwd_time.main()

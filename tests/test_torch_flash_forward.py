@@ -12,6 +12,7 @@ walked, the port zeros: ``out`` is compared on the rows that see something,
 ``lse`` on every row (both give -1e30 in fp32 there). The card tests are in
 ``test_torch_kernels_cuda.py``."""
 
+import re
 import types
 from pathlib import Path
 
@@ -110,8 +111,7 @@ def test_kernel_d_source_keeps_s_p_o_in_registers():
     """No wmma (whose fragments go through shared memory for S and O):
     mma.sync on ldmatrix fragments, K/V through a cp.async ring, zero-fill
     of rows past the range by the copy's src-size."""
-    src = (ROOT / "deepspeed_tpu_torch/csrc/flash_forward.cu").read_text()
-    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    code = source_code("flash_forward.cu")
     assert "wmma" not in code and "mma.h" not in code
     assert "flash_tile.cuh" not in code
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
@@ -119,6 +119,29 @@ def test_kernel_d_source_keeps_s_p_o_in_registers():
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
                    "cp.async.cg.shared.global", "cp.async.wait_group"):
         assert needle in code, needle
+
+
+def source_code(name: str) -> str:
+    """``csrc/<name>`` without comments, each ``#include "<header>"`` of the
+    package's own headers followed by that header's code."""
+    csrc = ROOT / "deepspeed_tpu_torch/csrc"
+    lines = []
+    for line in (csrc / name).read_text().splitlines():
+        code = line.split("//")[0]
+        lines.append(code)
+        m = re.match(r'\s*#include "([^"]+)"', code)
+        if m:
+            lines.append(source_code(m.group(1)))
+    return "\n".join(lines)
+
+
+def test_every_included_header_is_hashed_into_the_library_name():
+    """A library is rebuilt when its name's hash changes: every header a
+    source includes from ``csrc`` must be among the hashed files."""
+    csrc = ROOT / "deepspeed_tpu_torch/csrc"
+    for path in sorted(csrc.glob("*.cu*")):
+        for inc in re.findall(r'#include "([^"]+)"', path.read_text()):
+            assert inc in _build._HEADERS, (path.name, inc)
 
 
 def test_ptxas_report_reads_kernel_d_instantiations():

@@ -95,24 +95,25 @@ def test_kernel_d_equals_kernel_c_bitwise_on_card(cuda_device, d, T):
     (2, 256, 256, 8, 2, 64, True, 64, 0),
     (1, 128, 192, 8, 8, 128, True, None, 64),
     (1, 200, 200, 8, 2, 64, True, 50, -20),
-    (2, 100, 130, 4, 1, 128, False, None, 0)])
+    (2, 100, 130, 4, 1, 128, False, None, 0),
+    (2, 333, 333, 16, 4, 128, True, None, 0),
+    (2, 300, 300, 8, 8, 64, True, None, 0),
+    (1, 300, 300, 8, 2, 64, True, 100, 0),
+    (1, 300, 300, 8, 2, 128, True, 40, 0),
+    (4, 2048, 2048, 32, 8, 64, True, None, 0)])
 def test_kernels_e_f_match_plain_on_card(cuda_device, B, T, S, H, K, d,
                                          causal, window, rel):
     """E (dq) and F (dk, dv) at d = 64 and 128, GQA, window, rel_offset
     (negative: the first rows see nothing and get zeros), ragged T and S,
-    with an lse cotangent folded into delta."""
+    with an lse cotangent folded into delta; then the paths of the
+    register-resident kernels: a group of rep = 4 at d = 128 with T not a
+    multiple of 64 (F walks four heads as one ring of tiles, 32 columns of
+    S at a time), rep = 1, windows whose edge cuts a 64-row tile at d = 64
+    and 128, and the training shape (Llama-3.2-1B, T = 2048)."""
     from deepspeed_tpu_torch.ops._build import KERNELS
 
-    g = torch.Generator(device=cuda_device).manual_seed(T + S + d)
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=g, device=cuda_device)
-
-    q, do = rnd(B, T, H, d).bfloat16(), rnd(B, T, H, d).bfloat16()
-    k, v = rnd(B, S, K, d).bfloat16(), rnd(B, S, K, d).bfloat16()
-    kw = dict(causal=causal, window=window, rel_offset=rel)
-    out, lse = tfa.flash_forward(q, k, v, **kw)
-    delta = tfa.flash_delta(out, do, 0.1 * rnd(B, H, T))
+    q, k, v, do, lse, delta, kw = _card_bwd_inputs(
+        cuda_device, B, T, S, H, K, d, causal, window, rel)
     n = {name: KERNELS[name].launches
          for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
@@ -127,6 +128,42 @@ def test_kernels_e_f_match_plain_on_card(cuda_device, B, T, S, H, K, d,
     close_tiles("dv", dv, rdv)
     if rel < 0:
         assert float(dq[:, :-rel].abs().max()) == 0.0
+
+
+def _card_bwd_inputs(dev, B, T, S, H, K, d, causal, window, rel):
+    """q, k, v, dO, the forward's lse, delta with an lse cotangent folded
+    in, and the mask options, seeded by the shape."""
+    g = torch.Generator(device=dev).manual_seed(T + S + d)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q, do = rnd(B, T, H, d).bfloat16(), rnd(B, T, H, d).bfloat16()
+    k, v = rnd(B, S, K, d).bfloat16(), rnd(B, S, K, d).bfloat16()
+    kw = dict(causal=causal, window=window, rel_offset=rel)
+    out, lse = tfa.flash_forward(q, k, v, **kw)
+    delta = tfa.flash_delta(out, do, 0.1 * rnd(B, H, T))
+    return q, k, v, do, lse, delta, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,K,d,causal,window,rel", [
+    (4, 2048, 2048, 32, 8, 64, True, None, 0),
+    (2, 333, 333, 16, 4, 128, True, 40, 0),
+    (1, 200, 200, 8, 2, 64, True, 50, -20)])
+def test_kernels_e_f_are_deterministic_on_card(cuda_device, B, T, S, H, K,
+                                               d, causal, window, rel):
+    """Two launches of E and of F on the same inputs give the same bits:
+    neither uses atomics, and F sums each group's query heads in one fixed
+    order in registers."""
+    q, k, v, do, lse, delta, kw = _card_bwd_inputs(
+        cuda_device, B, T, S, H, K, d, causal, window, rel)
+    dq = [tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw) for _ in "ab"]
+    dkv = [tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw) for _ in "ab"]
+    torch.cuda.synchronize()
+    assert torch.equal(dq[0], dq[1])
+    assert torch.equal(dkv[0][0], dkv[1][0])
+    assert torch.equal(dkv[0][1], dkv[1][1])
 
 
 @pytest.mark.cuda
