@@ -9,8 +9,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build   -- compile the port's CUDA kernels from ``deepspeed_tpu_torch/
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
-              fails the run) and shared memory of kernels D, E and F per
-              head dim and of G/H's multi-row kernel per weight width;
+              fails the run) and shared memory of kernels D, E and F and of
+              A in each pool mode per head dim, and of G/H's multi-row
+              kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -247,14 +248,23 @@ def make_pool(torch, g, L, nbp1, bs, KD, dev):
             .to(torch.bfloat16))
 
 
-def timings(kernel, args, wrapper, plain) -> dict:
+def timings(kernel, args, wrapper, plain, make_args=None) -> dict:
     """``ms``: the kernel alone -- its launcher on arguments prepared once
     (CUDA events see only the card's time while launches queue faster than
     the kernel runs); ``wrapper_ms``: the whole wrapper (operand checks,
-    metadata, allocation, launch); ``plain_ms``: the plain version."""
-    return dict(ms=time_ms(lambda: kernel.launch(*args)),
-                wrapper_ms=time_ms(wrapper),
-                plain_ms=time_ms(plain, iters=5))
+    metadata, allocation, launch); ``plain_ms``: the plain version. A kernel
+    shorter than its launch (A) gives ``make_args`` (its launcher's
+    arguments, made on the current stream): ``ms`` is then its device time
+    from a CUDA graph of launches (``decode_time.graph_ms``), and
+    ``loop_ms`` the loop of launches, which times the host."""
+    r = dict(ms=time_ms(lambda: kernel.launch(*args)),
+             wrapper_ms=time_ms(wrapper), plain_ms=time_ms(plain, iters=5))
+    if make_args is not None:
+        from deepspeed_tpu_torch.tools.decode_time import graph_ms
+
+        r["loop_ms"] = r["ms"]
+        r["ms"] = graph_ms(lambda: kernel.launch(*make_args()))
+    return r
 
 
 def build_report(build, lib: str, kernel: str, pattern: str, variants,
@@ -289,9 +299,22 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
 
 
 # (library, kernel, pattern of its mangled name, variants, unit, shared
-# memory symbol): kernels D, E and F per head dim, and G/H's multi-row kernel
+# memory symbol): kernels D, E and F and A's pool modes (int4: paired kv
+# heads, then one nibble) per head dim, and G/H's multi-row kernel
 # (16 < B <= 256) per weight width
 PTXAS_REPORTS = (
+    ("paged_decode", "paged_decode",
+     r"paged_decode_kernelILi16ELb0ELi(\d+)E", (64, 128), "d",
+     "dst_paged_decode_smem_bytes"),
+    ("paged_decode", "paged_decode_int8",
+     r"paged_decode_kernelILi8ELb0ELi(\d+)E", (64, 128), "d",
+     "dst_paged_decode_int8_smem_bytes"),
+    ("paged_decode", "paged_decode_int4",
+     r"paged_decode_kernelILi4ELb1ELi(\d+)E", (64, 128), "d",
+     "dst_paged_decode_int4_smem_bytes"),
+    ("paged_decode", "paged_decode_int4 one-nibble",
+     r"paged_decode_kernelILi4ELb0ELi(\d+)E", (64, 128), "d",
+     "dst_paged_decode_int4_smem_bytes"),
     ("flash_forward", "flash_fwd", r"flash_fwd_kernelILi(\d+)E", (64, 128),
      "d", "dst_flash_fwd_smem_bytes"),
     ("flash_backward", "flash_bwd_dq", r"flash_bwd_dq_kernelILi(\d+)E",
@@ -384,14 +407,16 @@ def kernel_checks(torch, pa, fa, KERNELS):
     cols = int(pos0.sum())
     nbytes = cols * KD * 2 * 2 + q.numel() * 2 + acc.numel() * 4 + 2 * m.numel() * 4
     flops = 4 * H * d * cols
-    args, _ = pa.decode_kernel_args(q, kpool, vpool, layer, bt, slot, pos0)
+    def a_args():
+        return pa.decode_kernel_args(q, kpool, vpool, layer, bt, slot,
+                                     pos0)[0]
     rows["paged_decode"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
-        **timings(KERNELS["paged_decode"], args,
+        **timings(KERNELS["paged_decode"], a_args(),
                   lambda: pa.decode_pool_partials(q, kpool, vpool, layer, bt,
                                                   slot, pos0),
                   lambda: pa.plain_decode_partials(q, kpool, vpool, layer, bt,
-                                                   slot, pos0)),
+                                                   slot, pos0), a_args),
         shape="A=8 atoms, H=32 K=8 d=128 bs=128, pos0 "
               + ",".join(str(int(p)) for p in pos0))
 
@@ -455,9 +480,11 @@ def kernel_checks(torch, pa, fa, KERNELS):
         decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq)))
     torch.cuda.synchronize()
     for name, r in rows.items():
+        loop = (f", a loop of launches {r['loop_ms']:.4f} ms"
+                if "loop_ms" in r else "")
         log(f"kernel {name}: max_abs_err {r['err']:.3e}, kernel "
-            f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['ms']:.4f} ms{loop} (wrapper {r['wrapper_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}, library {r['library_ms']}) [{r['shape']}]")
         log_tiles(name, r)
         log_turns(name, r)
@@ -511,14 +538,17 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
         pool_bytes = cols * (KD * bits // 8 + 4) * 2      # rows + scales
         nbytes = pool_bytes + q.numel() * 2 + acc.numel() * 4 \
             + 2 * m.numel() * 4
-        args, _ = pa.decode_kernel_args(q, kq, vq, layer, bt, slot, pos0, **kw)
+        def a_args():
+            return pa.decode_kernel_args(q, kq, vq, layer, bt, slot, pos0,
+                                         **kw)[0]
         rows[name] = dict(
             err=err, bound=bound(nbytes, 4 * H * d * cols), library_ms=None,
-            **timings(KERNELS[name], args,
+            **timings(KERNELS[name], a_args(),
                       lambda: pa.decode_pool_partials(q, kq, vq, layer, bt,
                                                       slot, pos0, **kw),
                       lambda: pa.plain_decode_partials(q, kq, vq, layer, bt,
-                                                       slot, pos0, **kw)),
+                                                       slot, pos0, **kw),
+                      a_args),
             shape=f"int{bits} pool, the bf16 A atoms")
 
         name = pa.kernel_name("paged_past", sc, bits)
@@ -1957,6 +1987,8 @@ def main() -> int:
             e["grad_max_abs_err"] = r["grad_err"]
         if "splits" in r:
             e["splits"] = r["splits"]
+        if "loop_ms" in r:                   # A: ms from a CUDA graph
+            e["loop_ms"] = r["loop_ms"]
         if "turns" in r:
             e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",
                                       "library_again"), r["turns"]))

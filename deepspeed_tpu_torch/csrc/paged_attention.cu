@@ -1,22 +1,21 @@
-// Paged past-partials on Hopper: kernels A and B of the serving path.
+// Paged past-partials on Hopper: kernels B and I of the serving path, modes
+// of the tile engine (flash_tile.cuh). Kernel A, the decode partials, has its
+// own kernel (paged_decode.cu).
 //
 // Replaces (deepspeed_tpu/ops/paged_attention.py):
-//   A  _decode_kernel (:420) via decode_pool_partials (:543): one query row
-//      per decode atom (rep rows per kv head) over its pooled past < pos0;
 //   B  _past_kernel (:782) via _prefill_attention (:952): the tq*rep rows of
-//      a chunk atom per kv head over the same pooled past.
-// Both return unnormalised flash partials (acc fp32, m, l) that the caller
-// merges with the atom's own tokens. And
+//      a chunk atom per kv head over its pooled past < pos0, returned as
+//      unnormalised flash partials (acc fp32, m, l) that kernel C seeds its
+//      self flash with. And
 //   I  _paged_kernel (:110) via _paged_pallas (:161): the packed=False
 //      engine's dense query tile [B, t, H, d] (every slot a row) over each
 //      slot's paged KV, causal from pos[b], the tile's own K/V already in
 //      the pool; output normalised bf16.
 //
 // What bounds it on the card: the KV bytes. Every live past block of a
-// sequence is read once per kv head group (decode does ~1 FLOP per byte, far
-// below the H100's ~295 FLOP/byte ridge), so the floor is
+// sequence is read once per kv head group, so the floor is
 // KV bytes / 3.35 TB/s. The design reads only what that needs:
-//   * one CTA per (atom, kv head [, 64-row tile]) walks ONLY the live logical
+//   * one CTA per (atom, kv head, 64-row tile) walks ONLY the live logical
 //     blocks [lo, lo + nblk) of _past_ranges, looking each physical id up in
 //     block_tables[slot] -- never the whole nb_max table;
 //   * it reads the [*, d] lanes of its own kv head out of the lane-folded
@@ -26,9 +25,8 @@
 //     multiply the score work by K;
 //   * the rep query heads of a GQA group share each K/V tile from shared
 //     memory.
-// What it does not do yet: split a long past over several CTAs (decode runs
-// A*K CTAs, fewer than the 132 SMs at small batch) or overlap the next tile's
-// loads with this tile's math (cp.async / TMA). Those are tuning work.
+// What it does not do yet: overlap the next tile's loads with this tile's
+// math (cp.async / TMA). That is tuning work.
 //
 // Kernel I is one more Mode of the same engine (TileMode below), grid
 // (B, K, ceil(t*rep / 64)): the rep heads of a GQA group share each K/V tile.
@@ -44,22 +42,18 @@
 // Atoms with nothing to read (pos0 == 0, or a window past everything) write
 // m = -1e30, l = 0, acc = 0: the merge's exp(m - m2) = 0 then drops them.
 //
-// Quantized pools (the reference's `quantized` / `kv_bits` modes of the same
-// two kernels, :483-516 and :840-876), one launcher each:
-//   paged_decode_int8  int8 pool; q quantized per row (the wrapper's q-hat,
-//                      _quantize_q_rows :390) and the score an INTEGER product
-//                      (mma.sync s8 -> s32), dequantized as
-//                      s_int * q_scale * scale * k_scale[col];
-//   paged_decode_int4, paged_past_int8, paged_past_int4
-//                      int -> bf16 K/V tiles, q unquantized, scores times
-//                      k_scale[col];
-// and in all four p is scaled by v_scale[col] before the P V product. The
+// Quantized pools (the reference's `quantized` / `kv_bits` modes of
+// _past_kernel, :840-876), one launcher each: paged_past_int8 and
+// paged_past_int4 load int -> bf16 K/V tiles, q unquantized, scores times
+// k_scale[col], and p is scaled by v_scale[col] before the P V product. The
 // per-token scales come from kv_scale [L, nb+1, 1, 2*bs] (k in lanes [0, bs),
 // v in [bs, 2bs)). The int4 pool pairs lanes GLOBALLY: byte j holds feature
 // j (low nibble) and j + K*d/2 (high nibble), so a kv head whose features lie
 // in the upper half reads high nibbles. This first version reads a 16-byte
 // chunk for 16 features and keeps one nibble of each byte: an int4 head
-// costs as many bytes as an int8 one (PERF.md).
+// costs as many bytes as an int8 one (PERF.md). QuantPool's RAW_K load (K
+// kept int8 for the tile engine's integer score) served kernel A's int8
+// mode, which has its own kernel now.
 #include "flash_tile.cuh"
 #include "int_unpack.cuh"
 
@@ -97,39 +91,6 @@ struct PagedPast {
   __device__ float seed_m(int) const { return NEG_INF; }
   __device__ float seed_l(int) const { return 0.f; }
   __device__ float seed_acc(int, int) const { return 0.f; }
-};
-
-// A: grid (A, K); rows r < rep are heads kk*rep + r of atom a
-struct DecodeMode : PagedPast {
-  const bf16* q;    // [A, H, hd]
-  const int* rowpos;  // [A] query position (window anchor)
-  int H, rep, window;
-  float* acc;       // [A, H, hd]
-  float* m_out;     // [A, H]
-  float* l_out;     // [A, H]
-  int rp;
-
-  __device__ void setup() {
-    a = blockIdx.x;
-    kk = blockIdx.y;
-    setup_past();
-    rp = rowpos[a];
-  }
-  __device__ int rows() const { return rep; }
-  __device__ const bf16* q_row(int r) const {
-    return q + (size_t(a) * H + kk * rep + r) * hd;
-  }
-  __device__ bool keep(int, int c) const {
-    return c < p0 && (window <= 0 || c > rp - window);
-  }
-  __device__ void finish(int r, const float* o, float m, float l, int lane) const {
-    const size_t row = size_t(a) * H + kk * rep + r;
-    for (int j = lane; j < hd; j += 32) acc[row * hd + j] = o[j];
-    if (lane == 0) {
-      m_out[row] = m;
-      l_out[row] = l;
-    }
-  }
 };
 
 // B: grid (A, K, ceil(R / 64)) with R = tq * rep; row g = t * rep + rr is
@@ -284,32 +245,6 @@ struct QuantPool {
   }
 };
 
-// A over an int8 / int4 pool; BITS == 8 takes the int8 q-hat (q8, qs)
-template <int BITS>
-struct DecodeQuantMode : DecodeMode {
-  static constexpr int kKvBits = BITS;
-  static constexpr bool kIntScore = BITS == 8;
-  QuantPool<BITS> pool;
-  const int8_t* q8;  // [A, H, hd] int8 q-hat (BITS == 8)
-  const float* qs;   // [A, H] its row scales
-
-  template <int HD, bool RAW_K>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, float* ksc, float* vsc, int c0, int nc) const {
-    pool.template load<HD, RAW_K>(*this, Ks, Vs, ksc, vsc, c0, nc);
-  }
-  template <int HD>
-  __device__ void load_q8(int8_t* Q8, float* qsc, int nrows) const {
-    for (int i = threadIdx.x; i < BM * (HD / 16); i += NTHREADS) {
-      const int r = i / (HD / 16), j = i % (HD / 16);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < nrows) v = reinterpret_cast<const uint4*>(q8 + (size_t(a) * H + kk * rep + r) * hd)[j];
-      *reinterpret_cast<uint4*>(Q8 + r * Smem<HD>::Q8LD + j * 16) = v;
-    }
-    for (int r = threadIdx.x; r < BM; r += NTHREADS)
-      qsc[r] = r < nrows ? qs[size_t(a) * H + kk * rep + r] : 0.f;
-  }
-};
-
 // B over an int8 / int4 pool (q unquantized)
 template <int BITS>
 struct PastQuantMode : PastMode {
@@ -327,28 +262,6 @@ void fill_past(M& md, int layer, int nbp1, int bs, int K, int hd, const int* bt,
                const int* slot, const int* pos0, const int* lo, const int* nblk) {
   md.layer = layer; md.nbp1 = nbp1; md.bs = bs; md.K = K; md.hd = hd;
   md.bt = bt; md.nb_max = nb_max; md.slot = slot; md.pos0 = pos0; md.lo = lo; md.nblk = nblk;
-}
-
-template <int BITS>
-int launch_decode_quant(const void* q, const void* qs, const void* kq, const void* vq,
-                        const float* kv_scale, int layer, int nbp1, int bs, int H, int K, int hd,
-                        const int* bt, int nb_max, const int* slot, const int* pos0,
-                        const int* rowpos, const int* lo, const int* nblk, int A, int window,
-                        float scale, float* acc, float* m, float* l, cudaStream_t stream) {
-  if (A <= 0) return 0;
-  if (K <= 0 || H % K != 0 || H / K > BM) return static_cast<int>(cudaErrorInvalidValue);
-  DecodeQuantMode<BITS> md{};
-  fill_past(md, layer, nbp1, bs, K, hd, bt, nb_max, slot, pos0, lo, nblk);
-  md.pool = {static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq), kv_scale};
-  if (BITS == 8) {
-    md.q8 = static_cast<const int8_t*>(q);
-    md.qs = static_cast<const float*>(qs);
-  } else {
-    md.q = static_cast<const bf16*>(q);
-  }
-  md.rowpos = rowpos; md.H = H; md.rep = H / K; md.window = window;
-  md.acc = acc; md.m_out = m; md.l_out = l;
-  return launch_any_hd(md, hd, dim3(A, K, 1), scale, stream);
 }
 
 template <int BITS>
@@ -375,25 +288,6 @@ using dst::bf16;
 
 extern "C" {
 
-// Kernel A. Returns the launch's cudaError_t (0 = launched).
-int dst_paged_decode(const void* q, const void* kpool, const void* vpool, int layer,
-                     int nbp1, int bs, int H, int K, int hd, const int* bt, int nb_max,
-                     const int* slot, const int* pos0, const int* rowpos, const int* lo,
-                     const int* nblk, int A, int window, float scale, float* acc, float* m,
-                     float* l, void* stream) {
-  if (A <= 0) return 0;
-  if (K <= 0 || H % K != 0 || H / K > dst::BM) return static_cast<int>(cudaErrorInvalidValue);
-  dst::DecodeMode md{};
-  md.kpool = static_cast<const bf16*>(kpool);
-  md.vpool = static_cast<const bf16*>(vpool);
-  md.layer = layer; md.nbp1 = nbp1; md.bs = bs; md.K = K; md.hd = hd;
-  md.bt = bt; md.nb_max = nb_max; md.slot = slot; md.pos0 = pos0; md.lo = lo; md.nblk = nblk;
-  md.q = static_cast<const bf16*>(q);
-  md.rowpos = rowpos; md.H = H; md.rep = H / K; md.window = window;
-  md.acc = acc; md.m_out = m; md.l_out = l;
-  return dst::launch_any_hd(md, hd, dim3(A, K, 1), scale, static_cast<cudaStream_t>(stream));
-}
-
 // Kernel B. Returns the launch's cudaError_t (0 = launched).
 int dst_paged_past(const void* q, const void* kpool, const void* vpool, int layer, int nbp1,
                    int bs, int H, int K, int hd, const int* bt, int nb_max, const int* slot,
@@ -412,28 +306,6 @@ int dst_paged_past(const void* q, const void* kpool, const void* vpool, int laye
   const int R = tq * (H / K);
   return dst::launch_any_hd(md, hd, dim3(A, K, (R + dst::BM - 1) / dst::BM), scale,
                             static_cast<cudaStream_t>(stream));
-}
-
-// Kernel A over an int8 pool: q8 [A, H, hd] int8 q-hat, qs [A, H] its scales.
-int dst_paged_decode_int8(const void* q8, const void* qs, const void* kpool, const void* vpool,
-                          const float* kv_scale, int layer, int nbp1, int bs, int H, int K,
-                          int hd, const int* bt, int nb_max, const int* slot, const int* pos0,
-                          const int* rowpos, const int* lo, const int* nblk, int A, int window,
-                          float scale, float* acc, float* m, float* l, void* stream) {
-  return dst::launch_decode_quant<8>(q8, qs, kpool, vpool, kv_scale, layer, nbp1, bs, H, K, hd,
-                                     bt, nb_max, slot, pos0, rowpos, lo, nblk, A, window, scale,
-                                     acc, m, l, static_cast<cudaStream_t>(stream));
-}
-
-// Kernel A over an int4 pool (q bf16).
-int dst_paged_decode_int4(const void* q, const void* kpool, const void* vpool,
-                          const float* kv_scale, int layer, int nbp1, int bs, int H, int K,
-                          int hd, const int* bt, int nb_max, const int* slot, const int* pos0,
-                          const int* rowpos, const int* lo, const int* nblk, int A, int window,
-                          float scale, float* acc, float* m, float* l, void* stream) {
-  return dst::launch_decode_quant<4>(q, nullptr, kpool, vpool, kv_scale, layer, nbp1, bs, H, K,
-                                     hd, bt, nb_max, slot, pos0, rowpos, lo, nblk, A, window,
-                                     scale, acc, m, l, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B over an int8 / int4 pool (q bf16).

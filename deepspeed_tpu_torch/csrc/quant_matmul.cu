@@ -299,48 +299,16 @@ __device__ __forceinline__ void unroll(Fn&& f) {
   unroll_seq(f, std::make_integer_sequence<int, N>{});
 }
 
-// (a & b) | c in one instruction
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                             *reinterpret_cast<__nv_bfloat162*>(&b));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// B fragments straight from the packed bytes. ldmatrix.trans on bytes (an
-// 8 x 8 matrix of b16 = 8 byte rows k of 16 columns) gives thread (g, t) one
-// 32-bit word: bytes 0, 1 = row 2t at columns 2g, 2g + 1, and bytes 2, 3 =
-// row 2t + 1 at the same columns. Bytes 0 and 2 make the B fragment word of
-// column 2g, bytes 1 and 3 that of column 2g + 1: one matrix feeds two n8
-// tiles, the even and the odd columns of 16.
-//
-// int8: a byte q is its low seven bits minus 128 times its sign bit; the low
-// seven bits or-ed into the mantissa of bf16 128, the sign bit into the
-// exponent's lowest bit (128 or 256), the second subtracted from the first
-// in bf16x2 -- exact. Returns the even (x) and odd (y) columns' words.
-__device__ __forceinline__ uint2 frag_int8(uint32_t r) {
-  const uint32_t lo7 = 0x007F007Fu, sign = 0x00800080u, bf128 = 0x43004300u;
-  const uint32_t r8 = r >> 8;
-  return make_uint2(bf16x2_sub(and_or(r, lo7, bf128), and_or(r, sign, bf128)),
-                    bf16x2_sub(and_or(r8, lo7, bf128), and_or(r8, sign, bf128)));
-}
-
-// int4: each byte holds two rows (low nibble: row kb, high: kb + group/2).
-// A nibble q biased to 8 + q is or-ed into the mantissa of bf16 128 and 136
-// comes off -- exact. lo / hi get the even (x) and odd (y) columns' words.
-__device__ __forceinline__ void frag_int4(uint32_t r, uint2& lo, uint2& hi) {
-  const uint32_t u = r ^ 0x88888888u, nib = 0x000F000Fu, bf128 = 0x43004300u;
-  const uint32_t bias = 0x43084308u;  // bf16x2 136
-  lo = make_uint2(bf16x2_sub(and_or(u, nib, bf128), bias),
-                  bf16x2_sub(and_or(u >> 8, nib, bf128), bias));
-  hi = make_uint2(bf16x2_sub(and_or(u >> 4, nib, bf128), bias),
-                  bf16x2_sub(and_or(u >> 12, nib, bf128), bias));
-}
+// B fragments straight from the packed bytes (frag_int8 / frag_int4 of
+// int_unpack.cuh). ldmatrix.trans on bytes (an 8 x 8 matrix of b16 = 8 byte
+// rows k of 16 columns) gives thread (g, t) one 32-bit word: bytes 0, 1 =
+// row 2t at columns 2g, 2g + 1, and bytes 2, 3 = row 2t + 1 at the same
+// columns. Bytes 0 and 2 make the B fragment word of column 2g, bytes 1 and
+// 3 that of column 2g + 1: one matrix feeds two n8 tiles, the even and the
+// odd columns of 16. An int4 byte holds two rows (low nibble: row kb, high:
+// kb + group/2): frag_int4's lo and hi.
+using dst::frag_int4;
+using dst::frag_int8;
 
 // Shared memory: a STAGES-deep ring of slots [x tile | packed weight bytes |
 // the group's scales]. Row pitches carry 16 bytes of skew so every ldmatrix

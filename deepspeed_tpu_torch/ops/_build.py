@@ -29,6 +29,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
+            "paged_decode": "paged_decode.cu",
             "flash_attention": "flash_attention.cu",
             "flash_forward": "flash_forward.cu",
             "flash_backward": "flash_backward.cu",
@@ -71,7 +72,7 @@ class Kernel:
 
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
-    Kernel("paged_decode", "paged_attention",
+    Kernel("paged_decode", "paged_decode",
            "deepspeed_tpu/ops/paged_attention.py:420"),
     Kernel("paged_past", "paged_attention",
            "deepspeed_tpu/ops/paged_attention.py:782"),
@@ -86,9 +87,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("qmm", "quant_matmul", "deepspeed_tpu/ops/quant_matmul.py:93"),
     Kernel("qmm_stacked", "quant_matmul",
            "deepspeed_tpu/ops/quant_matmul.py:99"),
-    Kernel("paged_decode_int8", "paged_attention",
+    Kernel("paged_decode_int8", "paged_decode",
            "deepspeed_tpu/ops/paged_attention.py:420"),
-    Kernel("paged_decode_int4", "paged_attention",
+    Kernel("paged_decode_int4", "paged_decode",
            "deepspeed_tpu/ops/paged_attention.py:420"),
     Kernel("paged_past_int8", "paged_attention",
            "deepspeed_tpu/ops/paged_attention.py:782"),
@@ -226,21 +227,22 @@ def _declare(lib, name: str) -> None:
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "paged_attention": {
+        "paged_decode": {
             # q kpool vpool layer nbp1 bs H K hd bt nb_max slot pos0 rowpos
-            # lo nblk A window scale acc m l stream
-            "dst_paged_decode": [P, P, P, I, I, I, I, I, I, P, I, P, P, P, P,
-                                 P, I, I, F, P, P, P, P],
+            # A window scale bps nsplit ws tickets acc m l stream
+            "dst_paged_decode": [P, P, P, I, I, I, I, I, I, P, I, P, P, P,
+                                 I, I, F, I, I, P, P, P, P, P, P],
+            # q kpool vpool kv_scale, then as dst_paged_decode from layer
+            "dst_paged_decode_int8": [P, P, P, P, I, I, I, I, I, I, P, I, P,
+                                      P, P, I, I, F, I, I, P, P, P, P, P, P],
+            "dst_paged_decode_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P,
+                                      P, P, I, I, F, I, I, P, P, P, P, P, P],
+        },
+        "paged_attention": {
             # q kpool vpool layer nbp1 bs H K hd bt nb_max slot pos0 lo nblk
             # A tq window scale acc m l stream
             "dst_paged_past": [P, P, P, I, I, I, I, I, I, P, I, P, P, P, P,
                                I, I, I, F, P, P, P, P],
-            # q8 qs kpool vpool kv_scale, then as dst_paged_decode from layer
-            "dst_paged_decode_int8": [P, P, P, P, P, I, I, I, I, I, I, P, I,
-                                      P, P, P, P, P, I, I, F, P, P, P, P],
-            # q kpool vpool kv_scale, then as dst_paged_decode from layer
-            "dst_paged_decode_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P,
-                                      P, P, P, P, I, I, F, P, P, P, P],
             # q kpool vpool kv_scale, then as dst_paged_past from layer
             "dst_paged_past_int8": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
                                     P, P, I, I, I, F, P, P, P, P],

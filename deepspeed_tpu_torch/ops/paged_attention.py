@@ -20,7 +20,10 @@ version named in brackets):
 * A ``decode_pool_partials`` -- flash-decode partials of 1-token atoms over
   their pooled past [``plain_decode_partials``]; over a quantized pool the
   kernels ``paged_decode_int8`` (int8 q-hat, integer score product) and
-  ``paged_decode_int4``;
+  ``paged_decode_int4``. One launch a call: the kernel computes the live
+  ranges and the int8 q-hat itself, splits the past over CTAs
+  (:func:`decode_splits`) and merges the splits in the same launch
+  (:func:`merge_decode_partials` is the merge's plain twin, for tests);
 * B ``past_partials`` -- the same for the ``tq*rep`` rows of chunk atoms,
   per kv head [``plain_past_partials``]; ``paged_past_int8`` /
   ``paged_past_int4`` over a quantized pool;
@@ -59,7 +62,8 @@ def _past_ranges(atom_pos0: torch.Tensor, row_pos: torch.Tensor, bs: int,
                  nb_max: int, window: Optional[int]):
     """(pos0, lo block, live block count) of each atom's visible past.
     ``row_pos`` (>= pos0) anchors the window; ``pos0`` is the pool frontier.
-    An atom with ``pos0 == 0`` has no live block."""
+    An atom with ``pos0 == 0`` has no live block. Kernel B's wrapper uses
+    it; kernel A computes the same in its prologue."""
     pos0 = atom_pos0.to(torch.int32)
     if window is not None:
         lo = torch.clamp_min(
@@ -91,7 +95,8 @@ def _quantize_q_rows(q: torch.Tensor):
     """Per-row (last-axis) int8 quantization of a query: (q_int8, scale
     [..., 1] fp32), scale = amax times the fp32 reciprocal of 127 (how XLA
     compiles the reference's ``amax / 127``), floor 1e-12 -- the int8-pool
-    decode's q-hat, bit-identical to the reference's (:390) under jit."""
+    decode's q-hat, bit-identical to the reference's (:390) under jit.
+    Kernel A computes the same in its prologue."""
     qf = q.float()
     qs = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0),
                          1e-12)
@@ -162,6 +167,69 @@ def plain_decode_partials(q, k_pool, v_pool, layer: int, block_tables,
     return torch.einsum("ahs,ashd->ahd", p, vd), m, p.sum(dim=-1)
 
 
+# Kernel A's split of a past over CTAs (csrc/paged_decode.cu): a split is a
+# run of whole pool blocks, at least _SPLIT_COLS columns; a grid has at most
+# MAX_SPLITS splits an atom, a split at most MAX_SPLIT_BLOCKS blocks (the
+# source's MAX_SPLITS and MAX_BPS: its shared memory is sized by them).
+_SPLIT_COLS = 128
+MAX_SPLITS = 64
+MAX_SPLIT_BLOCKS = 128
+
+
+def decode_splits(bs: int, nb_max: int) -> Tuple[int, int]:
+    """(blocks a split, splits a grid) of kernel A for block size ``bs`` and
+    a block table of ``nb_max`` blocks: split ``z`` of an atom covers its
+    live blocks ``[lo + z*bps, lo + (z+1)*bps)`` (:func:`_past_ranges`)."""
+    bps = max(-(-_SPLIT_COLS // bs), -(-nb_max // MAX_SPLITS))
+    if bps > MAX_SPLIT_BLOCKS:
+        raise ValueError(f"a block table of {nb_max} blocks of {bs} rows "
+                         f"needs {bps} blocks a split; kernel A takes at "
+                         f"most {MAX_SPLIT_BLOCKS}")
+    return bps, -(-nb_max // bps)
+
+
+def merge_decode_partials(parts):
+    """Merge flash-decode partials ``[(acc, m, l), ...]`` of disjoint column
+    ranges of the same rows, in list order, as kernel A merges its splits:
+    m = max m_z, f_z = exp(m_z - m), l = sum f_z l_z, acc = sum f_z acc_z
+    (fp32). Plain torch; the tests' model of the kernel's merge."""
+    m = parts[0][1]
+    for _, mz, _ in parts[1:]:
+        m = torch.maximum(m, mz)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for az, mz, lz in parts:
+        f = torch.exp(mz - m)
+        l = l + f * lz
+        acc = acc + f[..., None] * az
+    return acc, m, l
+
+
+_tickets = {}
+
+
+def _ticket_buffer(device, n: int) -> torch.Tensor:
+    """Kernel A's split tickets on ``device``: int32, zero between launches
+    (the last split of each atom and kv head group resets its own). One
+    buffer a device, so launches on it must be ordered (one stream)."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
+def decode_groups(H: int, K: int, kv_scale=None, kv_bits: int = 8) -> int:
+    """Kernel A's kv head groups (the grid's y): an int4 pool with even K and
+    at most 8 heads a group pairs kv heads kk and kk + K/2 in one CTA (the
+    two nibbles of each byte); otherwise a CTA takes 16 heads of one kv
+    head's group."""
+    rep = H // K
+    if kv_scale is not None and kv_bits == 4 and K % 2 == 0 and rep <= 8:
+        return K // 2
+    return K * -(-rep // 16)
+
+
 def kernel_name(base: str, kv_scale=None, kv_bits: int = 8) -> str:
     """The kernel of ``base`` (``paged_decode`` / ``paged_past``) for this
     pool: the bf16 one, or its int8 / int4 mode."""
@@ -191,30 +259,33 @@ def decode_kernel_args(q, k_pool, v_pool, layer: int, block_tables,
                        atom_slot, atom_pos0, *, window=None, row_pos=None,
                        kv_scale=None, kv_bits: int = 8):
     """Kernel A's (or its int mode's, :func:`kernel_name`) launcher
-    arguments and its outputs ``(acc, m, l)``, allocated here (CUDA
-    tensors)."""
+    arguments and its outputs ``(acc, m, l)``, allocated here (CUDA tensors),
+    with the split workspace. No other launch: the kernel computes the live
+    ranges and, over an int8 pool, the q-hat."""
     if row_pos is None:
         row_pos = atom_pos0
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     A, H, d = q.shape
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
+    if d not in (64, 128):
+        raise ValueError(f"kernel A is built for head_dim 64 and 128, got {d}")
     nb_max = block_tables.shape[1]
     cuda_operand(q, "q", torch.bfloat16)
     pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
-    qs = (q,)
-    if kv_scale is not None and kv_bits == 8:
-        qi, qsc = _quantize_q_rows(q)
-        qs = (qi.contiguous(), qsc[..., 0].contiguous())
-    bt = int32_meta(block_tables)
-    slot = int32_meta(atom_slot)
-    pos0, lo, nblk = _past_ranges(atom_pos0, row_pos, bs, nb_max, window)
-    pos0, lo, nblk = int32_meta(pos0), int32_meta(lo), int32_meta(nblk)
-    rpos = int32_meta(row_pos)
-    acc = torch.empty(A, H, d, dtype=torch.float32, device=q.device)
-    m = torch.empty(A, H, dtype=torch.float32, device=q.device)
-    l = torch.empty(A, H, dtype=torch.float32, device=q.device)
-    args = (*qs, *pools, int(layer), nbp1, bs, H, K, d, bt, nb_max,
-            slot, pos0, rpos, lo, nblk, A, int(window or 0),
-            1.0 / math.sqrt(d), acc, m, l, stream_ptr(q))
+    bps, nsplit = decode_splits(bs, nb_max)
+    dev = q.device
+    ws = torch.empty(A * H * nsplit * (d + 2), dtype=torch.float32,
+                     device=dev)
+    tickets = _ticket_buffer(dev, A * decode_groups(H, K, kv_scale, kv_bits))
+    acc = torch.empty(A, H, d, dtype=torch.float32, device=dev)
+    m = torch.empty(A, H, dtype=torch.float32, device=dev)
+    l = torch.empty(A, H, dtype=torch.float32, device=dev)
+    args = (q, *pools, int(layer), nbp1, bs, H, K, d,
+            int32_meta(block_tables), nb_max, int32_meta(atom_slot),
+            int32_meta(atom_pos0), int32_meta(row_pos), A, int(window or 0),
+            1.0 / math.sqrt(d), bps, nsplit, ws, tickets, acc, m, l,
+            stream_ptr(q))
     return args, (acc, m, l)
 
 

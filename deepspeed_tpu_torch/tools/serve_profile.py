@@ -14,8 +14,9 @@ B=256, as in the chunk steps of a mixed ``put``). Prints, for each
 profiled phase, the wall time per step (profiler on, so above an
 unprofiled run), the device time the profiler recorded (sum of CUDA kernel
 durations, one stream), the device's idle share of the wall time, the
-number of kernel launches, and the top kernels by device time; then the
-card's name and power limit. Weights are random (seed 0); the numbers
+number of kernel launches, the top kernels by device time and kernel A's
+(``paged_decode_kernel``) device time and launches; then the card's name
+and power limit. Weights are random (seed 0); the numbers
 depend on shapes only. Needs a CUDA card.
 """
 
@@ -70,6 +71,11 @@ def profile_phase(name, fn, steps_per_call: int, top: int = 12) -> None:
         print(f"[{name}]   {us / 1e3 / steps_per_call:8.3f} ms/step "
               f"{count / steps_per_call:7.1f} calls/step  {key[:90]}",
               flush=True)
+    a_rows = [r for r in rows if "paged_decode_kernel" in r[0]]
+    a_ms = sum(r[1] for r in a_rows) / 1e3 / steps_per_call
+    a_calls = sum(r[2] for r in a_rows) / steps_per_call
+    print(f"[{name}] kernel A: {a_ms:.3f} ms/step, {a_calls:.1f} calls/step",
+          flush=True)
     return prof
 
 

@@ -486,6 +486,87 @@ def test_kernel_a_int_modes_match_plain_on_card(cuda_device, bits, window,
     assert float(l[~live].abs().sum()) == 0.0
 
 
+def _card_decode_case(dev, bits, H, K, d, window):
+    """Kernel A's atoms over a 16-block table of 128-row blocks: pasts of 1
+    token, exactly one block, one before and one after a block edge, 2047
+    (all sixteen splits), none, and two of the serve phase's; under a
+    window, rows advanced past the frontier. Returns (args, kwargs) of
+    ``decode_pool_partials``."""
+    if bits == 16:
+        kp, vp, bt, g = _card_pools(dev, lanes=K * d)
+        kw = {}
+    else:
+        kp, vp, sc, bt, g = _card_quant_pools(dev, bits, K=K, d=d)
+        kw = dict(kv_scale=sc, kv_bits=bits)
+    q = torch.randn(8, H, d, generator=g, device=dev).bfloat16()
+    slot = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3], device=dev)
+    pos0 = torch.tensor([1, 128, 127, 129, 2047, 0, 700, 301], device=dev)
+    shift = 0 if window is None else torch.tensor([0, 5, 1, 9, 0, 3, 31, 2],
+                                                  device=dev)
+    kw.update(window=window, row_pos=pos0 + shift)
+    return (q, kp, vp, 1, bt, slot, pos0), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("H,K", [(32, 8), (8, 8), (32, 4), (16, 1), (12, 3),
+                                 (40, 2)])
+@pytest.mark.parametrize("window", [None, 256])
+def test_kernel_a_splits_match_plain_on_card(cuda_device, bits, d, H, K,
+                                             window):
+    """Kernel A in each pool mode (one launch a call), against the plain
+    version: H/K = 4, 1, 8 and 16 (int4 with even K and H/K <= 8 pairs two
+    kv heads a CTA; K = 1 and K = 3 read one nibble, and a K = 3 head's
+    features straddle the nibble halves), 20 (two 16-head CTAs a group);
+    acc / l at 2e-2 and l at relative 2e-2, m at 1e-2; atoms with nothing
+    visible give m = -1e30, l = 0, acc = 0."""
+    from deepspeed_tpu_torch.ops._build import KERNELS
+
+    args, kw = _card_decode_case(cuda_device, bits, H, K, d, window)
+    name = "paged_decode" if bits == 16 else f"paged_decode_int{bits}"
+    n = KERNELS[name].launches
+    acc, m, l = tpa.decode_pool_partials(*args, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == n + 1
+    ra, rm, rl = tpa.plain_decode_partials(*args, **kw)
+    live = rl > 0
+    torch.testing.assert_close(_norm(acc, l)[live], _norm(ra, rl)[live],
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l[live], rl[live], atol=0, rtol=2e-2)
+    torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+    assert bool((m[~live] == -1e30).all()) and bool((l[~live] == 0).all())
+    assert float(acc[~live].abs().sum()) == 0.0
+    assert int((~live).sum()) >= H                 # the empty atom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_a_int8_q_hat_is_the_wrappers_on_card(cuda_device, d):
+    """The int8 mode's in-kernel q-hat: m within relative 1e-4 of the plain
+    version's (which takes ``_quantize_q_rows``), where one q element off by
+    one moves a score by ~1e-3 of it."""
+    args, kw = _card_decode_case(cuda_device, 8, 32, 8, d, None)
+    _, m, _ = tpa.decode_pool_partials(*args, **kw)
+    _, rm, rl = tpa.plain_decode_partials(*args, **kw)
+    live = rl > 0
+    torch.testing.assert_close(m[live], rm[live], atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("window", [None, 256])
+def test_kernel_a_is_deterministic_on_card(cuda_device, bits, window):
+    """Two launches give the same bits: the splits merge in split order
+    behind one ticket, whichever CTA finishes last."""
+    args, kw = _card_decode_case(cuda_device, bits, 32, 8, 128, window)
+    first = tpa.decode_pool_partials(*args, **kw)
+    second = tpa.decode_pool_partials(*args, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
