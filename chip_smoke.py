@@ -10,8 +10,8 @@ Phases, in order (any failure raises and the script exits non-zero):
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
               fails the run) and shared memory of kernels D, E and F and of
-              A in each pool mode per head dim, and of G/H's multi-row
-              kernel per weight width;
+              A in each pool mode per head dim (64, 96, 128, 256), and of
+              G/H's multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -44,7 +44,10 @@ Phases, in order (any failure raises and the script exits non-zero):
               [4096, 4096] fp32 rows (forward, and the autograd backward
               against the plain version's; 1e-2 bf16, 1e-5 fp32, beside
               ``F.rms_norm``) and K on the probe's 256 MB array (relative
-              1e-6, beside ``torch.sum``); then J's and K's entry points
+              1e-6, beside ``torch.sum``); A-F and I again at phi3-mini's
+              heads (H = K = 32, d = 96) and pythia-1b's (H = K = 8,
+              d = 256), the same checks, rows ending /d96 and /d256 (E, F
+              at B=1 T=2048); then J's and K's entry points
               with the counts at 0 -- ``measure_hbm_bandwidth()``, whose
               copy and stream rates are printed beside the data sheet's
               3.35 TB/s, and the op builder's RMSNorm -- each must launch;
@@ -118,6 +121,20 @@ Phases, in order (any failure raises and the script exits non-zero):
               the same width (seed-0 weights at the init scale) with the
               gate at 2e-2 for all of them. Prints the prompt put's
               tokens/s and the decode put's ms for each engine.
+
+8. head-dims -- ``phi3-mini`` (d = 96) and ``pythia-1b`` (d = 256) at full
+              width and depth (seed-0 bf16 weights, ``attention_heavy``;
+              max_seq_len 2048, 8 slots, block 128) on phase 4's traffic,
+              each over a bf16 pool and an int pool (phi3-mini int8,
+              pythia-1b int4): finite logits, every kernel of the path
+              launched, first launches replayed through the plain
+              versions, chunked vs whole (bf16 pool) at rel L2 2e-2; the
+              ``packed=False`` engine (kernel I) against the packed one at
+              2 layers at rel L2 2e-2; training on kernels D, E, F
+              (pythia-1b at full depth, phi3-mini at 2 layers; micro-batch
+              2 x 2048, 3 ``train_batch`` steps): finite, falling losses,
+              replays, and the 2-layer per-leaf gradient cross-check at
+              2e-2. Every attention kernel must launch in this phase.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
@@ -298,29 +315,33 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
                                  f"registers")
 
 
+# Head dims the card's attention kernels are built for (the port's
+# ``ops.CARD_HEAD_DIMS``; a CPU test holds the two equal)
+CARD_HEAD_DIMS = (64, 96, 128, 256)
+
 # (library, kernel, pattern of its mangled name, variants, unit, shared
 # memory symbol): kernels D, E and F and A's pool modes (int4: paired kv
 # heads, then one nibble) per head dim, and G/H's multi-row kernel
 # (16 < B <= 256) per weight width
 PTXAS_REPORTS = (
     ("paged_decode", "paged_decode",
-     r"paged_decode_kernelILi16ELb0ELi(\d+)E", (64, 128), "d",
+     r"paged_decode_kernelILi16ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
      "dst_paged_decode_smem_bytes"),
     ("paged_decode", "paged_decode_int8",
-     r"paged_decode_kernelILi8ELb0ELi(\d+)E", (64, 128), "d",
+     r"paged_decode_kernelILi8ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
      "dst_paged_decode_int8_smem_bytes"),
     ("paged_decode", "paged_decode_int4",
-     r"paged_decode_kernelILi4ELb1ELi(\d+)E", (64, 128), "d",
+     r"paged_decode_kernelILi4ELb1ELi(\d+)E", CARD_HEAD_DIMS, "d",
      "dst_paged_decode_int4_smem_bytes"),
     ("paged_decode", "paged_decode_int4 one-nibble",
-     r"paged_decode_kernelILi4ELb0ELi(\d+)E", (64, 128), "d",
+     r"paged_decode_kernelILi4ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
      "dst_paged_decode_int4_smem_bytes"),
-    ("flash_forward", "flash_fwd", r"flash_fwd_kernelILi(\d+)E", (64, 128),
-     "d", "dst_flash_fwd_smem_bytes"),
+    ("flash_forward", "flash_fwd", r"flash_fwd_kernelILi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_flash_fwd_smem_bytes"),
     ("flash_backward", "flash_bwd_dq", r"flash_bwd_dq_kernelILi(\d+)E",
-     (64, 128), "d", "dst_flash_bwd_dq_smem_bytes"),
+     CARD_HEAD_DIMS, "d", "dst_flash_bwd_dq_smem_bytes"),
     ("flash_backward", "flash_bwd_dkv", r"flash_bwd_dkv_kernelILi(\d+)E",
-     (64, 128), "d", "dst_flash_bwd_dkv_smem_bytes"),
+     CARD_HEAD_DIMS, "d", "dst_flash_bwd_dkv_smem_bytes"),
     ("quant_matmul", "qmm_tile", r"qmm_tile_kernelILi(\d+)E", (4, 8),
      "bits", "dst_qmm_tile_smem_bytes"),
 )
@@ -374,10 +395,14 @@ def flash_fwd_checks(torch, fa, KERNELS, q, k, v, tag: str) -> dict:
         shape=f"B={B} T=S={T} H={H} K={k.shape[2]} d={d}, causal")
 
 
-def kernel_checks(torch, pa, fa, KERNELS):
+def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
+                  seed=1234):
+    """Kernels A-D and A/B's int modes at the serve phase's shapes: H query
+    heads over K kv heads of head dim d (Llama-3-8B's by default); the rows'
+    keys end in ``suffix``."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1234)
-    H, K, d, bs = 32, 8, 128, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bs = 128
     max_seq, n_slots = 2048, 8
     nb_max = max_seq // bs
     nbp1 = n_slots * nb_max + 1
@@ -410,14 +435,14 @@ def kernel_checks(torch, pa, fa, KERNELS):
     def a_args():
         return pa.decode_kernel_args(q, kpool, vpool, layer, bt, slot,
                                      pos0)[0]
-    rows["paged_decode"] = dict(
+    rows[f"paged_decode{suffix}"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
         **timings(KERNELS["paged_decode"], a_args(),
                   lambda: pa.decode_pool_partials(q, kpool, vpool, layer, bt,
                                                   slot, pos0),
                   lambda: pa.plain_decode_partials(q, kpool, vpool, layer, bt,
                                                    slot, pos0), a_args),
-        shape="A=8 atoms, H=32 K=8 d=128 bs=128, pos0 "
+        shape=f"A=8 atoms, H={H} K={K} d={d} bs=128, pos0 "
               + ",".join(str(int(p)) for p in pos0))
 
     # ---- B: two 256-token chunk atoms with a pooled past
@@ -438,14 +463,14 @@ def kernel_checks(torch, pa, fa, KERNELS):
     flops = 4 * tq * H * d * cols
     args, _ = pa.past_kernel_args(qb, kpool, vpool, layer, bt, slotb, pos0b,
                                   tq)
-    rows["paged_past"] = dict(
+    rows[f"paged_past{suffix}"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
         **timings(KERNELS["paged_past"], args,
                   lambda: pa.past_partials(qb, kpool, vpool, layer, bt,
                                            slotb, pos0b, tq),
                   lambda: pa.plain_past_partials(qb, kpool, vpool, layer, bt,
                                                  slotb, pos0b, tq)),
-        shape="2 atoms x tq=256, H=32 K=8 d=128 bs=128, pos0 256,768")
+        shape=f"2 atoms x tq=256, H={H} K={K} d={d} bs=128, pos0 256,768")
 
     # ---- C: the same atoms' self flash, seeded from B's (plain) partials
     alen = torch.tensor([256, 200], dtype=torch.int32, device=dev)
@@ -460,24 +485,25 @@ def kernel_checks(torch, pa, fa, KERNELS):
               + (paccb.numel() + 2 * pmb.numel()) * 4)
     flops = 4 * H * d * pairs
     args, _ = pa.self_kernel_args(qb, ks, vs, alen, tq, seed)
-    rows["chunk_self"] = dict(
+    rows[f"chunk_self{suffix}"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
         **timings(KERNELS["chunk_self"], args,
                   lambda: pa.self_attention(qb, ks, vs, alen, tq, seed),
                   lambda: pa.plain_self_attention(qb, ks, vs, alen, tq,
                                                   seed)),
-        shape="2 atoms x tq=256 (alen 256,200), H=32 K=8 d=128, seeded")
+        shape=f"2 atoms x tq=256 (alen 256,200), H={H} K={K} d={d}, "
+              f"seeded")
 
     # ---- D: whole-prompt prefill of 4 prompts padded to T=1024
     B, T = 4, 1024
     qd = torch.randn(B, T, H, d, generator=g, device=dev).to(torch.bfloat16)
     kd = torch.randn(B, T, K, d, generator=g, device=dev).to(torch.bfloat16)
     vd = torch.randn(B, T, K, d, generator=g, device=dev).to(torch.bfloat16)
-    rows["flash_fwd"] = flash_fwd_checks(torch, fa, KERNELS, qd, kd, vd,
-                                         "serve shape")
+    rows[f"flash_fwd{suffix}"] = flash_fwd_checks(
+        torch, fa, KERNELS, qd, kd, vd, f"serve shape{suffix}")
     rows.update(quant_pool_checks(
         torch, pa, KERNELS, kpool, vpool, layer, bt,
-        decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq)))
+        decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq), suffix=suffix))
     torch.cuda.synchronize()
     for name, r in rows.items():
         loop = (f", a loop of launches {r['loop_ms']:.4f} ms"
@@ -511,9 +537,10 @@ def quantize_pool(torch, pa, pool_k, pool_v, bits):
 
 
 def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
-                      past):
+                      past, suffix=""):
     """The int8 / int4 modes of A and B on the bf16 checks' atoms, over the
-    same pools quantized by the port's append."""
+    same pools quantized by the port's append (rows' keys end in
+    ``suffix``)."""
     rows = {}
     q, slot, pos0 = decode
     qb, slotb, pos0b, tq = past
@@ -541,7 +568,7 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
         def a_args():
             return pa.decode_kernel_args(q, kq, vq, layer, bt, slot, pos0,
                                          **kw)[0]
-        rows[name] = dict(
+        rows[name + suffix] = dict(
             err=err, bound=bound(nbytes, 4 * H * d * cols), library_ms=None,
             **timings(KERNELS[name], a_args(),
                       lambda: pa.decode_pool_partials(q, kq, vq, layer, bt,
@@ -564,7 +591,7 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
                   + accb.numel() * 4 + 2 * mb.numel() * 4)
         args, _ = pa.past_kernel_args(qb, kq, vq, layer, bt, slotb, pos0b,
                                       tq, **kw)
-        rows[name] = dict(
+        rows[name + suffix] = dict(
             err=err, bound=bound(nbytes, 4 * tq * H * d * cols),
             library_ms=None,
             **timings(KERNELS[name], args,
@@ -687,17 +714,26 @@ def qmm_checks(torch, qm, KERNELS):
     return rows
 
 
+# phase 3's head-dim rows: phi3-mini's heads (H = K = 32, d = 96) and
+# pythia-1b's (H = K = 8, d = 256), the rows' keys ending in /d96, /d256
+HEAD_DIM_SHAPES = (("/d96", 32, 32, 96), ("/d256", 8, 8, 256))
+
+
 def backward_checks(torch, fa, KERNELS):
     """Kernel D at the training shape, and kernels E and F at the training
-    shape (d = 64) and at d = 128, against their plain versions."""
+    shape (d = 64), at d = 128 and at the head-dim shapes (d = 96, 256; B=1,
+    T = 2048), against their plain versions."""
     from deepspeed_tpu_torch.tools.flash_bwd_time import sdpa_backward
     from deepspeed_tpu_torch.tools.train_profile import TRAIN_SEQ
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     rows = {}
-    for tag, (B, T, H, K, d) in (("train", (4, TRAIN_SEQ, 32, 8, 64)),
-                                 ("d128", (1, TRAIN_SEQ, 32, 8, 128))):
+    shapes = [("train", (4, TRAIN_SEQ, 32, 8, 64)),
+              ("d128", (1, TRAIN_SEQ, 32, 8, 128))]
+    shapes += [(sfx[1:], (1, TRAIN_SEQ, H, K, d))
+               for sfx, H, K, d in HEAD_DIM_SHAPES]
+    for tag, (B, T, H, K, d) in shapes:
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev).bfloat16()
 
@@ -783,16 +819,17 @@ def log_turns(name: str, r: dict) -> None:
             f"{r['ms'] / r['library_ms']:.2f}")
 
 
-def tile_checks(torch, pa, KERNELS):
-    """Kernel I at the serve shapes (H=32, K=8, d=128, block 128, 16 blocks
-    a slot): a t=1 tile over 8 slots at kernel A's pasts (38-1101, two
-    empty), and a t=700 tile over 4 slots from position 0 (phase 7's
+def tile_checks(torch, pa, KERNELS, H=32, K=8, d=128, suffix="", seed=9012):
+    """Kernel I at the serve shapes (H=32, K=8, d=128 by default, block 128,
+    16 blocks a slot): a t=1 tile over 8 slots at kernel A's pasts (38-1101,
+    two empty), and a t=700 tile over 4 slots from position 0 (phase 7's
     prompt step). Held per 64-row tile, slot and head (:func:`close_tiles`):
     late causal rows average hundreds of columns and are small, so one
-    tensor-wide tolerance would let a fault in the late columns pass."""
+    tensor-wide tolerance would let a fault in the late columns pass. The
+    rows' keys end in ``suffix``."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9012)
-    H, K, d, bs, nb_max, n_slots = 32, 8, 128, 128, 16, 8
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bs, nb_max, n_slots = 128, 16, 8
     nbp1 = n_slots * nb_max + 1
     kpool, vpool = (make_pool(torch, g, 2, nbp1, bs, K * d, dev) for _ in "kv")
     bt = torch.randperm(nbp1 - 1, generator=g, device=dev).to(
@@ -807,13 +844,13 @@ def tile_checks(torch, pa, KERNELS):
         btb = bt[:B].contiguous()
         out = pa.paged_attention(q, kpool, vpool, btb, ps, layer=layer)
         ref = pa.plain_paged_attention(q, kpool, vpool, btb, ps, layer=layer)
-        tiles = {"out": close_tiles(f"I out (t={t})", out, ref)}
+        tiles = {"out": close_tiles(f"I out (t={t}{suffix})", out, ref)}
         cols = sum(min(p + t, S) for p in pos)       # KV rows read per slot
         pairs = sum(min(p + i, S - 1) + 1 for p in pos for i in range(t))
         nbytes = cols * K * d * 2 * 2 + (q.numel() + out.numel()) * 2
         args, _ = pa.paged_tile_kernel_args(q, kpool, vpool, btb, ps,
                                             layer=layer)
-        rows[key] = dict(
+        rows[key + suffix] = dict(
             err=tiles["out"][0], tiles=tiles,
             bound=bound(nbytes, 4 * H * d * pairs), library_ms=None,
             **timings(KERNELS["paged_tile"], args,
@@ -821,7 +858,7 @@ def tile_checks(torch, pa, KERNELS):
                                                  layer=layer),
                       lambda: pa.plain_paged_attention(q, kpool, vpool, btb,
                                                        ps, layer=layer)),
-            shape=f"B={B} t={t}, H=32 K=8 d=128 bs=128, pos "
+            shape=f"B={B} t={t}, H={H} K={K} d={d} bs=128, pos "
                   + ",".join(map(str, pos)))
         del q, out, ref, args
     return rows
@@ -898,6 +935,9 @@ def probe_checks(torch, pa, KERNELS, reset_counts):
     from deepspeed_tpu_torch.tools import hbm_bandwidth as hb
 
     rows = tile_checks(torch, pa, KERNELS)
+    for sfx, H, K, d in HEAD_DIM_SHAPES:
+        rows.update(tile_checks(torch, pa, KERNELS, H, K, d, sfx,
+                                seed=9012 + d))
     rows.update(rms_checks(torch, rn, KERNELS))
     rows.update(stream_checks(torch, hb, KERNELS))
     torch.cuda.synchronize()
@@ -975,7 +1015,10 @@ class Replay:
             setattr(mod, attr, getattr(mod, attr).__wrapped__)
 
     def kernel_of(self, target, x):
-        """The kernel a call of ``target``'s wrapper launched (None: none)."""
+        """The kernel a call of ``target``'s wrapper launched (None: none):
+        A's and B's wrappers over an int pool launch its int mode."""
+        if x.get("kv_scale") is not None:
+            return f"{target}_int{x['kv_bits']}"
         return target
 
     def _wanted(self, target, name, x) -> bool:
@@ -1928,6 +1971,259 @@ def train(torch, fa, KERNELS, reset_counts):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: head dims 96 and 256 -- phi3-mini and pythia-1b served and trained
+# ---------------------------------------------------------------------------
+
+# each preset with the int pool it is served over beside its bf16 one: the
+# two presets run both of A's and B's int modes at a new head dim
+HEAD_DIM_PRESETS = (("phi3-mini", "int8"), ("pythia-1b", "int4"))
+# layers trained at full width (None: the preset's depth): phi3-mini's fp32
+# master weights and AdamW state alone take ~61 GB at its 32 layers
+HEAD_DIM_TRAIN_LAYERS = {"phi3-mini": 2, "pythia-1b": None}
+HEAD_DIM_TRAIN_STEPS = 3
+HEAD_DIM_DENSE_PUTS = 4
+
+
+def head_dim_serve(torch, pa, fa, KERNELS, reset_counts, name, int_kv):
+    """``InferenceEngineV2`` on ``name`` at full width and depth (seed-0 bf16
+    weights rescaled by :func:`attention_heavy`; max_seq_len 2048, 8 slots,
+    block 128), once over a bf16 pool and once over ``int_kv``, each engine
+    on phase 4's traffic under a :class:`Replay` of the path's first
+    launches (A, B, C, D or A's and B's int modes), then freed. Gates:
+    finite logits, valid tokens, every kernel of the path launched, the
+    replays, and (bf16 pool) the 1100-token prompt chunked against a whole-
+    prompt ``put`` at ``CROSS_PATH_REL_L2``. Returns launches per kernel."""
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+    from deepspeed_tpu_torch.models.spec import num_params
+
+    cfg = get_preset(name, param_dtype="bfloat16")
+    model = TransformerLM(cfg)
+    tree = serve_params(torch, cfg)
+    V = cfg.vocab_size
+    firsts, fresh = serve_prompts(V)
+    card = torch.cuda.get_device_name(0)
+    log(f"head-dims serve: {name} D={cfg.hidden_size} L={cfg.num_layers} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} d={cfg.head_dim} "
+        f"F={cfg.intermediate_size} V={V} ({cfg.arch}, rope_pct "
+        f"{cfg.rope_pct}, parallel block {cfg.parallel_block}): "
+        f"{num_params(tree) / 1e9:.3f}B params")
+    total = {}
+    for kv in ("bf16", int_kv):
+        free_card(torch, "cuda")
+        eng = InferenceEngineV2(model, tree, max_sequences=8,
+                                max_seq_len=2048, block_size=128,
+                                device="cuda", kv_dtype=kv)
+        tail = "" if kv == "bf16" else f"_{kv}"
+        dec, past = f"paged_decode{tail}", f"paged_past{tail}"
+        path = (dec, past, "chunk_self", "flash_fwd")
+        torch.cuda.synchronize()
+        reset_counts()
+        replay = Replay(torch, pa, fa)
+        replay.REQUIRED = {(dec, "put"), (past, "put"), ("chunk_self", "put"),
+                           ("flash_fwd", "put"), (dec, "decode_batch")}
+        with replay:
+            replay.stage = "put"
+            t = time.perf_counter()
+            out1 = eng.put([0, 1, 2, 3], firsts)
+            dt_prefill = time.perf_counter() - t
+            check_logits(out1, V)
+            nxt = [int(np.argmax(out1[u])) for u in range(4)]
+            t = time.perf_counter()
+            out2 = eng.put([0, 1, 2, 3, 4, 5],
+                           [np.array([x], np.int32) for x in nxt] + fresh)
+            dt_mixed = time.perf_counter() - t
+            check_logits(out2, V)
+            nxt = [int(np.argmax(out2[u])) for u in range(6)]
+            replay.stage = "decode_batch"
+            t = time.perf_counter()
+            toks = eng.decode_batch(list(range(6)), nxt, steps=32)
+            dt_decode = time.perf_counter() - t
+        counts = {k: KERNELS[k].launches for k in path}
+        for u, tk in toks.items():
+            if tk.shape != (32,) or tk.min() < 0 or tk.max() >= V:
+                raise AssertionError(f"head-dims {name} {kv}: uid {u}: bad "
+                                     f"decoded tokens {tk}")
+        missing = [k for k, c in counts.items() if c == 0]
+        if missing:
+            raise AssertionError(f"head-dims {name} {kv}: kernels never "
+                                 f"launched: {missing} (counts {counts})")
+        cross = ""
+        if kv == "bf16":
+            whole = eng.put([6], [fresh[1]])[6]
+            rel = rel_l2(out2[5], whole)
+            cross = (f"; 1100-token prompt chunked vs whole, last logits rel "
+                     f"L2 {rel:.3e} (gate {CROSS_PATH_REL_L2})")
+            if not rel <= CROSS_PATH_REL_L2:
+                raise AssertionError(f"head-dims {name}: cross-path rel L2 "
+                                     f"{rel} > {CROSS_PATH_REL_L2}")
+        errs = replay.check()
+        log(f"head-dims serve {name} kv_dtype={kv}: launches {counts}; "
+            f"captured launches replayed vs plain, max abs err {errs}{cross}")
+        n_prefill = sum(len(p) for p in firsts)
+        n_mixed = 4 + sum(len(p) for p in fresh)
+        log(f"head-dims serve {name} kv_dtype={kv} [{card}]: whole-prompt "
+            f"prefill {n_prefill / dt_prefill:.1f} tokens/s "
+            f"({dt_prefill * 1e3:.1f} ms), mixed chunked step "
+            f"{n_mixed / dt_mixed:.1f} tokens/s ({dt_mixed * 1e3:.1f} ms), "
+            f"decode_batch {6 * 32 / dt_decode:.1f} tokens/s (6 x 32, "
+            f"{dt_decode * 1e3:.1f} ms)")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        del eng, replay
+    del tree
+    free_card(torch, "cuda")
+    return total
+
+
+def head_dim_dense(torch, pa, KERNELS, reset_counts, name):
+    """Kernel I's engine (``packed=False``) against the packed engine at 2
+    layers of ``name``'s width (seed-0 weights at the init scale): phase
+    4's four prompts in one ``put``, then ``HEAD_DIM_DENSE_PUTS``
+    single-token ``put`` steps fed the packed engine's argmax; every logits
+    vector within ``DENSE_REL_L2`` (relative L2) of the packed engine's and
+    I's first launch replayed per 64-row tile. Returns I's launches."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+
+    cfg = dataclasses.replace(get_preset(name, param_dtype="bfloat16"),
+                              num_layers=2)
+    model = TransformerLM(cfg)
+    tree = model.init(seed=0, device="cuda")
+    firsts, _ = serve_prompts(cfg.vocab_size)
+    kw = dict(max_sequences=8, max_seq_len=2048, block_size=128)
+    eng = dense_engine(torch, model, tree, f"{name} packed", "cuda", **kw)
+    want, feeds, _, _ = dense_traffic(eng, firsts, HEAD_DIM_DENSE_PUTS)
+    del eng
+    eng = dense_engine(torch, model, tree, f"{name} (a)", "cuda",
+                       packed=False, **kw)
+    reset_counts()
+    replay = DenseReplay(torch, pa, None)
+    with replay:
+        replay.stage = "put"
+        got, _, _, _ = dense_traffic(eng, firsts, HEAD_DIM_DENSE_PUTS, feeds)
+    launches = KERNELS["paged_tile"].launches
+    for outs in got:
+        check_logits(outs, cfg.vocab_size)
+    rel = max_rel_l2(got, want)
+    errs = replay.check()
+    del eng, replay, tree
+    free_card(torch, "cuda")
+    log(f"head-dims dense {name} at 2 layers: packed=False (kernel I, "
+        f"{launches} launches) vs the packed engine, rel L2 {rel:.3e} (gate "
+        f"{DENSE_REL_L2}); I's first launch replayed vs plain {errs}")
+    if not rel <= DENSE_REL_L2:
+        raise AssertionError(f"head-dims dense {name}: rel L2 {rel} > "
+                             f"{DENSE_REL_L2}")
+    if not launches:
+        raise AssertionError(f"head-dims dense {name}: kernel I never "
+                             f"launched")
+    return {"paged_tile": launches}
+
+
+def head_dim_train(torch, fa, KERNELS, reset_counts, name):
+    """``initialize`` on ``name`` at full width (depth
+    ``HEAD_DIM_TRAIN_LAYERS``), max_seq_len 2048, random fp32 master weights
+    from seed 0, bf16 compute, phase 5's config at micro-batch 2 and GA 1:
+    ``HEAD_DIM_TRAIN_STEPS`` ``train_batch`` steps on one numpy-seeded
+    micro-batch [2, 2048] under a :class:`TrainReplay` of D, E and F. Gates:
+    finite losses and grad norms, the last loss below the first, D, E and F
+    launched, the replays; then the per-leaf gradient cross-check (kernels
+    vs plain attention) at 2 layers of the same width at ``GRAD_REL_L2``.
+    Returns launches per kernel."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+    from deepspeed_tpu_torch.models.spec import num_params
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG, TRAIN_SEQ
+
+    cfg = get_preset(name, max_seq_len=TRAIN_SEQ)
+    if HEAD_DIM_TRAIN_LAYERS[name]:
+        cfg = dataclasses.replace(cfg, num_layers=HEAD_DIM_TRAIN_LAYERS[name])
+    micro = 2
+    eng, *_ = tds.initialize(TransformerLM(cfg), dict(
+        TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+        gradient_accumulation_steps=1))
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (micro, TRAIN_SEQ)).astype(np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    reset_counts()
+    with TrainReplay(torch, fa) as replay:
+        replay.stage = "train"
+        for _ in range(HEAD_DIM_TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(eng.train_batch(itertools.repeat(batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            norms.append(eng.get_global_grad_norm())
+    counts = {k: KERNELS[k].launches for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = num_params(eng.params)
+    log(f"head-dims train {name} D={cfg.hidden_size} L={cfg.num_layers} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} d={cfg.head_dim}: "
+        f"{n / 1e9:.3f}B params, losses {losses}, grad norms {norms}, "
+        f"launches {counts}, peak memory {peak:.1f} GB, step ms "
+        f"{[round(x * 1e3, 1) for x in step_s]} "
+        f"[{torch.cuda.get_device_name(0)}]")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"head-dims train {name}: non-finite loss or "
+                             f"grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"head-dims train {name}: last loss "
+                             f"{losses[-1]} not below the first {losses[0]}")
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"head-dims train {name}: kernels never "
+                             f"launched: {missing} (counts {counts})")
+    errs = replay.check()
+    log(f"head-dims train {name}: captured launches replayed vs plain, max "
+        f"abs err {errs}; (max abs err, max |plain|, worst {TILE}-row tile "
+        f"err / tile max |plain|) {replay.tiles} (gate {BWD_REL})")
+    del eng, replay
+    free_card(torch, "cuda")
+    model = TransformerLM(dataclasses.replace(cfg, num_layers=2))
+    params = model.init(seed=0, device="cuda")
+    ids = {"input_ids": torch.from_numpy(batch["input_ids"]).cuda()}
+    rel = grad_rel_l2(torch, fa, model, params, ids)
+    del params
+    free_card(torch, "cuda")
+    log(f"head-dims train {name}: gradient cross-check at 2 layers, kernels "
+        f"vs plain attention, rel L2 {rel} (gate {GRAD_REL_L2})")
+    bad = {k: r for k, r in rel.items() if not r <= GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"head-dims train {name}: gradient cross-check "
+                             f"rel L2 {bad} > {GRAD_REL_L2}")
+    return counts
+
+
+def head_dims(torch, pa, fa, KERNELS, reset_counts):
+    """Phase 8: each of ``HEAD_DIM_PRESETS`` served (:func:`head_dim_serve`),
+    its dense-tile engine checked (:func:`head_dim_dense`) and trained
+    (:func:`head_dim_train`). Every attention kernel runs here at d = 96
+    or d = 256 and must launch. Returns the phase's launches per kernel."""
+    total = {}
+    for name, int_kv in HEAD_DIM_PRESETS:
+        for counts in (
+                head_dim_serve(torch, pa, fa, KERNELS, reset_counts, name,
+                               int_kv),
+                head_dim_dense(torch, pa, KERNELS, reset_counts, name),
+                head_dim_train(torch, fa, KERNELS, reset_counts, name)):
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+    want = {"paged_decode", "paged_decode_int8", "paged_decode_int4",
+            "paged_past", "paged_past_int8", "paged_past_int4", "chunk_self",
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_tile"}
+    missing = sorted(k for k in want if not total.get(k))
+    if missing:
+        raise AssertionError(f"head-dims: kernels never launched {missing}")
+    log(f"head-dims: launches {total}")
+    return total
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -1955,6 +2251,9 @@ def main() -> int:
     build_reports(_build)
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
+    for sfx, H, K, d in HEAD_DIM_SHAPES:
+        rows.update(kernel_checks(torch, pa, fa, _build.KERNELS, H, K, d, sfx,
+                                  seed=1234 + d))
     rows.update(qmm_checks(torch, qm, _build.KERNELS))
     rows.update(backward_checks(torch, fa, _build.KERNELS))
     probe_rows, probed, _ = probe_checks(torch, pa, _build.KERNELS,
@@ -1972,6 +2271,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense = serve_dense(torch, pa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    head = head_dims(torch, pa, fa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -2002,7 +2304,8 @@ def main() -> int:
                                              ("serve", served),
                                              ("train", trained),
                                              ("serve_quant", quant),
-                                             ("serve_dense", dense))
+                                             ("serve_dense", dense),
+                                             ("head_dims", head))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),
@@ -2021,9 +2324,10 @@ def main() -> int:
             e["variants"] = {k.split("/", 1)[1]: entry(rows[k])
                              for k in variants[1:]}
         else:                                # E, F: training shape, d=128
-            e.update(entry(rows[f"{name}/train"]))
+            e.update(entry(rows[f"{name}/train"]))   # then d=96 and d=256
             e["library"] = rows[f"{name}/train"]["library"]
-            e["at_d128"] = entry(rows[f"{name}/d128"])
+            for tag in ("d128", "d96", "d256"):
+                e[f"at_{tag}"] = entry(rows[f"{name}/{tag}"])
         kernels.append(e)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

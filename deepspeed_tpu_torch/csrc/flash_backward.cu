@@ -35,15 +35,23 @@
 //     warp's own kv rows as its M dimension), E 64 query rows;
 //   * the rows a CTA owns are copied once and held as mma A fragments in
 //     registers for the whole walk (E: Q and dO; F: K and V at d = 64, which
-//     re-reads them from shared memory at d = 128, where they do not fit), with
-//     their fp32 accumulators (F: dK and dV; E: dQ) and row statistics (E:
-//     lse and delta of the thread's two rows); they are scaled and written
-//     once, staged through the CTA's own rows for 16-byte stores;
+//     re-reads them from shared memory at d = 96 and 128, where they do not
+//     fit), with their fp32 accumulators (F: dK and dV; E: dQ) and row
+//     statistics (E: lse and delta of the thread's two rows); they are scaled
+//     and written once, staged through the CTA's own rows for 16-byte stores;
+//   * d = 256 keeps the same tiles with less in registers: each kernel
+//     splits its accumulators' columns over two CTAs (grid x = 2 H for E,
+//     2 K for F), each recomputing the whole S and dP (their sums run over
+//     all of d) and accumulating 128 columns of dQ, or of dK and dV -- 5/3x
+//     E's and 3/2x F's products, no atomics; E re-reads Q's and dO's
+//     fragments from a shared tile of their own; S and dP are taken 16
+//     columns at a time; both rings have two stages (E 202752, F 203776
+//     bytes of shared memory: one CTA an SM);
 //   * S and dP live in registers only: p and ds are computed from the
 //     accumulators and packed into bf16 A fragments for dV += P^T dO, dK +=
 //     dS^T Q (F) and dQ += dS K (E), whose B operands come by ldmatrix.trans;
-//     at d = 128 a tile's columns are taken 32 at a time, so that S and dP
-//     fit beside the accumulators;
+//     at d = 96 and 128 a tile's columns are taken 32 at a time (16 at
+//     d = 256), so that S and dP fit beside the accumulators;
 //   * the streamed operands arrive through a cp.async ring, one barrier a
 //     tile: E streams K/V tiles over its live column range (Q and dO lie in
 //     the ring's last stage, as Q does in kernel D); F streams (Q, dO, lse,
@@ -65,25 +73,35 @@
 namespace dst {
 
 constexpr int BT = 64;  // rows of a tile: a CTA's own, and a streamed one's
-// WARPS warps of 16 rows a CTA, STAGES tiles in a ring, MINB CTAs per SM
-// for __launch_bounds__ (F at d = 128 runs one: its shared memory)
-constexpr int WARPS = 4, NT = WARPS * 32, STAGES = 3, MINB = 2;
-static_assert(STAGES >= 2, "a ring");
+// WARPS warps of 16 rows a CTA, MINB CTAs per SM for __launch_bounds__ (F
+// at d = 128 and both kernels at d = 256 run one: their shared memory)
+constexpr int WARPS = 4, NT = WARPS * 32, MINB = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct BwdTiles {
   static constexpr int LD = HD + 8;       // bf16 row pitch: 16 bytes of skew
   static constexpr int TILE = BT * LD;    // elements of one [64, HD] tile
-  static constexpr int SUB = HD == 64 ? 64 : 32;  // columns of S and dP held at once
-  // F holds K's and V's fragments in registers at d = 64; at d = 128 it
+  static constexpr bool WIDE = HD > 128;  // d = 256
+  static constexpr int STAGES = WIDE ? 2 : 3;      // tiles in a ring
+  // columns of S and dP held at once (d = 256: 16, beside 128 accumulators)
+  static constexpr int SUB = HD == 64 ? 64 : WIDE ? 16 : 32;
+  // F holds K's and V's fragments in registers at d = 64; from d = 96 on it
   // re-reads them from shared memory each tile (its registers are full)
   static constexpr bool KV_REGS = HD == 64;
-  // E: a ring of (K, V) tile pairs; Q and dO lie in the last stage
-  static constexpr size_t E_BYTES = size_t(STAGES) * 2 * TILE * sizeof(bf16);
+  // E holds Q's and dO's fragments in registers up to d = 128
+  static constexpr bool QD_REGS = !WIDE;
+  // accumulator columns a CTA (DSPLIT CTAs a row tile): E's dQ, F's dK, dV
+  static constexpr int DCOLS = WIDE ? HD / 2 : HD;
+  static constexpr int DSPLIT = HD / DCOLS;
+  // E: a ring of (K, V) tile pairs; Q and dO lie in the last stage (QD_REGS)
+  // or after the ring
+  static constexpr size_t E_BYTES =
+      size_t(QD_REGS ? STAGES : STAGES + 1) * 2 * TILE * sizeof(bf16);
   // F: its K and V tiles, then a ring of (Q, dO, lse, delta) stages
   static constexpr size_t F_STAGE = 2 * TILE * sizeof(bf16) + 2 * BT * sizeof(float);
   static constexpr size_t F_BYTES = 2 * TILE * sizeof(bf16) + STAGES * F_STAGE;
+  static_assert(STAGES >= 2, "a ring");
   static_assert(F_STAGE % 128 == 0, "stages stay 128-byte aligned");
 };
 
@@ -154,45 +172,47 @@ __device__ __forceinline__ void scores_of(float (&s)[NC / 8][4],
   } else {
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
+    // d = 256: two k steps an iteration
+    unrolled<HD / 16, (HD > 128 ? 2 : HD / 16)>([&](int kd) {
       uint32_t f[4];
       a_frag<HD>(f, own, warp, kd, lane);
       scores_step<HD, NC>(s, f, rows, kd, lane);
-    }
+    });
   }
 }
 
-// acc[16, HD] += A[16, 16] B[16, HD]: A packed from the k16 step's two n8
-// accumulator tiles x[0], x[1] (columns 2t, 2t + 1 of rows g, g + 8 each), B
-// rows k0 .. k0 + 15 of a [*, HD] bf16 tile (row-major [k, n]: ldmatrix.trans).
-template <int HD>
-__device__ __forceinline__ void acc_product(float (&acc)[HD / 8][4], const float (&x0)[4],
+// acc[16, NCOL] += A[16, 16] B[16, col0 .. col0 + NCOL): A packed from the k16
+// step's two n8 accumulator tiles x[0], x[1] (columns 2t, 2t + 1 of rows g,
+// g + 8 each), B rows k0 .. k0 + 15 of a [*, HD] bf16 tile (row-major [k, n]:
+// ldmatrix.trans).
+template <int HD, int NCOL>
+__device__ __forceinline__ void acc_product(float (&acc)[NCOL / 8][4], const float (&x0)[4],
                                             const float (&x1)[4], const bf16* rows, int k0,
-                                            int lane) {
+                                            int col0, int lane) {
   constexpr int LD = HD + 8;
   const uint32_t a[4] = {pack_bf16(x0[0], x0[1]), pack_bf16(x0[2], x0[3]),
                          pack_bf16(x1[0], x1[1]), pack_bf16(x1[2], x1[3])};
 #pragma unroll
-  for (int dn = 0; dn < HD / 16; ++dn) {
+  for (int dn = 0; dn < NCOL / 16; ++dn) {
     // matrices: (k 0..7, n dn*16 .. +7), (k 8..15, n), (k, n +8), (k +8, n +8)
     uint32_t b[4];
-    ldsm_x4_trans(b, smem_u32(rows + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dn * 16 +
-                              (lane >> 4) * 8));
+    ldsm_x4_trans(b, smem_u32(rows + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + col0 +
+                              dn * 16 + (lane >> 4) * 8));
     mma_bf16(acc[2 * dn], a, b[0], b[1]);
     mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
   }
 }
 
-// Write a warp's 16 rows of an fp32 accumulator, times mul, as bf16 into rows
-// warp*16 .. of a [64, HD] tile in shared memory (for 16-byte stores).
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[HD / 8][4], float mul,
-                                           int warp, int lane) {
+// Write a warp's 16 rows of an fp32 accumulator of NCOL columns, times mul,
+// as bf16 into columns col0 .. of rows warp*16 .. of a [64, HD] tile in
+// shared memory (for 16-byte stores).
+template <int HD, int NCOL>
+__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[NCOL / 8][4],
+                                           float mul, int col0, int warp, int lane) {
   constexpr int LD = HD + 8;
-  const int r = warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+  const int r = warp * 16 + (lane >> 2), c = col0 + 2 * (lane & 3);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < NCOL / 8; ++n) {
     *reinterpret_cast<uint32_t*>(tile + r * LD + n * 8 + c) =
         pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
     *reinterpret_cast<uint32_t*>(tile + (r + 8) * LD + n * 8 + c) =
@@ -200,19 +220,19 @@ __device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[HD / 8
   }
 }
 
-// Rows warp*16 .. of a staged [64, HD] tile to global rows row0 + r (pitch
-// ld elements), r < n, 16 bytes a lane.
-template <int HD>
+// Columns col0 .. col0 + NCOL of rows warp*16 .. of a staged [64, HD] tile to
+// global rows row0 + r (pitch ld elements), r < n, 16 bytes a lane.
+template <int HD, int NCOL>
 __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int row0, int n,
-                                           const bf16* tile, int warp, int lane) {
-  constexpr int CH = HD / 8;
+                                           const bf16* tile, int col0, int warp, int lane) {
+  constexpr int CH = NCOL / 8;
 #pragma unroll
   for (int it = 0; it < 16 * CH / 32; ++it) {
     const int idx = lane + it * 32;
-    const int r = warp * 16 + idx / CH, c = idx % CH;
+    const int r = warp * 16 + idx / CH, c = col0 + (idx % CH) * 8;
     if (r < n)
-      *reinterpret_cast<uint4*>(dst + size_t(row0 + r) * ld + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + r * (HD + 8) + c * 8);
+      *reinterpret_cast<uint4*>(dst + size_t(row0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(tile + r * (HD + 8) + c);
   }
 }
 
@@ -220,23 +240,30 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int row0, int n
 // E: dq. A CTA owns 64 query rows of one head; a warp 16 of them.
 // ---------------------------------------------------------------------------
 
+// E's Q or dO fragments (a placeholder where it re-reads them)
+template <int HD>
+using QdFrags = uint32_t[BwdTiles<HD>::QD_REGS ? HD / 16 : 1][4];
+
 // One 64-column K/V tile: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K. EDGE: the
 // tile crosses the causal diagonal, the window's edge or c_hi for some of
-// the warp's rows; masked entries get p = ds = 0.
+// the warp's rows; masked entries get p = ds = 0. Q's and dO's fragments:
+// qf, dof, or the warp's rows of the shared tiles Qs, dOs.
 template <int HD, bool EDGE>
 __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* ks, const bf16* vs,
-                                        const uint32_t (&qf)[HD / 16][4],
-                                        const uint32_t (&dof)[HD / 16][4],
-                                        float (&dq)[HD / 8][4], const float (&lse2)[2],
-                                        const float (&delta)[2], int c0, int c_hi, int t_row,
-                                        float scale2, int lane) {
-  constexpr int SUB = BwdTiles<HD>::SUB, LD = HD + 8;
+                                        const QdFrags<HD>& qf, const QdFrags<HD>& dof,
+                                        const bf16* Qs, const bf16* dOs,
+                                        float (&dq)[BwdTiles<HD>::DCOLS / 8][4],
+                                        const float (&lse2)[2], const float (&delta)[2],
+                                        int c0, int c_hi, int t_row, int col0, float scale2,
+                                        int warp, int lane) {
+  using Tl = BwdTiles<HD>;
+  constexpr int SUB = Tl::SUB, LD = HD + 8;
   const int tq = lane & 3;
 #pragma unroll
   for (int sb = 0; sb < BT / SUB; ++sb) {
     float s[SUB / 8][4], dp[SUB / 8][4];
-    scores<HD, SUB>(s, qf, ks + sb * SUB * LD, lane);
-    scores<HD, SUB>(dp, dof, vs + sb * SUB * LD, lane);
+    scores_of<HD, SUB, Tl::QD_REGS>(s, qf, Qs, ks + sb * SUB * LD, warp, lane);
+    scores_of<HD, SUB, Tl::QD_REGS>(dp, dof, dOs, vs + sb * SUB * LD, warp, lane);
 #pragma unroll
     for (int j = 0; j < SUB / 8; ++j) {
 #pragma unroll
@@ -252,19 +279,25 @@ __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* ks, const 
     }
 #pragma unroll
     for (int k = 0; k < SUB / 16; ++k)
-      acc_product<HD>(dq, dp[2 * k], dp[2 * k + 1], ks, sb * SUB + k * 16, lane);
+      acc_product<HD, Tl::DCOLS>(dq, dp[2 * k], dp[2 * k + 1], ks, sb * SUB + k * 16, col0,
+                                 lane);
   }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(NT, MINB) flash_bwd_dq_kernel(const BwdArgs a) {
   using Tl = BwdTiles<HD>;
+  constexpr int STAGES = Tl::STAGES;
+  constexpr bool QD = Tl::QD_REGS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // stage s: K at 2 s TILE, V after it
-  bf16* Qs = ring + (STAGES - 1) * 2 * Tl::TILE;
+  bf16* Qs = ring + (QD ? STAGES - 1 : STAGES) * 2 * Tl::TILE;
   bf16* dOs = Qs + Tl::TILE;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int DC = Tl::DCOLS;
+  // head h, dQ's columns col0 .. col0 + DC
+  const int h = blockIdx.x / Tl::DSPLIT, col0 = (blockIdx.x % Tl::DSPLIT) * DC;
+  const int b = blockIdx.y;
   const int t0 = (gridDim.z - 1 - blockIdx.z) * BT;  // longest causal tiles first
   const int nrows = min(BT, a.T - t0);
   const int kvh = h / (a.H / a.K);
@@ -311,17 +344,19 @@ __global__ void __launch_bounds__(NT, MINB) flash_bwd_dq_kernel(const BwdArgs a)
   const int t_row = t0 + r0;                                     // the thread's row g
   const int w_lo = t0 + warp * 16 + a.rel, w_hi = w_lo + 15;    // the warp's positions
 
-  uint32_t qf[HD / 16][4], dof[HD / 16][4];
-  float dq[HD / 8][4];
+  QdFrags<HD> qf, dof;
+  float dq[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  if (ntiles > 0) {  // Q's and dO's fragments, before any warp may refill their stage
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
+  for (int n = 0; n < DC / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  if constexpr (QD) {
+    if (ntiles > 0) {  // Q's and dO's fragments, before any warp may refill their stage
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
 #pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
-      a_frag<HD>(qf[kd], Qs, warp, kd, lane);
-      a_frag<HD>(dof[kd], dOs, warp, kd, lane);
+      for (int kd = 0; kd < HD / 16; ++kd) {
+        a_frag<HD>(qf[kd], Qs, warp, kd, lane);
+        a_frag<HD>(dof[kd], dOs, warp, kd, lane);
+      }
     }
   }
   for (int i = 0; i < ntiles; ++i) {
@@ -333,16 +368,18 @@ __global__ void __launch_bounds__(NT, MINB) flash_bwd_dq_kernel(const BwdArgs a)
     const bf16* vs = ks + Tl::TILE;
     if (c0 + BT > c_hi || (a.causal && c0 + BT - 1 > w_lo) ||
         (a.window > 0 && c0 < w_hi - (a.window - 1)))
-      dq_tile<HD, true>(a, ks, vs, qf, dof, dq, lse2, delta, c0, c_hi, t_row, scale2, lane);
+      dq_tile<HD, true>(a, ks, vs, qf, dof, Qs, dOs, dq, lse2, delta, c0, c_hi, t_row, col0,
+                        scale2, warp, lane);
     else
-      dq_tile<HD, false>(a, ks, vs, qf, dof, dq, lse2, delta, c0, c_hi, t_row, scale2, lane);
+      dq_tile<HD, false>(a, ks, vs, qf, dof, Qs, dOs, dq, lse2, delta, c0, c_hi, t_row, col0,
+                         scale2, warp, lane);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is idle: stage dQ in the warp's own Q rows
 
-  stage_rows<HD>(Qs, dq, a.scale, warp, lane);
+  stage_rows<HD, DC>(Qs, dq, a.scale, col0, warp, lane);
   __syncwarp();
-  store_rows<HD>(a.dq + q_off, q_ld, t0, nrows, Qs, warp, lane);
+  store_rows<HD, DC>(a.dq + q_off, q_ld, t0, nrows, Qs, col0, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -350,16 +387,19 @@ __global__ void __launch_bounds__(NT, MINB) flash_bwd_dq_kernel(const BwdArgs a)
 // ---------------------------------------------------------------------------
 
 // One streamed tile of 64 query rows (Q, dO, and their lse and delta): S^T =
-// K Q^T, P^T, dP^T = V dO^T, dS^T, dV += P^T dO, dK += dS^T Q. EDGE: the tile
-// crosses the causal diagonal, the window's edge or t_hi for some of the
-// warp's kv rows; masked entries get p = ds = 0.
+// K Q^T, P^T, dP^T = V dO^T, dS^T, then the CTA's columns col0 .. col0 +
+// DCOLS of dV += P^T dO and dK += dS^T Q. EDGE: the tile crosses the causal
+// diagonal, the window's edge or t_hi for some of the warp's kv rows; masked
+// entries get p = ds = 0.
 template <int HD, bool EDGE>
 __device__ __forceinline__ void dkv_tile(const BwdArgs& a, const bf16* qs, const bf16* dos,
                                          const float* lse_s, const float* delta_s,
                                          const KvFrags<HD>& kf, const KvFrags<HD>& vf,
-                                         const bf16* Ks, const bf16* Vs, float (&dk)[HD / 8][4],
-                                         float (&dv)[HD / 8][4], int t0, int t_hi, int c_row,
-                                         float scale2, int warp, int lane) {
+                                         const bf16* Ks, const bf16* Vs,
+                                         float (&dk)[BwdTiles<HD>::DCOLS / 8][4],
+                                         float (&dv)[BwdTiles<HD>::DCOLS / 8][4], int t0,
+                                         int t_hi, int c_row, int col0, float scale2, int warp,
+                                         int lane) {
   using Tl = BwdTiles<HD>;
   constexpr int SUB = Tl::SUB, LD = HD + 8;
   const int tq = lane & 3;
@@ -388,8 +428,8 @@ __device__ __forceinline__ void dkv_tile(const BwdArgs& a, const bf16* qs, const
     }
 #pragma unroll
     for (int k = 0; k < SUB / 16; ++k) {
-      acc_product<HD>(dv, s[2 * k], s[2 * k + 1], dorows, k * 16, lane);
-      acc_product<HD>(dk, dp[2 * k], dp[2 * k + 1], qrows, k * 16, lane);
+      acc_product<HD, Tl::DCOLS>(dv, s[2 * k], s[2 * k + 1], dorows, k * 16, col0, lane);
+      acc_product<HD, Tl::DCOLS>(dk, dp[2 * k], dp[2 * k + 1], qrows, k * 16, col0, lane);
     }
   }
 }
@@ -397,12 +437,15 @@ __device__ __forceinline__ void dkv_tile(const BwdArgs& a, const bf16* qs, const
 template <int HD>
 __global__ void __launch_bounds__(NT, MINB) flash_bwd_dkv_kernel(const BwdArgs a) {
   using Tl = BwdTiles<HD>;
+  constexpr int STAGES = Tl::STAGES, DC = Tl::DCOLS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + Tl::TILE;
   unsigned char* ring = smem + 2 * Tl::TILE * sizeof(bf16);  // stage: Q, dO, lse, delta
 
-  const int kk = blockIdx.x, b = blockIdx.y, c0 = blockIdx.z * BT;
+  // kv head kk, its columns col0 .. col0 + DC of dK and dV
+  const int kk = blockIdx.x / Tl::DSPLIT, col0 = (blockIdx.x % Tl::DSPLIT) * DC;
+  const int b = blockIdx.y, c0 = blockIdx.z * BT;
   const int rep = a.H / a.K;
   const int nc = min(BT, a.S - c0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -442,9 +485,9 @@ __global__ void __launch_bounds__(NT, MINB) flash_bwd_dkv_kernel(const BwdArgs a
   for (int i = 0; i < STAGES - 1; ++i) issue(i);  // K and V ride in the first group
 
   KvFrags<HD> kf, vf;
-  float dk[HD / 8][4], dv[HD / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   cp_async_wait<STAGES - 2>();
@@ -474,19 +517,19 @@ __global__ void __launch_bounds__(NT, MINB) flash_bwd_dkv_kernel(const BwdArgs a
     if (t0 + BT > t_hi || (a.causal && t0 + a.rel < cw + 15) ||
         (a.window > 0 && t0 + BT - 1 + a.rel - cw > a.window - 1))
       dkv_tile<HD, true>(a, qs, dos, lse_s, delta_s, kf, vf, Ks, Vs, dk, dv, t0, t_hi, c_row,
-                         scale2, warp, lane);
+                         col0, scale2, warp, lane);
     else
       dkv_tile<HD, false>(a, qs, dos, lse_s, delta_s, kf, vf, Ks, Vs, dk, dv, t0, t_hi, c_row,
-                          scale2, warp, lane);
+                          col0, scale2, warp, lane);
   }
   cp_async_wait<0>();
 
   // a warp reads only its own rows of K and V: stage dK and dV there
-  stage_rows<HD>(Ks, dk, a.scale, warp, lane);
-  stage_rows<HD>(Vs, dv, 1.f, warp, lane);
+  stage_rows<HD, DC>(Ks, dk, a.scale, col0, warp, lane);
+  stage_rows<HD, DC>(Vs, dv, 1.f, col0, warp, lane);
   __syncwarp();
-  store_rows<HD>(a.dk + kv_off, kv_ld, c0, nc, Ks, warp, lane);
-  store_rows<HD>(a.dv + kv_off, kv_ld, c0, nc, Vs, warp, lane);
+  store_rows<HD, DC>(a.dk + kv_off, kv_ld, c0, nc, Ks, col0, warp, lane);
+  store_rows<HD, DC>(a.dv + kv_off, kv_ld, c0, nc, Vs, col0, warp, lane);
 }
 
 template <int HD, bool DKV>
@@ -498,8 +541,8 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   // F: kv tile 0 first, the heaviest under a causal mask; E reverses its own
-  const dim3 grid = DKV ? dim3(a.K, a.B, (a.S + BT - 1) / BT)
-                        : dim3(a.H, a.B, (a.T + BT - 1) / BT);
+  const dim3 grid = DKV ? dim3(a.K * Tl::DSPLIT, a.B, (a.S + BT - 1) / BT)
+                        : dim3(a.H * Tl::DSPLIT, a.B, (a.T + BT - 1) / BT);
   kern<<<grid, NT, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -508,6 +551,8 @@ template <bool DKV>
 int launch_bwd_any_hd(const BwdArgs& a, int hd, cudaStream_t stream) {
   if (hd == 128) return launch_bwd<128, DKV>(a, stream);
   if (hd == 64) return launch_bwd<64, DKV>(a, stream);
+  if (hd == 96) return launch_bwd<96, DKV>(a, stream);
+  if (hd == 256) return launch_bwd<256, DKV>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -557,11 +602,13 @@ int dst_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
   return dst::launch_bwd_any_hd<true>(a, hd, static_cast<cudaStream_t>(stream));
 }
 
-// Kernels E and F's dynamic shared memory in bytes at d = 64 and d = 128
-// (extern: a const has internal linkage otherwise).
-extern const int dst_flash_bwd_dq_smem_bytes[2] = {
-    static_cast<int>(dst::BwdTiles<64>::E_BYTES), static_cast<int>(dst::BwdTiles<128>::E_BYTES)};
-extern const int dst_flash_bwd_dkv_smem_bytes[2] = {
-    static_cast<int>(dst::BwdTiles<64>::F_BYTES), static_cast<int>(dst::BwdTiles<128>::F_BYTES)};
+// Kernels E and F's dynamic shared memory in bytes at d = 64, 96, 128 and
+// 256 (extern: a const has internal linkage otherwise).
+extern const int dst_flash_bwd_dq_smem_bytes[4] = {
+    static_cast<int>(dst::BwdTiles<64>::E_BYTES), static_cast<int>(dst::BwdTiles<96>::E_BYTES),
+    static_cast<int>(dst::BwdTiles<128>::E_BYTES), static_cast<int>(dst::BwdTiles<256>::E_BYTES)};
+extern const int dst_flash_bwd_dkv_smem_bytes[4] = {
+    static_cast<int>(dst::BwdTiles<64>::F_BYTES), static_cast<int>(dst::BwdTiles<96>::F_BYTES),
+    static_cast<int>(dst::BwdTiles<128>::F_BYTES), static_cast<int>(dst::BwdTiles<256>::F_BYTES)};
 
 }  // extern "C"

@@ -20,7 +20,14 @@
 //     short;
 //   * Q is copied once (cp.async) and held in registers as mma A fragments
 //     (ldmatrix) for the whole walk; its shared tile lies in the ring's last
-//     stage, which is refilled only after every warp has taken its fragments;
+//     stage, which is refilled only after every warp has taken its fragments.
+//     At d = 256 Q's fragments (64 registers) and O (128) leave no room for
+//     the scores: two CTAs share each 64-row tile, each computing the whole
+//     score and half of O's columns (the score twice: 1.5x the products);
+//     Q keeps a shared tile of its own and each k16 step of the score takes
+//     its fragment from there by ldmatrix (the k steps still run in
+//     ascending order into one accumulator, so the bits do not change); the
+//     ring has two stages (168960 bytes of shared memory: one CTA an SM);
 //   * S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 accumulate) into registers,
 //     K fragments by ldmatrix from K's [column, d] rows (the col-major B);
 //   * the online softmax stays in registers: a thread holds rows g and g + 8 of
@@ -51,22 +58,31 @@
 namespace dst {
 
 constexpr int BN = 64;  // the tile engine's column tile (flash_tile.cuh)
-// WARPS warps of 16 query rows a CTA, STAGES K/V tiles in the ring, MINB
-// CTAs per SM for __launch_bounds__: the fastest shape without spills at
-// d = 64 and d = 128 (chip_smoke prints ptxas's registers and spill bytes)
-constexpr int WARPS = 4, STAGES = 3, MINB = 2;
+// WARPS warps of 16 query rows a CTA, MINB CTAs per SM for
+// __launch_bounds__: the fastest shape without spills at d = 64 and d = 128
+// (chip_smoke prints ptxas's registers and spill bytes)
+constexpr int WARPS = 4, MINB = 2;
 constexpr float FWD_NEG_INF = -1e30f;  // masked score, empty running max
 
-// Shared memory: the K/V ring only. Q's tile lies in the ring's last stage,
+// Shared memory: the K/V ring of STAGES tiles. Where Q's fragments stay in
+// registers (Q_REGS, d <= 128), Q's tile lies in the ring's last stage,
 // whose first tile is issued after every warp has taken its Q fragments;
-// the epilogue stages O there again once the ring is idle.
+// at d = 256 Q's tile follows the ring. The epilogue stages O in Q's tile
+// once the ring is idle.
 template <int HD>
 struct FwdTiles {
+  static constexpr bool Q_REGS = HD <= 128;
+  static constexpr int STAGES = Q_REGS ? 3 : 2;  // K/V tiles in the ring
+  // O's columns a CTA: at d = 256 two CTAs each compute the whole score and
+  // take half of O (64 fp32 a thread, not 128)
+  static constexpr int OSPLIT = Q_REGS ? 1 : 2;
+  static constexpr int OC = HD / OSPLIT;
   static constexpr int BM = 16 * WARPS;  // query rows a CTA
   static constexpr int LD = HD + 8;      // bf16 row pitch: 16 bytes of skew
   static constexpr int Q_ELEMS = BM * LD;
   static constexpr int KV_ELEMS = BN * LD;  // one K or V tile
-  static constexpr size_t BYTES = size_t(2 * STAGES * KV_ELEMS) * sizeof(bf16);
+  static constexpr size_t BYTES =
+      size_t(2 * STAGES * KV_ELEMS + (Q_REGS ? 0 : Q_ELEMS)) * sizeof(bf16);
   static_assert(Q_ELEMS <= 2 * KV_ELEMS, "Q fits one stage");
 };
 
@@ -108,36 +124,47 @@ __device__ __forceinline__ float tile_row_sum(const float (&s)[BN / 8][4], int e
   return z[0] + z[1];  // b0
 }
 
-// S = Q K^T for a warp's 16 rows and one 64-column tile (raw scores).
-template <int HD>
-__device__ __forceinline__ void tile_scores(const bf16* ks, const uint32_t (&qf)[HD / 16][4],
-                                            float (&s)[BN / 8][4], int lane) {
+// S = Q K^T for a warp's 16 rows and one 64-column tile (raw scores). Q's A
+// fragment of k16 step kd: qf[kd] (QREG), else by ldmatrix from the warp's
+// 16 rows of Q's shared tile, qs.
+template <int HD, bool QREG>
+__device__ __forceinline__ void tile_scores(const bf16* ks,
+                                            const uint32_t (&qf)[QREG ? HD / 16 : 1][4],
+                                            const bf16* qs, float (&s)[BN / 8][4], int lane) {
   constexpr int LD = HD + 8;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  // Q from shared memory (d = 256): two k steps an iteration
+  unrolled<HD / 16, QREG ? HD / 16 : 2>([&](int kd) {
+    uint32_t qa[4];
+    if constexpr (QREG) {
 #pragma unroll
-  for (int kd = 0; kd < HD / 16; ++kd) {
+      for (int e = 0; e < 4; ++e) qa[e] = qf[kd][e];
+    } else {
+      ldsm_x4(qa, smem_u32(qs + (lane & 15) * LD + kd * 16 + (lane >> 4) * 8));
+    }
 #pragma unroll
     for (int np = 0; np < BN / 16; ++np) {
       // matrices: (cols np*16 .. +7, d kd*16 .. +7), (.., d +8), (cols +8, d), (cols +8, d +8)
       uint32_t kb[4];
       ldsm_x4(kb, smem_u32(ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kd * 16 +
                            ((lane >> 3) & 1) * 8));
-      mma_bf16(s[2 * np], qf[kd], kb[0], kb[1]);
-      mma_bf16(s[2 * np + 1], qf[kd], kb[2], kb[3]);
+      mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+      mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
     }
-  }
+  });
 }
 
 // The online softmax update of m / l / O from a tile's raw scores s, then
-// O += P V. EDGE: the tile crosses the causal diagonal, the window's edge or
-// c_hi for some of the warp's rows, and masked entries get score NEG_INF
-// and p = 0.
-template <int HD, bool EDGE>
+// O += P V for O's OC columns from col0. EDGE: the tile crosses the causal
+// diagonal, the window's edge or c_hi for some of the warp's rows, and
+// masked entries get score NEG_INF and p = 0.
+template <int HD, int OC, bool EDGE>
 __device__ __forceinline__ void tile_softmax_pv(const bf16* vs, float (&s)[BN / 8][4],
-                                                float (&o)[HD / 8][4], float (&m)[2],
+                                                float (&o)[OC / 8][4], float (&m)[2],
                                                 float (&l)[2], int c0, int c_hi, int qp0,
-                                                int causal, int window, float scale, int lane) {
+                                                int causal, int window, float scale,
+                                                int col0, int lane) {
   constexpr int LD = HD + 8;
   const int tq = lane & 3;
   auto keep = [&](int j, int e) {
@@ -171,7 +198,7 @@ __device__ __forceinline__ void tile_softmax_pv(const bf16* vs, float (&s)[BN / 
     m[r] = mx[r];
     l[r] = __fmaf_rn(l[r], corr, psum);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < OC / 8; ++n) {
       o[n][2 * r] *= corr;
       o[n][2 * r + 1] *= corr;
     }
@@ -184,11 +211,11 @@ __device__ __forceinline__ void tile_softmax_pv(const bf16* vs, float (&s)[BN / 
                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-    for (int dn = 0; dn < HD / 16; ++dn) {
+    for (int dn = 0; dn < OC / 16; ++dn) {
       // matrices: (cols kk*16 .. +7, d dn*16 .. +7), (cols +8, d), (cols, d +8), (cols +8, d +8)
       uint32_t vb[4];
       ldsm_x4_trans(vb, smem_u32(vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                 dn * 16 + (lane >> 4) * 8));
+                                 col0 + dn * 16 + (lane >> 4) * 8));
       mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
       mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
     }
@@ -198,13 +225,17 @@ __device__ __forceinline__ void tile_softmax_pv(const bf16* vs, float (&s)[BN / 
 template <int HD>
 __global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdArgs a) {
   using Tiles = FwdTiles<HD>;
-  constexpr int LD = Tiles::LD, BM = Tiles::BM, NT = WARPS * 32;
+  constexpr int LD = Tiles::LD, BM = Tiles::BM, NT = WARPS * 32, STAGES = Tiles::STAGES;
+  constexpr bool QREG = Tiles::Q_REGS;
   static_assert(STAGES >= 2, "a ring");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // stage s: K at 2 s KV_ELEMS, V after it
-  bf16* Qs = ring + (STAGES - 1) * 2 * Tiles::KV_ELEMS;
+  bf16* Qs = ring + (QREG ? STAGES - 1 : STAGES) * 2 * Tiles::KV_ELEMS;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int OC = Tiles::OC;
+  // head h, O's columns col0 .. col0 + OC
+  const int h = blockIdx.x / Tiles::OSPLIT, col0 = (blockIdx.x % Tiles::OSPLIT) * OC;
+  const int b = blockIdx.y;
   const int t0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest causal tiles first
   const int nrows = min(BM, a.T - t0);
   const int kvh = h / (a.H / a.K);
@@ -237,22 +268,25 @@ __global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdAr
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) issue(i);  // Q rides in the first group
 
-  uint32_t qf[HD / 16][4];
-  float o[HD / 8][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
+  float o[OC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < OC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {FWD_NEG_INF, FWD_NEG_INF};  // running max of scores, rows g, g + 8
   float l[2] = {0.f, 0.f};
   const int r0 = warp * 16 + (lane >> 2);
   const int qp0 = t0 + r0 + a.rel;
   const int w_lo = t0 + warp * 16 + a.rel, w_hi = w_lo + 15;  // the warp's rows
 
-  if (ntiles > 0) {  // Q's fragments, before any warp may refill Q's stage
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
+  if constexpr (QREG) {
+    if (ntiles > 0) {  // Q's fragments, before any warp may refill Q's stage
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
 #pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd)
-      ldsm_x4(qf[kd], smem_u32(Qs + (warp * 16 + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8));
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ldsm_x4(qf[kd],
+                smem_u32(Qs + (warp * 16 + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8));
+    }
   }
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<STAGES - 2>();  // tile i landed for this thread's copies
@@ -262,14 +296,16 @@ __global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdAr
     const bf16* ks = ring + (i % STAGES) * 2 * Tiles::KV_ELEMS;
     const bf16* vs = ks + Tiles::KV_ELEMS;
     float sc[BN / 8][4];
-    tile_scores<HD>(ks, qf, sc, lane);
+    tile_scores<HD, QREG>(ks, qf, Qs + warp * 16 * LD, sc, lane);
     // masks only where the tile crosses the diagonal, the window's edge or
     // c_hi for one of the warp's rows
     if (c0 + BN > c_hi || (a.causal && c0 + BN - 1 > w_lo) ||
         (a.window > 0 && c0 < w_hi - (a.window - 1)))
-      tile_softmax_pv<HD, true>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window, a.scale, lane);
+      tile_softmax_pv<HD, OC, true>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window,
+                                    a.scale, col0, lane);
     else
-      tile_softmax_pv<HD, false>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window, a.scale, lane);
+      tile_softmax_pv<HD, OC, false>(vs, sc, o, m, l, c0, c_hi, qp0, a.causal, a.window,
+                                     a.scale, col0, lane);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -280,27 +316,27 @@ __global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdAr
   const float inv0 = 1.f / den0, inv1 = 1.f / den1;
   const int tq = lane & 3;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(Qs + r0 * LD + n * 8 + 2 * tq) =
+  for (int n = 0; n < OC / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(Qs + r0 * LD + col0 + n * 8 + 2 * tq) =
         pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(Qs + (r0 + 8) * LD + n * 8 + 2 * tq) =
+    *reinterpret_cast<uint32_t*>(Qs + (r0 + 8) * LD + col0 + n * 8 + 2 * tq) =
         pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
-  if (tq == 0) {
+  if (tq == 0 && col0 == 0) {
     float* lse = a.lse + (size_t(b) * a.H + h) * a.T + t0;
     if (r0 < nrows) lse[r0] = m[0] + logf(den0);
     if (r0 + 8 < nrows) lse[r0 + 8] = m[1] + logf(den1);
   }
   __syncwarp();
-  constexpr int CH = HD / 8;
-  bf16* og = a.out + (size_t(b) * a.T * a.H + h) * HD;
+  constexpr int CH = OC / 8;
+  bf16* og = a.out + (size_t(b) * a.T * a.H + h) * HD + col0;
 #pragma unroll
   for (int it = 0; it < 16 * CH / 32; ++it) {
     const int idx = lane + it * 32;
     const int r = warp * 16 + idx / CH, c = idx % CH;
     if (r < nrows)
       *reinterpret_cast<uint4*>(og + size_t(t0 + r) * q_ld + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + r * LD + c * 8);
+          *reinterpret_cast<const uint4*>(Qs + r * LD + col0 + c * 8);
   }
 }
 
@@ -311,7 +347,8 @@ int launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Tiles::BYTES));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(a.H, B, (a.T + Tiles::BM - 1) / Tiles::BM), WARPS * 32, Tiles::BYTES, stream>>>(a);
+  kern<<<dim3(a.H * Tiles::OSPLIT, B, (a.T + Tiles::BM - 1) / Tiles::BM), WARPS * 32,
+         Tiles::BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,12 +376,16 @@ int dst_flash_fwd(const void* q, const void* k, const void* v, void* out, float*
   const auto st = static_cast<cudaStream_t>(stream);
   if (hd == 64) return dst::launch_fwd<64>(a, B, st);
   if (hd == 128) return dst::launch_fwd<128>(a, B, st);
+  if (hd == 96) return dst::launch_fwd<96>(a, B, st);
+  if (hd == 256) return dst::launch_fwd<256>(a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Kernel D's dynamic shared memory in bytes at d = 64 and d = 128 (extern:
-// a const has internal linkage otherwise).
-extern const int dst_flash_fwd_smem_bytes[2] = {static_cast<int>(dst::FwdTiles<64>::BYTES),
-                                                static_cast<int>(dst::FwdTiles<128>::BYTES)};
+// Kernel D's dynamic shared memory in bytes at d = 64, 96, 128 and 256
+// (extern: a const has internal linkage otherwise).
+extern const int dst_flash_fwd_smem_bytes[4] = {static_cast<int>(dst::FwdTiles<64>::BYTES),
+                                                static_cast<int>(dst::FwdTiles<96>::BYTES),
+                                                static_cast<int>(dst::FwdTiles<128>::BYTES),
+                                                static_cast<int>(dst::FwdTiles<256>::BYTES)};
 
 }  // extern "C"

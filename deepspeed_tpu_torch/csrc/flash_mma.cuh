@@ -76,6 +76,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// f(0) .. f(N - 1), fully unrolled, or U calls an iteration where U < N:
+// the d = 256 loops whose fragments come from shared memory, where ptxas
+// would otherwise hoist every step's loads ahead of the products and spill.
+template <int N, int U, class F>
+__device__ __forceinline__ void unrolled(F&& f) {
+  if constexpr (U >= N) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f(i);
+  } else {
+#pragma unroll(U)
+    for (int i = 0; i < N; ++i) f(i);
+  }
+}
+
 // ROWS rows of HD bf16 from src (row pitch ld elements), rows row0 .. into
 // dst (pitch HD + 8) by cp.async, NT threads; rows >= n are zero-filled.
 template <int HD, int ROWS, int NT>

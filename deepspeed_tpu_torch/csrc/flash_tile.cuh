@@ -323,11 +323,17 @@ int launch_tiles(const Mode& md, dim3 grid, float scale, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim dispatch: the tile engine is instantiated for 64 and 128
+// head_dim dispatch: the tile engine is instantiated for 64, 96, 128 and 256
+// (the wrappers refuse any other head dim before a launch). Its loops take a
+// row as HD / 8 sixteen-byte chunks (12 at d = 96) with no power-of-two
+// assumption; at d = 256 the tile takes 195328 bytes (196096 for an int
+// pool), one CTA an SM.
 template <class Mode>
 int launch_any_hd(const Mode& md, int hd, dim3 grid, float scale, cudaStream_t stream) {
   if (hd == 128) return launch_tiles<128>(md, grid, scale, stream);
   if (hd == 64) return launch_tiles<64>(md, grid, scale, stream);
+  if (hd == 96) return launch_tiles<96>(md, grid, scale, stream);
+  if (hd == 256) return launch_tiles<256>(md, grid, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

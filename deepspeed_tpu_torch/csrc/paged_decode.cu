@@ -55,7 +55,12 @@
 //   * splits merge in the same launch: each live split writes its partial
 //     to the workspace and takes a ticket; the last of an (atom, group) resets
 //     the ticket and merges all its splits in split order, so two launches
-//     give the same bits. A past of one split writes its output directly.
+//     give the same bits. A past of one split writes its output directly;
+//   * head dims 64, 96, 128 and 256. At d = 256 a warp's m16 x d output is
+//     128 fp32 a thread, so the query's A fragments (64 registers in bf16
+//     and int4) leave registers: the prologue writes them to shared memory
+//     in fragment order (one 16-byte row a lane and k step) and each k step
+//     of the score reads its own back; one CTA an SM there.
 // Not yet: one work list over the live splits instead of a grid sized for
 // the table's nb_max (the dead CTAs of short pasts cost a launch each), and
 // TMA copies of whole blocks.
@@ -65,14 +70,15 @@
 namespace dst {
 
 // WARPS warps a CTA, 16 columns of each TN-column tile a warp; STAGES tiles in
-// the ring; minb(BITS) CTAs an SM for __launch_bounds__ (int8 fits three
-// without spills, and a decode_batch step's grid in one wave; the others
-// spill at three). ROWS query heads a CTA:
-// one m16 tile. A split's block ids are looked up into shared memory, at
-// most MAX_BPS of them; a grid has at most MAX_SPLITS splits an atom (the
-// wrapper's decode_splits keeps both; a CPU test reads them from here).
+// the ring; minb(BITS, HD) CTAs an SM for __launch_bounds__ (int8 fits three
+// without spills up to d = 128, and a decode_batch step's grid in one wave;
+// the others spill at three; d = 256 runs one: its O and, for bf16, its
+// shared memory). ROWS query heads a CTA: one m16 tile. A split's block ids
+// are looked up into shared memory, at most MAX_BPS of them; a grid has at
+// most MAX_SPLITS splits an atom (the wrapper's decode_splits keeps both; a
+// CPU test reads them from here).
 constexpr int WARPS = 4, NT = 32 * WARPS, TN = 16 * WARPS, STAGES = 3;
-constexpr int minb(int bits) { return bits == 8 ? 3 : 2; }
+constexpr int minb(int bits, int hd) { return hd > 128 ? 1 : bits == 8 ? 3 : 2; }
 constexpr int ROWS = 16;
 constexpr int MAX_BPS = 128, MAX_SPLITS = 64;
 constexpr float DEC_NEG_INF = -1e30f;  // masked score, empty running max
@@ -80,11 +86,13 @@ constexpr float DEC_NEG_INF = -1e30f;  // masked score, empty running max
 // Shared memory: the ring (stage s: K rows, V rows, then an int pool's k and v
 // scales of the tile's columns), which the warps' scaled O reuses once the
 // walk is done; then the split's block ids, the warps' row statistics, the
-// merge's per-split (m, l) -- then (factor, l) -- and row statistics, and
-// the ticket's verdict.
+// merge's per-split (m, l) -- then (factor, l) -- and row statistics, the
+// ticket's verdict and, at d = 256 (not QREG), the query's A fragments.
 template <int BITS, int HD>
 struct DecTiles {
   static constexpr bool INT = BITS != 16;
+  static constexpr int KSTEPS = BITS == 8 ? HD / 32 : HD / 16;  // k steps of the score
+  static constexpr bool QREG = HD <= 128;  // the query's fragments stay in registers
   static constexpr int PITCH = INT ? HD + 16 : 2 * (HD + 8);  // row bytes, 16 of skew
   static constexpr int KV_BYTES = TN * PITCH;
   static constexpr int STAGE = 2 * KV_BYTES + (INT ? 2 * TN * 4 : 0);
@@ -96,7 +104,8 @@ struct DecTiles {
   static constexpr size_t FAC_OFF = WST_OFF + WARPS * ROWS * 2 * 4;
   static constexpr size_t RST_OFF = FAC_OFF + ROWS * MAX_SPLITS * 8;
   static constexpr size_t FLAG_OFF = RST_OFF + ROWS * 2 * 4;
-  static constexpr size_t BYTES = FLAG_OFF + 16;
+  static constexpr size_t QF_OFF = FLAG_OFF + 16;  // [KSTEPS][32 lanes] uint4
+  static constexpr size_t BYTES = QF_OFF + (QREG ? 0 : KSTEPS * 32 * 16);
 };
 
 struct DecArgs {
@@ -154,9 +163,9 @@ __device__ __forceinline__ uint32_t byte_rows_addr(const unsigned char* rows, in
 }
 
 template <int BITS, bool PAIR, int HD>
-__global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecArgs a) {
+__global__ void __launch_bounds__(NT, minb(BITS, HD)) paged_decode_kernel(const DecArgs a) {
   using T = DecTiles<BITS, HD>;
-  constexpr bool INT = T::INT;
+  constexpr bool INT = T::INT, QREG = T::QREG;
   constexpr int PITCH = T::PITCH;
   constexpr int LDE = HD + 8;  // bf16 row pitch in elements
   extern __shared__ __align__(128) unsigned char smem[];
@@ -164,6 +173,7 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
   float* wst = reinterpret_cast<float*>(smem + T::WST_OFF);  // [WARPS][ROWS][m, l]
   float* rst = reinterpret_cast<float*>(smem + T::RST_OFF);  // [ROWS][m, l]
   int* flag = reinterpret_cast<int*>(smem + T::FLAG_OFF);
+  uint4* qfs = reinterpret_cast<uint4*>(smem + T::QF_OFF);  // !QREG: [KSTEPS][32]
 
   const int at = blockIdx.x, y = blockIdx.y, z = blockIdx.z;
   // the atom's live blocks [lo, lo + nblk), by _past_ranges' formula (C's
@@ -243,8 +253,10 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
       const int c0 = c_lo + i * TN;
       constexpr int CH = INT ? HD / 16 : HD / 8;  // 16-byte chunks a row
       static_assert(2 * TN * CH % NT == 0, "whole copies a thread");
-#pragma unroll
-      for (int it = 0; it < 2 * TN * CH / NT; ++it) {
+      // d = 256: 16 or 32 copies a thread, four an iteration (their
+      // addresses all computed ahead of the copies spill)
+      constexpr int COPIES = 2 * TN * CH / NT;
+      unrolled<COPIES, QREG ? COPIES : 4>([&](int it) {
         const int idx = threadIdx.x + it * NT;
         const int which = idx / (TN * CH), r = idx / CH % TN, ch = idx % CH;
         const int c = c0 + r;
@@ -256,7 +268,7 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
         }
         cp_async16(smem_u32(st + which * T::KV_BYTES + r * PITCH + ch * 16),
                    (which ? a.vp : a.kp) + off, ok ? 16 : 0);
-      }
+      });
       if constexpr (INT) {
         static_assert(2 * TN == NT, "one scale a thread");
         const int which = threadIdx.x / TN, r = threadIdx.x % TN, c = c0 + r;
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
     const int h = head_of(g + 8 * r);
     qrow[r] = h >= 0 ? a.q + (size_t(at) * HH + h) * HD : nullptr;
   }
-  constexpr int KSTEPS = BITS == 8 ? HD / 32 : HD / 16;
+  constexpr int KSTEPS = T::KSTEPS;
   uint32_t qf[KSTEPS][4];
   float qsc[2] = {0.f, 0.f};  // int8: the rows' q-hat scales
   if constexpr (BITS == 16) {
@@ -320,15 +332,30 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
     const int h = head_of(row);
     float v[PER];
     float amax = 0.f;
+    const bf16* qsrc = a.q + (size_t(at) * HH + (h >= 0 ? h : 0)) * HD + part * PER;
+    if constexpr (PER % 8 == 0) {  // 16-byte loads of 8 features
 #pragma unroll
-    for (int c = 0; c < PER / 8; ++c) {
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (h >= 0) w = *reinterpret_cast<const uint4*>(a.q + (size_t(at) * HH + h) * HD + part * PER + c * 8);
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&w);
+      for (int c = 0; c < PER / 8; ++c) {
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (h >= 0) w = *reinterpret_cast<const uint4*>(qsrc + c * 8);
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[c * 8 + 2 * e] = __low2float(x[e]);
-        v[c * 8 + 2 * e + 1] = __high2float(x[e]);
+        for (int e = 0; e < 4; ++e) {
+          v[c * 8 + 2 * e] = __low2float(x[e]);
+          v[c * 8 + 2 * e + 1] = __high2float(x[e]);
+        }
+      }
+    } else {  // d = 96: 12 features a thread, 8-byte loads of 4
+#pragma unroll
+      for (int c = 0; c < PER / 4; ++c) {
+        uint2 w = make_uint2(0u, 0u);
+        if (h >= 0) w = *reinterpret_cast<const uint2*>(qsrc + c * 4);
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[c * 4 + 2 * e] = __low2float(x[e]);
+          v[c * 4 + 2 * e + 1] = __high2float(x[e]);
+        }
       }
     }
 #pragma unroll
@@ -356,6 +383,26 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
     qsc[0] = qs_s[g];
     qsc[1] = qs_s[g + 8];
   }
+  if constexpr (!QREG) {  // every warp holds the same fragments: warp 0 writes them
+    if (warp == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KSTEPS; ++kd)
+        qfs[kd * 32 + lane] = make_uint4(qf[kd][0], qf[kd][1], qf[kd][2], qf[kd][3]);
+    }
+  }
+  // the query's A fragment of k step kd (read back after the walk's first barrier)
+  auto qfrag = [&](uint32_t (&f)[4], int kd) {
+    if constexpr (QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = qf[kd][e];
+    } else {
+      const uint4 w = qfs[kd * 32 + lane];
+      f[0] = w.x;
+      f[1] = w.y;
+      f[2] = w.z;
+      f[3] = w.w;
+    }
+  };
 
   float o[HD / 8][4];
 #pragma unroll
@@ -377,13 +424,14 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
     float sc[2][4];
     if constexpr (BITS == 8) {
       int si[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-      for (int kd = 0; kd < KSTEPS; ++kd) {
-        uint32_t kb[4];  // (cols 0-7 | 8-15) x (bytes 32 kd .. + 15 | + 16 ..)
+      // the query from shared memory (d = 256): two k steps an iteration
+      unrolled<KSTEPS, QREG ? KSTEPS : 2>([&](int kd) {
+        uint32_t kb[4], qa[4];  // (cols 0-7 | 8-15) x (bytes 32 kd .. + 15 | + 16 ..)
         ldsm_x4(kb, byte_rows_addr(ks, PITCH, kd * 32, lane));
-        mma_s8(si[0], qf[kd], kb[0], kb[2]);
-        mma_s8(si[1], qf[kd], kb[1], kb[3]);
-      }
+        qfrag(qa, kd);
+        mma_s8(si[0], qa, kb[0], kb[2]);
+        mma_s8(si[1], qa, kb[1], kb[3]);
+      });
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -393,39 +441,40 @@ __global__ void __launch_bounds__(NT, minb(BITS)) paged_decode_kernel(const DecA
       for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
       if constexpr (BITS == 16) {
         const bf16* kr = reinterpret_cast<const bf16*>(ks);
-#pragma unroll
-        for (int kd = 0; kd < KSTEPS; ++kd) {
-          uint32_t kb[4];  // (cols 0-7, d lo), (0-7, d hi), (8-15, d lo), (8-15, d hi)
+        unrolled<KSTEPS, QREG ? KSTEPS : 2>([&](int kd) {
+          uint32_t kb[4], qa[4];  // (cols 0-7, d lo), (0-7, d hi), (8-15, d lo), (8-15, d hi)
           ldsm_x4(kb, smem_u32(kr + ((lane >> 4) * 8 + (lane & 7)) * LDE + kd * 16 +
                                ((lane >> 3) & 1) * 8));
-          mma_bf16(sc[0], qf[kd], kb[0], kb[1]);
-          mma_bf16(sc[1], qf[kd], kb[2], kb[3]);
-        }
+          qfrag(qa, kd);
+          mma_bf16(sc[0], qa, kb[0], kb[1]);
+          mma_bf16(sc[1], qa, kb[2], kb[3]);
+        });
       } else {
-#pragma unroll
-        for (int k2 = 0; k2 < HD / 32; ++k2) {
+        unrolled<HD / 32, QREG ? HD / 32 : 1>([&](int k2) {
           uint32_t kb[4];  // (cols 0-7 | 8-15) x (chunk 2 k2 | 2 k2 + 1)
           ldsm_x4(kb, byte_rows_addr(ks, PITCH, k2 * 32, lane));
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int kd = 2 * k2 + c;
+            uint32_t qa[4];
+            qfrag(qa, kd);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               uint2 lo4, hi4;
               frag_int4(kb[2 * c + j], lo4, hi4);
               if constexpr (PAIR) {
                 uint32_t qh[4];
-                half_rows(qh, qf[kd], 0);
+                half_rows(qh, qa, 0);
                 mma_bf16(sc[j], qh, lo4.x, lo4.y);
-                half_rows(qh, qf[kd], 1);
+                half_rows(qh, qa, 1);
                 mma_bf16(sc[j], qh, hi4.x, hi4.y);
               } else {
                 const uint2 b = kk * HD + kd * 16 >= half ? hi4 : lo4;
-                mma_bf16(sc[j], qf[kd], b.x, b.y);
+                mma_bf16(sc[j], qa, b.x, b.y);
               }
             }
           }
-        }
+        });
       }
     }
 
@@ -721,12 +770,16 @@ int launch_any(const DecArgs& a, int hd, cudaStream_t stream) {
     if (a.K % 2 == 0 && rep <= 8) {  // both nibbles of every byte
       if (hd == 128) return launch_decode<4, true, 128>(a, a.K / 2, stream);
       if (hd == 64) return launch_decode<4, true, 64>(a, a.K / 2, stream);
+      if (hd == 96) return launch_decode<4, true, 96>(a, a.K / 2, stream);
+      if (hd == 256) return launch_decode<4, true, 256>(a, a.K / 2, stream);
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const int groups = a.K * ((rep + ROWS - 1) / ROWS);
   if (hd == 128) return launch_decode<BITS, false, 128>(a, groups, stream);
   if (hd == 64) return launch_decode<BITS, false, 64>(a, groups, stream);
+  if (hd == 96) return launch_decode<BITS, false, 96>(a, groups, stream);
+  if (hd == 256) return launch_decode<BITS, false, 256>(a, groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -789,13 +842,16 @@ int dst_paged_decode_int4(const void* q, const void* kpool, const void* vpool,
                                  tickets, acc, m, l, stream);
 }
 
-// Dynamic shared memory in bytes at d = 64 and d = 128, per pool mode
+// Dynamic shared memory in bytes at d = 64, 96, 128 and 256, per pool mode
 // (extern: a const has internal linkage otherwise).
-extern const int dst_paged_decode_smem_bytes[2] = {
-    static_cast<int>(dst::DecTiles<16, 64>::BYTES), static_cast<int>(dst::DecTiles<16, 128>::BYTES)};
-extern const int dst_paged_decode_int8_smem_bytes[2] = {
-    static_cast<int>(dst::DecTiles<8, 64>::BYTES), static_cast<int>(dst::DecTiles<8, 128>::BYTES)};
-extern const int dst_paged_decode_int4_smem_bytes[2] = {
-    static_cast<int>(dst::DecTiles<4, 64>::BYTES), static_cast<int>(dst::DecTiles<4, 128>::BYTES)};
+#define DST_DEC_SMEM(BITS)                                                              \
+  {static_cast<int>(dst::DecTiles<BITS, 64>::BYTES),                                    \
+   static_cast<int>(dst::DecTiles<BITS, 96>::BYTES),                                    \
+   static_cast<int>(dst::DecTiles<BITS, 128>::BYTES),                                   \
+   static_cast<int>(dst::DecTiles<BITS, 256>::BYTES)}
+extern const int dst_paged_decode_smem_bytes[4] = DST_DEC_SMEM(16);
+extern const int dst_paged_decode_int8_smem_bytes[4] = DST_DEC_SMEM(8);
+extern const int dst_paged_decode_int4_smem_bytes[4] = DST_DEC_SMEM(4);
+#undef DST_DEC_SMEM
 
 }  // extern "C"

@@ -18,6 +18,21 @@ import torch
 from deepspeed_tpu_torch.ops._build import KERNELS, reset_counts  # noqa: F401
 
 
+# Head dims the card's attention kernels (A, B, C, D, E, F, I) are built
+# for. Their wrappers refuse any other before a launch: there is no
+# fallback to the plain version on a CUDA tensor.
+CARD_HEAD_DIMS = (64, 96, 128, 256)
+
+
+def card_head_dim(d: int, kernel: str) -> int:
+    """``d`` when the card's attention kernels are built for it; else a
+    ``ValueError`` naming :data:`CARD_HEAD_DIMS`."""
+    if d not in CARD_HEAD_DIMS:
+        raise ValueError(f"{kernel}: the card's attention kernels take "
+                         f"head_dim in {CARD_HEAD_DIMS}, got {d}")
+    return d
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version's domain);
     False when every one lies on a CUDA device (the kernel's). Anything else

@@ -23,11 +23,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops import (cuda_operand, on_cpu, stream_ptr)
+from deepspeed_tpu_torch.ops import (card_head_dim, cuda_operand, on_cpu,
+                                     stream_ptr)
 from deepspeed_tpu_torch.ops._build import KERNELS
 
 NEG_INF = -1e30
-BWD_HEAD_DIMS = (64, 128)
 
 
 def _keep(T: int, S: int, causal: bool, window: Optional[int],
@@ -90,6 +90,7 @@ def flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, S, K, d) or v.shape != k.shape or H % K:
         raise ValueError(f"flash_attention_lse: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    card_head_dim(d, "kernel D")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         cuda_operand(t, n, torch.bfloat16)
     out = torch.empty_like(q)
@@ -186,16 +187,16 @@ def flash_bwd_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           rel_offset: int = 0):
     """Launcher arguments and outputs of kernel E (``part="dq"``: ``dq``)
     or kernel F (``part="dkv"``: ``(dk, dv)``), allocated here (CUDA bf16
-    q/k/v/dO, fp32 lse/delta [B,H,T]; d in 64 or 128)."""
+    q/k/v/dO, fp32 lse/delta [B,H,T]; d in ``CARD_HEAD_DIMS``)."""
     B, T, H, d = q.shape
     S, K = k.shape[1], k.shape[2]
     if (k.shape != (B, S, K, d) or v.shape != k.shape or do.shape != q.shape
-            or lse.shape != (B, H, T) or delta.shape != lse.shape or H % K
-            or d not in BWD_HEAD_DIMS):
+            or lse.shape != (B, H, T) or delta.shape != lse.shape or H % K):
         raise ValueError(f"flash backward: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, dO "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
-                         f"{tuple(delta.shape)} (head_dim in {BWD_HEAD_DIMS})")
+                         f"{tuple(delta.shape)}")
+    card_head_dim(d, "kernel E" if part == "dq" else "kernel F")
     for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "dO")):
         cuda_operand(t, n, torch.bfloat16)
     for t, n in ((lse, "lse"), (delta, "delta")):

@@ -51,8 +51,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops import (cuda_operand, int32_meta, on_cpu,
-                                     stream_ptr)
+from deepspeed_tpu_torch.ops import (card_head_dim, cuda_operand, int32_meta,
+                                     on_cpu, stream_ptr)
 from deepspeed_tpu_torch.ops._build import KERNELS
 
 NEG_INF = -1e30
@@ -268,8 +268,7 @@ def decode_kernel_args(q, k_pool, v_pool, layer: int, block_tables,
         raise ValueError(f"window must be >= 1, got {window}")
     A, H, d = q.shape
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
-    if d not in (64, 128):
-        raise ValueError(f"kernel A is built for head_dim 64 and 128, got {d}")
+    card_head_dim(d, "kernel A")
     nb_max = block_tables.shape[1]
     cuda_operand(q, "q", torch.bfloat16)
     pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
@@ -384,6 +383,7 @@ def past_kernel_args(q, k_pool, v_pool, layer: int, block_tables, atom_slot,
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     A, R = N // tq, tq * rep
     nb_max = block_tables.shape[1]
+    card_head_dim(d, "kernel B")
     cuda_operand(q, "q", torch.bfloat16)
     pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
     bt = int32_meta(block_tables)
@@ -465,6 +465,7 @@ def self_kernel_args(q, k_self, v_self, atom_len, tq: int, seed=None, *,
     """Kernel C's launcher arguments and its output ``(out,)``."""
     N, H, d = q.shape
     K = k_self.shape[1]
+    card_head_dim(d, "kernel C")
     cuda_operand(q, "q", torch.bfloat16)
     k_self = cuda_operand(k_self.to(q.dtype).contiguous(), "k_self",
                           torch.bfloat16)
@@ -740,6 +741,7 @@ def paged_tile_kernel_args(q, k_pool, v_pool, block_tables, pos,
     bf16."""
     B, t, H, d = q.shape
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool)
+    card_head_dim(d, "kernel I")
     cuda_operand(q, "q", torch.bfloat16)
     _pool_operands(k_pool, v_pool, None, 8)
     bt = int32_meta(block_tables)

@@ -1,0 +1,99 @@
+"""Phase 3's d = 64 / 128 kernel rows of a parent tree and of this one, in
+turns on one card, and whether their d = 64 / 128 attention kernels
+compiled to the same SASS.
+
+    python -m deepspeed_tpu_torch.tools.parent_turns build/parent
+
+The parent is a checkout unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists. Each reading runs in a process of its own from
+its tree -- that tree's ``chip_smoke.py`` checks (``kernel_checks``,
+``backward_checks``, ``tile_checks`` at their default shapes) and its
+package, whose libraries build from its sources -- in the order parent,
+this, this, parent. Prints each row's four kernel ms and the ratio of the
+means (this / parent), then, for each d = 64 / 128 instantiation of
+kernels A, D, E and F, whether ``cuobjdump -sass`` of the two builds is
+identical (instruction offsets aside); the card's name and power limit
+come last. Needs a CUDA card and the toolkit's ``cuobjdump``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+THIS = Path(__file__).resolve().parents[2]
+LIBS = ("paged_decode", "flash_forward", "flash_backward")
+
+
+def rows(root: str) -> dict:
+    """Run in the tree ``root``: its phase-3 rows at d = 64 / 128 (kernel
+    ms) and the paths of its libraries."""
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    _build.build_all()
+    got = chip_smoke.kernel_checks(torch, pa, fa, _build.KERNELS)
+    got.update(chip_smoke.backward_checks(torch, fa, _build.KERNELS))
+    got.update(chip_smoke.tile_checks(torch, pa, _build.KERNELS))
+    return {"ms": {k: r["ms"] for k, r in got.items()
+                   if not k.endswith(("d96", "d256"))},
+            "libs": {n: str(_build._lib_path(n)) for n in LIBS}}
+
+
+def reading(root: Path) -> dict:
+    out = subprocess.run([sys.executable, __file__, "--rows", str(root)],
+                         capture_output=True, text=True, check=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def sass(path: str) -> dict:
+    """Each function's SASS in a library, instruction offsets removed."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    return {name: re.sub(r"/\*[0-9a-f]{4}\*/", "", body).strip()
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--rows":
+        print(json.dumps(rows(sys.argv[2])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("parent_turns needs a CUDA card")
+    parent = Path(sys.argv[1]).resolve()
+    order = (parent, THIS, THIS, parent)
+    got = [reading(root) for root in order]
+    for name in got[0]["ms"]:
+        ms = [g["ms"][name] for g in got]
+        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        print(f"row {name}: parent {ms[0]:.4f} {ms[3]:.4f}, this {ms[1]:.4f} "
+              f"{ms[2]:.4f} ms; this / parent {ratio:.3f}")
+    for lib in LIBS:
+        old, new = sass(got[0]["libs"][lib]), sass(got[1]["libs"][lib])
+        for fn in sorted(f for f in old if re.search(r"Li(64|128)E", f)):
+            same = new.get(fn) == old[fn]
+            print(f"sass {lib} {fn}: {'identical' if same else 'differs'}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -198,15 +198,16 @@ def test_kernels_e_f_source_keep_s_and_dp_in_registers():
                                         ("flash_fwd", "flash_forward")])
 def test_chip_smoke_reads_ptxas_of_each_flash_kernel(kernel, lib):
     """chip_smoke prints (and fails on a spill of) each flash kernel's ptxas
-    report per head dim: its pattern must find both instantiations' mangled
-    names, and no other kernel's."""
+    report per head dim: its pattern must find every instantiation's mangled
+    name (d = 64, 96, 128 and 256), and no other kernel's."""
     import chip_smoke
+    from deepspeed_tpu_torch.ops import CARD_HEAD_DIMS
 
     row = next(r for r in chip_smoke.PTXAS_REPORTS if r[1] == kernel)
-    assert row[0] == lib and row[3] == (64, 128)
+    assert row[0] == lib and row[3] == CARD_HEAD_DIMS
     args = {"flash_fwd": "FwdArgs"}.get(kernel, "BwdArgs")
     names = {d: f"_ZN3dst{len(kernel) + 7}{kernel}_kernelILi{d}EEEvNS_"
-                f"{len(args)}{args}E" for d in (64, 128)}
+                f"{len(args)}{args}E" for d in CARD_HEAD_DIMS}
     for d, name in names.items():
         assert re.search(row[2], name).group(1) == str(d)
     others = [r[2] for r in chip_smoke.PTXAS_REPORTS if r[1] != kernel]

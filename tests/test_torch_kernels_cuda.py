@@ -1,5 +1,7 @@
 """Kernels A-K of the PyTorch port, and the int8 / int4 modes of A and B,
-against their plain versions on the card (bf16; atol = rtol = 2e-2 on
+against their plain versions on the card, the attention kernels (A-F, I)
+at every head dim they are built for (``CARD_HEAD_DIMS``: 64, 96, 128,
+256) (bf16; atol = rtol = 2e-2 on
 normalised outputs (A-C) and on G/H's products, 1e-2 on m and lse; D's
 out, the backward's dq/dk/dv and I's out per 64-row tile within 2e-2 of
 that tile's max-abs; J at 1e-2 in bf16 and 1e-5 in fp32, forward and
@@ -14,8 +16,25 @@ import pytest
 import torch
 
 from chip_smoke import close_tiles  # D's out, dq/dk/dv, I's out: 64-row tiles
+from deepspeed_tpu_torch.ops import CARD_HEAD_DIMS
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+
+
+# 2-layer narrow models shaped like the two presets whose head dims are
+# neither 64 nor 128 (``get_preset`` overrides; the CPU parity tests in
+# ``test_torch_head_dims.py`` use them too): phi3-mini's llama block at
+# d = 96 with H = K, and pythia-1b's gpt2 block (parallel residual, biases,
+# LayerNorm, exact GELU, rotary on a quarter of each head) at d = 256.
+PRESET_SHAPED = {
+    "phi3-mini": dict(hidden_size=192, num_heads=2, num_kv_heads=2,
+                      num_layers=2, intermediate_size=256, vocab_size=512,
+                      max_seq_len=512),
+    "pythia-1b": dict(hidden_size=512, num_heads=2, num_kv_heads=2,
+                      num_layers=2,
+                      intermediate_size=1024, vocab_size=512,
+                      max_seq_len=512),
+}
 
 
 @pytest.fixture
@@ -41,11 +60,25 @@ def cuda_device():
     (128, 2, 333, 200, False, None, 0),
     (64, 2, 100, 130, False, None, 0),
     (128, 2, 200, 200, True, 50, -20),
-    (64, 2, 200, 200, True, 50, -20)])
+    (64, 2, 200, 200, True, 50, -20),
+    (96, 2, 1024, 1024, True, None, 0),
+    (256, 2, 1024, 1024, True, None, 0),
+    (96, 2, 333, 333, True, None, 0),
+    (256, 2, 333, 333, True, None, 0),
+    (96, 2, 37, 37, True, None, 0),
+    (256, 2, 37, 37, True, None, 0),
+    (96, 2, 256, 256, True, 64, 0),
+    (256, 2, 256, 256, True, 64, 0),
+    (96, 2, 128, 192, True, None, 64),
+    (256, 2, 128, 192, True, None, 64),
+    (96, 2, 100, 130, False, None, 0),
+    (256, 2, 333, 200, False, None, 0),
+    (96, 2, 200, 200, True, 50, -20),
+    (256, 2, 200, 200, True, 50, -20)])
 def test_kernel_d_matches_plain_on_card(cuda_device, d, B, T, S, causal,
                                         window, rel):
-    """D at d = 64 and 128 (H=32, K=8): T below one 64-row tile and not a
-    multiple of it, S != T without a causal mask, rel_offset 64, and -20
+    """D at d = 64, 96, 128 and 256 (H=32, K=8): T below one 64-row tile and
+    not a multiple of it, S != T without a causal mask, rel_offset 64, and -20
     under a window of 50, whose first 20 rows see nothing (out = 0, lse the
     plain version's -1e30 sentinel). ``out`` per 64-row tile, batch row and
     head (``close_tiles``), lse at 1e-2."""
@@ -71,7 +104,8 @@ def test_kernel_d_matches_plain_on_card(cuda_device, d, B, T, S, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,T", [(128, 1024), (128, 333), (64, 2048),
-                                 (64, 37)])
+                                 (64, 37), (96, 1024), (96, 333), (96, 37),
+                                 (256, 1024), (256, 333), (256, 37)])
 def test_kernel_d_equals_kernel_c_bitwise_on_card(cuda_device, d, T):
     """D keeps the tile engine's arithmetic, so a causal pass over one
     prompt gives the same bits as kernel C over it as one unseeded atom:
@@ -100,16 +134,31 @@ def test_kernel_d_equals_kernel_c_bitwise_on_card(cuda_device, d, T):
     (2, 300, 300, 8, 8, 64, True, None, 0),
     (1, 300, 300, 8, 2, 64, True, 100, 0),
     (1, 300, 300, 8, 2, 128, True, 40, 0),
-    (4, 2048, 2048, 32, 8, 64, True, None, 0)])
+    (4, 2048, 2048, 32, 8, 64, True, None, 0),
+    (2, 333, 333, 16, 4, 96, True, None, 0),
+    (2, 333, 333, 16, 4, 256, True, None, 0),
+    (1, 300, 300, 8, 2, 96, True, 100, 0),
+    (1, 300, 300, 8, 2, 256, True, 40, 0),
+    (1, 128, 192, 8, 8, 96, True, None, 64),
+    (1, 128, 192, 8, 8, 256, True, None, 64),
+    (1, 200, 200, 8, 2, 96, True, 50, -20),
+    (1, 200, 200, 8, 2, 256, True, 50, -20),
+    (2, 100, 130, 4, 1, 96, False, None, 0),
+    (2, 100, 130, 4, 1, 256, False, None, 0),
+    (1, 2048, 2048, 32, 32, 96, True, None, 0),
+    (1, 2048, 2048, 8, 8, 256, True, None, 0)])
 def test_kernels_e_f_match_plain_on_card(cuda_device, B, T, S, H, K, d,
                                          causal, window, rel):
-    """E (dq) and F (dk, dv) at d = 64 and 128, GQA, window, rel_offset
-    (negative: the first rows see nothing and get zeros), ragged T and S,
-    with an lse cotangent folded into delta; then the paths of the
+    """E (dq) and F (dk, dv) at d = 64, 96, 128 and 256, GQA, window,
+    rel_offset (negative: the first rows see nothing and get zeros), ragged
+    T and S, with an lse cotangent folded into delta; then the paths of the
     register-resident kernels: a group of rep = 4 at d = 128 with T not a
     multiple of 64 (F walks four heads as one ring of tiles, 32 columns of
     S at a time), rep = 1, windows whose edge cuts a 64-row tile at d = 64
-    and 128, and the training shape (Llama-3.2-1B, T = 2048)."""
+    and 128, and the training shape (Llama-3.2-1B, T = 2048); then d = 96
+    and 256 on the same paths (at 256 F splits dK's and dV's columns over
+    two CTAs; so do E's dQ columns) and the phi3-mini (H = K = 32, d = 96)
+    and pythia-1b (H = K = 8, d = 256) training shapes at T = 2048."""
     from deepspeed_tpu_torch.ops._build import KERNELS
 
     q, k, v, do, lse, delta, kw = _card_bwd_inputs(
@@ -150,7 +199,10 @@ def _card_bwd_inputs(dev, B, T, S, H, K, d, causal, window, rel):
 @pytest.mark.parametrize("B,T,S,H,K,d,causal,window,rel", [
     (4, 2048, 2048, 32, 8, 64, True, None, 0),
     (2, 333, 333, 16, 4, 128, True, 40, 0),
-    (1, 200, 200, 8, 2, 64, True, 50, -20)])
+    (1, 200, 200, 8, 2, 64, True, 50, -20),
+    (2, 333, 333, 16, 4, 96, True, 40, 0),
+    (1, 1024, 1024, 8, 8, 256, True, None, 0),
+    (1, 200, 200, 8, 2, 256, True, 50, -20)])
 def test_kernels_e_f_are_deterministic_on_card(cuda_device, B, T, S, H, K,
                                                d, causal, window, rel):
     """Two launches of E and of F on the same inputs give the same bits:
@@ -203,10 +255,11 @@ def _norm(acc, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("window", [None, 300])
-def test_kernel_a_matches_plain_on_card(cuda_device, window):
-    kp, vp, bt, g = _card_pools(cuda_device)
-    q = torch.randn(6, 32, 128, generator=g, device=cuda_device).bfloat16()
+def test_kernel_a_matches_plain_on_card(cuda_device, window, d):
+    kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
+    q = torch.randn(6, 32, d, generator=g, device=cuda_device).bfloat16()
     slot = torch.tensor([0, 1, 2, 3, 0, 1], device=cuda_device)
     pos0 = torch.tensor([0, 1, 129, 700, 2047, 64], device=cuda_device)
     acc, m, l = tpa.decode_pool_partials(q, kp, vp, 1, bt, slot, pos0,
@@ -221,11 +274,12 @@ def test_kernel_a_matches_plain_on_card(cuda_device, window):
 
 
 @pytest.mark.cuda
-def test_kernel_a_decode_loop_rows_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
+def test_kernel_a_decode_loop_rows_match_plain_on_card(cuda_device, d):
     """Rows of the fused decode loop sit past the pool frontier: the window
     is anchored at ``row_pos`` (> pos0), the pool still ends at pos0."""
-    kp, vp, bt, g = _card_pools(cuda_device)
-    q = torch.randn(4, 32, 128, generator=g, device=cuda_device).bfloat16()
+    kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
+    q = torch.randn(4, 32, d, generator=g, device=cuda_device).bfloat16()
     slot = torch.tensor([0, 1, 2, 3], device=cuda_device)
     pos0 = torch.tensor([130, 700, 300, 2000], device=cuda_device)
     row_pos = pos0 + torch.tensor([1, 7, 31, 3], device=cuda_device)
@@ -239,13 +293,14 @@ def test_kernel_a_decode_loop_rows_match_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
-def test_kernels_b_c_match_plain_on_card(cuda_device, tq, window):
-    kp, vp, bt, g = _card_pools(cuda_device)
+def test_kernels_b_c_match_plain_on_card(cuda_device, tq, window, d):
+    kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
     A = 3
-    q = torch.randn(A * tq, 32, 128, generator=g, device=cuda_device).bfloat16()
-    ks = torch.randn(A * tq, 8, 128, generator=g, device=cuda_device).bfloat16()
-    vs = torch.randn(A * tq, 8, 128, generator=g, device=cuda_device).bfloat16()
+    q = torch.randn(A * tq, 32, d, generator=g, device=cuda_device).bfloat16()
+    ks = torch.randn(A * tq, 8, d, generator=g, device=cuda_device).bfloat16()
+    vs = torch.randn(A * tq, 8, d, generator=g, device=cuda_device).bfloat16()
     slot = torch.tensor([0, 2, 3], device=cuda_device)
     pos0 = torch.tensor([256, 1000, 5], device=cuda_device)
     alen = torch.tensor([tq, tq - 7, 1], device=cuda_device)
@@ -327,6 +382,117 @@ def test_engine_on_card_matches_plain_cpu_engine(cuda_device, window):
     serving = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
     assert all(KERNELS[n].launches > 0 for n in serving), \
         {n: k.launches for n, k in KERNELS.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("preset", sorted(PRESET_SHAPED))
+def test_head_dim_engine_on_card_matches_plain_cpu_engine(cuda_device, preset,
+                                                          kv):
+    """The serving path at d = 96 (phi3-mini-shaped) and d = 256
+    (pythia-1b-shaped) on the card -- kernels A-D, or A/B's int modes over an
+    int8 / int4 pool -- against the same engine on the CPU (plain versions),
+    bf16 weights, step by step: logits within 5e-2 (as the test above) at
+    every put and at the first step of ``decode_batch``'s fused loop, then
+    the ``packed=False`` engine (kernel I) against its CPU twin. An int
+    pool is copied from the CPU engine into the card's before each step:
+    the two devices' bf16 projections differ in the last bit, which moves a
+    K/V element on a rounding boundary of its quantization by a whole step
+    (an int4 step is 1/7 of its row's max; without the copy a few logits
+    differ by 0.09), so each step holds the kernels on the same pool."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+    from deepspeed_tpu_torch.ops._build import KERNELS, reset_counts
+
+    cfg = get_preset(preset, **PRESET_SHAPED[preset])
+    model = TransformerLM(cfg)
+    params = model.init(seed=0, device="cpu")
+    kw = dict(max_sequences=4, max_seq_len=512, block_size=16, kv_dtype=kv)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, n).astype(np.int32) for n in (5, 40)]
+    longp = rng.integers(1, 512, 300).astype(np.int32)   # > MAX_ATOM
+    recorded = {"cpu": [], "cuda": []}
+    real = model.forward_decode_tail
+
+    def recording(params, toks, *args, **kw):
+        logits, tail = real(params, toks, *args, **kw)
+        recorded[toks.device.type].append(logits.float().cpu().numpy())
+        return logits, tail
+
+    model.forward_decode_tail = recording
+    reset_counts()
+    engines = {d: InferenceEngineV2(model, params, device=d, **kw)
+               for d in ("cpu", "cuda")}
+    steps = [lambda e: e.put([0, 1], prompts),
+             lambda e: e.put([0, 1, 2], [np.array([7], np.int32),
+                                         np.array([9], np.int32), longp]),
+             lambda e: e.put([0, 1, 2], [np.array([3], np.int32)] * 3),
+             lambda e: e.decode_batch([0, 1, 2], [3, 4, 5], steps=4)]
+    out = {}
+    for i, step in enumerate(steps):
+        if kv != "bf16":
+            for name, t in engines["cpu"].cache.items():
+                engines["cuda"].cache[name].copy_(t)
+        out[i] = {d: step(e) for d, e in engines.items()}
+    for i in range(3):
+        for uid, lg in out[i]["cpu"].items():
+            np.testing.assert_allclose(out[i]["cuda"][uid], lg, atol=5e-2,
+                                       rtol=5e-2, err_msg=f"put {i} uid {uid}")
+    # the fused loop's first step is fed the same tokens on both devices
+    np.testing.assert_allclose(recorded["cuda"][0], recorded["cpu"][0],
+                               atol=5e-2, rtol=5e-2)
+    suffix = "" if kv == "bf16" else f"_{kv}"
+    names = (f"paged_decode{suffix}", f"paged_past{suffix}", "chunk_self",
+             "flash_fwd")
+    assert all(KERNELS[n].launches > 0 for n in names), \
+        {n: k.launches for n, k in KERNELS.items()}
+    if kv == "bf16":
+        dense = {d: InferenceEngineV2(model, params, device=d, packed=False,
+                                      max_sequences=4, max_seq_len=512,
+                                      block_size=16).put([0, 1], prompts)
+                 for d in ("cpu", "cuda")}
+        for uid, lg in dense["cpu"].items():
+            np.testing.assert_allclose(dense["cuda"][uid], lg, atol=5e-2,
+                                       rtol=5e-2)
+        assert KERNELS["paged_tile"].launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", sorted(PRESET_SHAPED))
+def test_head_dim_train_steps_on_card_match_the_cpu_engine(cuda_device,
+                                                           preset):
+    """Two ``train_batch`` steps at d = 96 and d = 256 (the preset-shaped
+    models) on the card (kernels D, E, F) and on the CPU, as the test
+    below: losses within 2e-2, grad norms within 5e-2 relative."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+    from deepspeed_tpu_torch.ops._build import KERNELS, reset_counts
+
+    model = TransformerLM(get_preset(preset, **PRESET_SHAPED[preset]))
+    params = model.init(seed=0, device="cpu")
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+              "gradient_clipping": 1.0, "steps_per_print": 100}
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 512, (2, 200)).astype(np.int32)}
+               for _ in range(4)]
+    reset_counts()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = tds.initialize(model, dict(config), model_parameters=params,
+                             device=dev)[0]
+        it = iter(batches)
+        runs[dev] = [(eng.train_batch(it), eng.get_global_grad_norm())
+                     for _ in range(2)]
+    (cl, cn), (gl, gn) = (np.array(runs[d]).T for d in ("cpu", "cuda"))
+    np.testing.assert_allclose(gl, cl, rtol=2e-2)
+    np.testing.assert_allclose(gn, cn, rtol=5e-2)
+    assert all(KERNELS[n].launches > 0
+               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
 @pytest.mark.cuda
@@ -461,14 +627,15 @@ def _card_quant_pools(dev, bits, nbp1=65, bs=128, K=8, d=128):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("window,shift", [(None, 0), (300, 0), (256, 9)])
 def test_kernel_a_int_modes_match_plain_on_card(cuda_device, bits, window,
-                                                shift):
+                                                shift, d):
     from deepspeed_tpu_torch.ops._build import KERNELS
 
-    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits)
-    q = torch.randn(6, 32, 128, generator=g, device=cuda_device).bfloat16()
+    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits, d=d)
+    q = torch.randn(6, 32, d, generator=g, device=cuda_device).bfloat16()
     slot = torch.tensor([0, 1, 2, 3, 0, 1], device=cuda_device)
     pos0 = torch.tensor([0, 1, 129, 700, 2047, 64], device=cuda_device)
     row = pos0 + shift
@@ -509,16 +676,17 @@ def _card_decode_case(dev, bits, H, K, d, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [16, 8, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("H,K", [(32, 8), (8, 8), (32, 4), (16, 1), (12, 3),
-                                 (40, 2)])
+                                 (40, 2), (32, 32)])
 @pytest.mark.parametrize("window", [None, 256])
 def test_kernel_a_splits_match_plain_on_card(cuda_device, bits, d, H, K,
                                              window):
-    """Kernel A in each pool mode (one launch a call), against the plain
-    version: H/K = 4, 1, 8 and 16 (int4 with even K and H/K <= 8 pairs two
-    kv heads a CTA; K = 1 and K = 3 read one nibble, and a K = 3 head's
-    features straddle the nibble halves), 20 (two 16-head CTAs a group);
+    """Kernel A in each pool mode (one launch a call) at every head dim,
+    against the plain version: H/K = 4, 1, 8 and 16 (int4 with even K and
+    H/K <= 8 pairs two kv heads a CTA; K = 1 and K = 3 read one nibble, and
+    a K = 3 head's features straddle the nibble halves), 20 (two 16-head
+    CTAs a group), and phi3-mini's H = K = 32 (pythia-1b's is H = K = 8);
     acc / l at 2e-2 and l at relative 2e-2, m at 1e-2; atoms with nothing
     visible give m = -1e30, l = 0, acc = 0."""
     from deepspeed_tpu_torch.ops._build import KERNELS
@@ -541,7 +709,7 @@ def test_kernel_a_splits_match_plain_on_card(cuda_device, bits, d, H, K,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 def test_kernel_a_int8_q_hat_is_the_wrappers_on_card(cuda_device, d):
     """The int8 mode's in-kernel q-hat: m within relative 1e-4 of the plain
     version's (which takes ``_quantize_q_rows``), where one q element off by
@@ -554,12 +722,13 @@ def test_kernel_a_int8_q_hat_is_the_wrappers_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("bits", [16, 8, 4])
 @pytest.mark.parametrize("window", [None, 256])
-def test_kernel_a_is_deterministic_on_card(cuda_device, bits, window):
+def test_kernel_a_is_deterministic_on_card(cuda_device, bits, window, d):
     """Two launches give the same bits: the splits merge in split order
     behind one ticket, whichever CTA finishes last."""
-    args, kw = _card_decode_case(cuda_device, bits, 32, 8, 128, window)
+    args, kw = _card_decode_case(cuda_device, bits, 32, 8, d, window)
     first = tpa.decode_pool_partials(*args, **kw)
     second = tpa.decode_pool_partials(*args, **kw)
     torch.cuda.synchronize()
@@ -568,14 +737,15 @@ def test_kernel_a_is_deterministic_on_card(cuda_device, bits, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
 def test_kernel_b_int_modes_match_plain_on_card(cuda_device, bits, tq,
-                                                window):
+                                                window, d):
     from deepspeed_tpu_torch.ops._build import KERNELS
 
-    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits)
-    q = torch.randn(3 * tq, 32, 128, generator=g, device=cuda_device).bfloat16()
+    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits, d=d)
+    q = torch.randn(3 * tq, 32, d, generator=g, device=cuda_device).bfloat16()
     slot = torch.tensor([0, 2, 3], device=cuda_device)
     pos0 = torch.tensor([256, 1000, 5], device=cuda_device)
     kw = dict(window=window, kv_scale=sc, kv_bits=bits)
@@ -634,21 +804,22 @@ def test_quant_engine_on_card_matches_plain_cpu_engine(cuda_device, wd, kd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("t,pos,window", [
     (1, [38, 129, 2047, 0], None),      # decode rows
     (1, [38, 129, 2047, 0], 300),
     (700, [0, 1, 1500, 1800], None),    # deep slots: padded rows pass 2048
     (100, [0, 64, 700, 1999], 90),
     (13, [5, 0, 2040, 300], 1)])
-def test_kernel_i_matches_plain_on_card(cuda_device, t, pos, window):
+def test_kernel_i_matches_plain_on_card(cuda_device, t, pos, window, d):
     """Kernel I over the stacked pool at layer 1, GQA 32 over 8 heads; rows
     whose positions pass the 16-block table included (both give a finite
     value there, 0 where nothing is visible). Held per 64-row tile, slot and
     head: late causal rows are small."""
     from deepspeed_tpu_torch.ops._build import KERNELS
 
-    kp, vp, bt, g = _card_pools(cuda_device)
-    q = torch.randn(4, t, 32, 128, generator=g, device=cuda_device).bfloat16()
+    kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
+    q = torch.randn(4, t, 32, d, generator=g, device=cuda_device).bfloat16()
     ps = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
     n = KERNELS["paged_tile"].launches
     out = tpa.paged_attention(q, kp, vp, bt, ps, window=window, layer=1)

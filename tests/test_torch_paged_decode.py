@@ -167,12 +167,13 @@ def test_decode_groups(H_, K_, bits, want):
 
 
 def test_kernel_args_refuse_what_the_kernel_is_not_built_for():
-    """Head dims other than 64 and 128 and windows below 1 raise before any
-    launch (the plain version takes them)."""
+    """Head dims outside ``CARD_HEAD_DIMS`` (64, 96, 128, 256) and windows
+    below 1 raise before any launch (the plain version takes them)."""
     kp, vp, bt, _ = _pools(16, 8, 4)
     q = torch.zeros(2, H, D, dtype=torch.bfloat16)
     meta = (torch.tensor([0, 1]), torch.tensor([5, 9]))
-    with pytest.raises(ValueError, match="head_dim 64 and 128"):
+    with pytest.raises(ValueError,
+                       match=r"head_dim in \(64, 96, 128, 256\), got 16"):
         tpa.decode_kernel_args(q, kp.bfloat16(), vp.bfloat16(), 1, bt, *meta)
     q = torch.zeros(2, H, 64, dtype=torch.bfloat16)
     pool = torch.zeros(2, 9, 8, K * 64, dtype=torch.bfloat16)
