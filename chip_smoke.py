@@ -10,8 +10,9 @@ Phases, in order (any failure raises and the script exits non-zero):
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
               fails the run) and shared memory of kernels D, E and F and of
-              A in each pool mode per head dim (64, 96, 128, 256), and of
-              G/H's multi-row kernel per weight width;
+              A in each pool mode per head dim (64, 96, 128, 256), of G/H's
+              decode kernel per weight width and row tile (8 or 16 rows),
+              and of G/H's multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -23,13 +24,17 @@ Phases, in order (any failure raises and the script exits non-zero):
               the same atoms over the pools quantized by
               ``packed_kv_append_quant``; G on the
               llama3-8b head (B=6, D=4096, F=128256) and H at layer 2 of a
-              4-layer stack of each layer product at B=256 -- wqkv (D=4096,
-              F=6144), wo (4096, 4096), w_gateup (4096, 28672), w_down
-              (14336, 4096) -- and of w_gateup at B=6, int4 and int8,
-              beside cuBLAS on the dense bf16 weight (H's launches cycle
-              over the stack's layers, each larger than L2); B=256 outputs
-              also per 64-row tile like dq/dk/dv below, and every output
-              bit for bit against a second launch;
+              stack of each layer product -- wqkv (D=4096, F=6144), wo
+              (4096, 4096), w_gateup (4096, 28672), w_down (14336, 4096)
+              -- at B=6 and B=256, and of w_gateup at B=1 and B=16 too,
+              int4 and int8, beside cuBLAS on the dense bf16 weights (the
+              decode rows, B <= 16, cycle over layers and dense copies
+              spanning three times L2, so every launch reads HBM, and are
+              timed from CUDA graphs of launches, each call one launch on
+              the card by the profiler's count; the B=256 rows cycle over
+              four layers); B=256 outputs also per 64-row tile like
+              dq/dk/dv below, and every output bit for bit against a
+              second launch;
               then the training shapes: D (held and timed as above) and
               the backward kernels E (dq) and F (dk, dv) at Llama-3.2-1B's
               B=4 T=2048 H=32 K=8 d=64 (causal) and at d=128 (B=1),
@@ -288,7 +293,8 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
                  unit: str, smem_symbol: str) -> None:
     """A kernel's ptxas report from the log of the build that made its
     library -- registers, stack frame and spill bytes per instantiation
-    (``pattern`` captures its template argument from the mangled name) --
+    (``pattern`` captures its template argument from the mangled name, or
+    a tuple of them) --
     beside the dynamic shared memory it launches with (``smem_symbol``, one
     int per variant). Spilled bytes fail the run."""
     import ctypes
@@ -298,7 +304,8 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
     for name, r in build.ptxas_report(path.read_text()).items():
         m = re.search(pattern, name)
         if m:
-            report[int(m.group(1))] = r
+            key = tuple(int(v) for v in m.groups())
+            report[key[0] if len(key) == 1 else key] = r
     smem = (ctypes.c_int * len(variants)).in_dll(build.library(lib),
                                                  smem_symbol)
     for i, v in enumerate(variants):
@@ -321,7 +328,8 @@ CARD_HEAD_DIMS = (64, 96, 128, 256)
 
 # (library, kernel, pattern of its mangled name, variants, unit, shared
 # memory symbol): kernels D, E and F and A's pool modes (int4: paired kv
-# heads, then one nibble) per head dim, and G/H's multi-row kernel
+# heads, then one nibble) per head dim, G/H's decode kernel (B <= 16) per
+# weight width and row tile (8 or 16 rows), and G/H's multi-row kernel
 # (16 < B <= 256) per weight width
 PTXAS_REPORTS = (
     ("paged_decode", "paged_decode",
@@ -342,6 +350,9 @@ PTXAS_REPORTS = (
      CARD_HEAD_DIMS, "d", "dst_flash_bwd_dq_smem_bytes"),
     ("flash_backward", "flash_bwd_dkv", r"flash_bwd_dkv_kernelILi(\d+)E",
      CARD_HEAD_DIMS, "d", "dst_flash_bwd_dkv_smem_bytes"),
+    ("quant_matmul", "qmm_rows", r"qmm_rows_kernelILi(\d+)ELi(\d+)E",
+     ((4, 1), (4, 2), (8, 1), (8, 2)), "(bits, n8 tiles)",
+     "dst_qmm_rows_smem_bytes"),
     ("quant_matmul", "qmm_tile", r"qmm_tile_kernelILi(\d+)E", (4, 8),
      "bits", "dst_qmm_tile_smem_bytes"),
 )
@@ -604,14 +615,35 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
     return rows
 
 
-def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape):
+def device_launches(torch, fn) -> int:
+    """Kernels the card ran for one call of ``fn``, counted by
+    ``torch.profiler`` (a ``Kernel`` record counts wrapper calls only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA)
+
+
+def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape,
+            dense, one_launch=True, cycle=4):
     """G (``layer`` None) or H on one product, held against the plain
     version -- per 64-row tile as well when there are more rows than one
     tile (``close_tiles``), and bit for bit against a second launch -- and
-    timed beside cuBLAS on the dense bf16 weight. H's launches cycle over
-    the stack's layers: each (58.7 MB int4 for w_gateup) is larger than the
-    50 MB L2, so every launch reads its weights from HBM, as in serving;
-    G's head is larger than L2 too."""
+    timed beside cuBLAS on the dense bf16 weights ``dense`` (one matrix a
+    layer, cycled). H's launches cycle over ``cycle`` layers of the stack
+    from layer ``layer``. At B <= 16 the decode kernel is shorter than its
+    launch from Python: its time (and cuBLAS's) comes from a CUDA graph of
+    launches (``decode_time.graph_ms``; ``loop_ms`` is the loop of
+    launches), and the call must be one launch on the card
+    (``one_launch``; ``launches_per_call`` counts it)."""
+    from deepspeed_tpu_torch.tools.decode_time import graph_ms
+
     name = "qmm" if layer is None else "qmm_stacked"
     out = qm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
     ref = qm.plain_quantized_matmul(x, packed, scales, bits, layer)
@@ -627,90 +659,119 @@ def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape):
     if not torch.equal(again, out):
         raise AssertionError(f"{name} int{bits} {shape}: two launches on the "
                              f"same inputs differ")
-    one = (packed, scales) if layer is None else (packed[layer],
-                                                  scales[layer])
-    dense = qm.dequantize_matmul_weight(*one, bits, D)
-    lib = time_ms(lambda: torch.matmul(x, dense))
-    del dense
     nbytes = B * D * 2 + D * F * bits // 8 + G * F * 2 + B * F * 2
     kern = KERNELS[name]
-    if layer is None:
-        args, _ = qm.qmm_kernel_args(x, packed, scales, bits)
-        t = timings(kern, args,
-                    lambda: qm.quantized_matmul(x, packed, scales, bits=bits),
-                    lambda: qm.plain_quantized_matmul(x, packed, scales,
-                                                      bits))
+    layers = [None] if layer is None else [
+        (layer + i) % packed.shape[0] for i in range(cycle)]
+    lay, mats = itertools.cycle(layers), itertools.cycle(dense)
+    args = [qm.qmm_kernel_args(x, packed, scales, bits, layer=i)[0]
+            for i in layers]
+    cyc = itertools.cycle(args)
+    n = 5 * len(layers)
+    t = dict(ms=time_ms(lambda: kern.launch(*next(cyc)), iters=n),
+             wrapper_ms=time_ms(lambda: qm.quantized_matmul(
+                 x, packed, scales, bits=bits, layer=next(lay)), iters=n),
+             plain_ms=time_ms(lambda: qm.plain_quantized_matmul(
+                 x, packed, scales, bits, layer), iters=5))
+    if B <= 16:
+        t["loop_ms"] = t["ms"]
+        t["ms"] = graph_ms(lambda: kern.launch(*qm.qmm_kernel_args(
+            x, packed, scales, bits, layer=next(lay))[0]))
+        lib = graph_ms(lambda: torch.matmul(x, next(mats)))
+        extra["launches_per_call"] = device_launches(
+            torch, lambda: qm.quantized_matmul(x, packed, scales, bits=bits,
+                                               layer=layer))
+        if one_launch and extra["launches_per_call"] != 1:
+            raise AssertionError(
+                f"{name} int{bits} {shape}: {extra['launches_per_call']} "
+                f"launches on the card for one call, not 1")
     else:
-        n = packed.shape[0]
-        arg_list = [qm.qmm_kernel_args(x, packed, scales, bits, layer=i)[0]
-                    for i in range(n)]
-        cyc, lay = itertools.cycle(arg_list), itertools.cycle(range(n))
-        t = dict(ms=time_ms(lambda: kern.launch(*next(cyc)), iters=5 * n),
-                 wrapper_ms=time_ms(lambda: qm.quantized_matmul(
-                     x, packed, scales, bits=bits, layer=next(lay)),
-                     iters=5 * n),
-                 plain_ms=time_ms(lambda: qm.plain_quantized_matmul(
-                     x, packed, scales, bits, layer), iters=5))
+        lib = time_ms(lambda: torch.matmul(x, next(mats)))
     return dict(err=err, bound=bound(nbytes, 2.0 * B * D * F),
                 library_ms=lib, library="torch.matmul (cuBLAS), dense bf16",
                 shape=shape, splits=qm.qmm_splits(B, F, G), **extra, **t)
 
 
 # llama3-8b's four quantized layer products (D, F): H runs each at B=256 in
-# the serve-quant phase's 256-row chunk steps, w_gateup at B=6 in decode too
+# the serve-quant phase's 256-row chunk steps and at B=6 in its decode steps
 QMM_LEAVES = (("w_gateup", 4096, 28672), ("wqkv", 4096, 6144),
               ("wo", 4096, 4096), ("w_down", 14336, 4096))
+# phase 3's rows of each product: every decode product at B=6, w_gateup
+# also at B=1 and B=16 (the decode kernel's two row tiles' ends), and every
+# product at B=256 (the multi-row kernel)
+QMM_ROWS = {"w_gateup": (6, 1, 16, 256), "wqkv": (6, 256), "wo": (6, 256),
+            "w_down": (6, 256)}
+L2_BYTES = 50e6                # H100 L2 cache
+COLD_BYTES = 3 * L2_BYTES      # what a cycle of weights spans at least
 
 
-def qmm_checks(torch, qm, KERNELS):
+def qmm_checks(torch, qm, KERNELS, one_launch=True):
     """G on the llama3-8b head (B=6, D=4096, F=128256); H on each layer
-    product of a 4-layer stack at layer 2, B=256, and on w_gateup at B=6
-    too; int4 and int8, from seeded random weights quantized by the port."""
+    product of a stack at layer 2 at the rows of ``QMM_ROWS``; int4 and
+    int8, from seeded random weights quantized by the port. The decode rows
+    (B <= 16) cycle over enough layers, and cuBLAS over enough dense copies,
+    that each launch reads its weights from HBM, as in serving (the stack
+    spans ``COLD_BYTES``, three times L2); the B=256 rows cycle over four
+    layers."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5678)
     D, V = 4096, 128256
     xs = {B: torch.randn(B, D, generator=g, device=dev).bfloat16()
-          for B in (6, 256)}
+          for B in (1, 6, 16, 256)}
     rows = {}
     head = torch.randn(D, V, generator=g, device=dev) / D ** 0.5
     for bits in (4, 8):
         p, sc = qm.quantize_matmul_weight(head, bits=bits)
+        sc = sc.bfloat16()
+        dense = [qm.dequantize_matmul_weight(p, sc, bits, D)]
         rows[f"qmm/int{bits}"] = qmm_row(
-            torch, qm, KERNELS, xs[6], p, sc.bfloat16(), bits, None,
-            f"llama3-8b head: B=6 D={D} F={V}, int{bits}")
-        del p, sc
+            torch, qm, KERNELS, xs[6], p, sc, bits, None,
+            f"llama3-8b head: B=6 D={D} F={V}, int{bits}", dense, one_launch)
+        del p, sc, dense
     del head
     for bits in (4, 8):
         for leaf, DL, F in QMM_LEAVES:
+            L = max(4, -(-int(COLD_BYTES) // (DL * F * bits // 8)))
             ps, ss = [], []
-            for _ in range(4):
+            for _ in range(L):
                 w = torch.randn(DL, F, generator=g, device=dev) / DL ** 0.5
                 p, sc = qm.quantize_matmul_weight(w, bits=bits)
                 ps.append(p)
                 ss.append(sc.bfloat16())
             stack = (torch.stack(ps), torch.stack(ss))
             del ps, ss, w
-            for B in ((6, 256) if leaf == "w_gateup" else (256,)):
+            nd = -(-int(COLD_BYTES) // (DL * F * 2))
+            dense = [qm.dequantize_matmul_weight(stack[0][(2 + i) % L],
+                                                 stack[1][(2 + i) % L],
+                                                 bits, DL)
+                     for i in range(nd)]
+            for B in QMM_ROWS[leaf]:
                 x = (xs[B] if DL == D else
                      torch.randn(B, DL, generator=g, device=dev).bfloat16())
                 key = f"qmm_stacked/int{bits}/B{B}"
                 rows[key if leaf == "w_gateup" else f"{key}/{leaf}"] = \
                     qmm_row(torch, qm, KERNELS, x, *stack, bits, 2,
-                            f"{leaf}, layer 2 of 4: B={B} D={DL} F={F}, "
-                            f"int{bits}")
-            del stack
+                            f"{leaf}, layer 2 of {L if B <= 16 else 4}: "
+                            f"B={B} D={DL} F={F}, int{bits}",
+                            dense if B <= 16 else dense[:1], one_launch,
+                            cycle=L if B <= 16 else 4)
+            del stack, dense
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for name, r in rows.items():
         tiles = (f", worst 64-row tile err / tile max |plain| "
                  f"{r['tiles']['out'][2]:.3e} (gate {BWD_REL})"
                  if "tiles" in r else "")
+        graph = (f", a graph of launches (loop {r['loop_ms']:.4f} ms), "
+                 f"{r['launches_per_call']} launch(es) a call"
+                 if "loop_ms" in r else "")
         log(f"kernel {name}: max_abs_err {r['err']:.3e}{tiles}, kernel "
-            f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['ms']:.4f} ms{graph} (wrapper {r['wrapper_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}, library {r['library_ms']:.4f} ms cuBLAS; "
             f"{r['splits']} split(s), kernel / cuBLAS "
-            f"{r['ms'] / r['library_ms']:.2f}) [{r['shape']}]")
+            f"{r['ms'] / r['library_ms']:.2f}, kernel / bound "
+            f"{r['ms'] / r['bound'][0]:.2f}) [{r['shape']}]")
     return rows
 
 
@@ -2289,8 +2350,10 @@ def main() -> int:
             e["grad_max_abs_err"] = r["grad_err"]
         if "splits" in r:
             e["splits"] = r["splits"]
-        if "loop_ms" in r:                   # A: ms from a CUDA graph
+        if "loop_ms" in r:                   # A, G/H at B <= 16: a CUDA graph
             e["loop_ms"] = r["loop_ms"]
+        if "launches_per_call" in r:         # G/H at B <= 16
+            e["launches_per_call"] = r["launches_per_call"]
         if "turns" in r:
             e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",
                                       "library_again"), r["turns"]))

@@ -22,13 +22,33 @@
 //
 // qmm_rows_kernel, B <= 16 (decode). Bound: the packed weight bytes -- 2 B
 // FLOPs per weight byte (int8) or 4 (int4), far below the ~295 FLOP/byte
-// ridge -- so weight bytes / 3.35 TB/s. A CTA owns 16 rows x 64 columns and
-// walks its groups in 128-row chunks: the chunk's packed tile comes in with
-// 16-byte loads (the next chunk's are issued before this chunk's products),
-// is unpacked to bf16 in shared memory, and four warps each take one wmma
-// 16x16x16 product per 16 columns; after each group the product is scaled in
-// registers. A product too narrow to give every SM eight CTAs splits its
-// groups over grid.z.
+// ridge -- so weight bytes / 3.35 TB/s. Reaching it takes ~25 KB of weight
+// bytes in flight an SM (3.35 TB/s x ~1 us / 132) and few instructions a
+// byte, so:
+//   * the product is transposed, out^T = W^T x^T, on mma.sync m16n8k16:
+//     sixteen weight columns are the A operand's rows and the B <= 8 (or
+//     16) rows of x one (or two) n8 operands, so at B = 6 six of eight
+//     product columns work, not six of sixteen. An A fragment of W^T holds,
+//     for each column, two k-adjacent weights: the pairs an ldmatrix.trans
+//     of the packed bytes hands each thread, which frag_int8 / frag_int4
+//     turn into bf16 exactly (A row g of a 16-column window is column 2g,
+//     row g + 8 column 2g + 1). No bf16 tile is written to shared memory;
+//   * a CTA owns RN = 128 columns (128-byte segments of each packed row)
+//     and splits its share of the contraction over its RWARPS warps, each
+//     a contiguous run of whole groups: every warp streams its own rows
+//     through its own RSTAGES-deep ring of cp.async.cg copies (RB packed
+//     rows, their x columns, and at a group's last stage its scales), run
+//     by one FULL mbarrier a slot. A warp refills only a slot it has read
+//     itself, so no EMPTY barrier and no CTA-wide barrier stop it; x rows
+//     past B arrive as zeros (the copy's src-size);
+//   * per group, a fresh fp32 sum (mma_bf16_zero), then acc += sum x
+//     scale[g, col] in registers, groups in ascending order; at the end the
+//     warps' sums are added in shared memory, in warp order;
+//   * a product too narrow to fill the card splits its groups over grid.z
+//     (ops/quant_matmul.py::qmm_splits). Each split writes its fp32 partial;
+//     the last CTA of a column tile to arrive (an atomic ticket, reset by
+//     that CTA for the next launch) adds them in split order and writes
+//     the bf16 output: one launch a call, the same bits every launch.
 //
 // qmm_tile_kernel, 16 < B <= 256 (chunk steps of prefill and mixed batches).
 // Bound at B = 256 on w_gateup (D = 4096, F = 28672): operations, 60.1 GFLOP
@@ -62,14 +82,13 @@
 //   * a product too narrow to fill one wave of CTAs (one CTA an SM at B = 256:
 //     wo and w_down) splits its groups over grid.z, as many splits as keep
 //     the grid within one wave (ops/quant_matmul.py::qmm_splits).
-// Splits write fp32 partials and split_sum_kernel adds them in split order:
-// no atomics, so two launches on the same inputs give the same bits.
+// Its splits write fp32 partials and split_sum_kernel adds them in split
+// order: no atomics, so two launches on the same inputs give the same bits.
 // Not yet: wgmma and TMA (one multicast x tile for a cluster of column
 // tiles would halve the x reads), and a persistent grid (w_gateup at B = 256
 // is 3.4 waves of CTAs).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -80,14 +99,12 @@ namespace dq {
 
 using bf16 = __nv_bfloat16;
 using dst::pack_bf16x2;
-using dst::unpack16;
 
 // qmm_rows_kernel (B <= 16)
-constexpr int BN = 64;          // output columns per CTA
-constexpr int KC = 128;         // weight rows per chunk
-constexpr int NTHREADS = 128;   // 4 warps; warp w owns columns [16 w, 16 w + 16)
-constexpr int XLD = KC + 8;     // padded bf16 leading dims: wmma needs ldm % 8 == 0
-constexpr int WLD = BN + 8;     // and 32-byte aligned tile pointers
+constexpr int RN = 128;        // output columns per CTA: 128-byte segments of each packed row
+constexpr int RWARPS = 4;      // warps per CTA, each a contiguous run of the split's groups
+constexpr int RB = 32;         // packed rows a stage
+constexpr int RSTAGES = 4;     // depth of each warp's cp.async ring
 
 // qmm_tile_kernel (16 < B <= 256)
 constexpr int TM = 128;         // rows of x per CTA
@@ -96,129 +113,7 @@ constexpr int TK = 128;         // weight rows per stage
 constexpr int STAGES = 3;       // depth of the cp.async ring
 constexpr int TWARPS = 8;       // 2 x 4 warps of 64 rows x 32 columns
 
-struct RowSmem {
-  static constexpr size_t x_off = 0;
-  static constexpr size_t w_off = x_off + size_t(16) * XLD * 2;
-  static constexpr size_t c_off = w_off + size_t(KC) * WLD * 2;
-  static constexpr size_t bytes = c_off + size_t(4) * 256 * 4;
-};
-
-template <int BITS>
-__global__ void __launch_bounds__(NTHREADS)
-    qmm_rows_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                    const bf16* __restrict__ scales, bf16* __restrict__ out,
-                    float* __restrict__ work, int B, int D, int F, int G, int per) {
-  using namespace nvcuda;
-  using SM = RowSmem;
-  // packed weight bytes of one chunk, and 16-byte loads per thread
-  constexpr int WROWS = BITS == 8 ? KC : KC / 2;
-  constexpr int WV = WROWS * BN / 16 / NTHREADS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem + SM::x_off);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + SM::w_off);
-  float* Cs = reinterpret_cast<float*>(smem + SM::c_off);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * BN;
-  const int g_lo = blockIdx.z * per, g_hi = min(G, g_lo + per);
-  const int group = D / G, chunks = group / KC;
-  // this lane's 8 fragment elements of the 16x16 tile: row er, columns
-  // ec .. ec + 7 (read back through Cs, whose layout is row-major)
-  const int er = lane / 2, ec = (lane % 2) * 8;
-  const int col = n0 + warp * 16 + ec;
-  float acc[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-
-  // first packed row (in W's row units) of chunk c of group g
-  auto w_row0 = [&](int g, int c) { return g * (group * WROWS / KC) + c * WROWS; };
-  uint4 wreg[WV];
-  auto load_w = [&](int g, int c) {
-    const int r0 = w_row0(g, c);
-#pragma unroll
-    for (int j = 0; j < WV; ++j) {
-      const int i = threadIdx.x + j * NTHREADS;
-      const int r = i / (BN / 16), cv = i % (BN / 16);
-      wreg[j] = *reinterpret_cast<const uint4*>(w + size_t(r0 + r) * F + n0 + cv * 16);
-    }
-  };
-  auto store_w = [&]() {
-#pragma unroll
-    for (int j = 0; j < WV; ++j) {
-      const int i = threadIdx.x + j * NTHREADS;
-      const int r = i / (BN / 16), cv = i % (BN / 16);
-      if (BITS == 8) {
-        unpack16<0>(wreg[j], Ws + r * WLD + cv * 16);
-      } else {
-        unpack16<1>(wreg[j], Ws + r * WLD + cv * 16);
-        unpack16<2>(wreg[j], Ws + (r + KC / 2) * WLD + cv * 16);
-      }
-    }
-  };
-  // x columns of tile row kk in chunk c of group g (see the int4 note above)
-  auto load_x = [&](int g, int c) {
-    for (int i = threadIdx.x; i < 16 * (KC / 8); i += NTHREADS) {
-      const int r = i / (KC / 8), kk = (i % (KC / 8)) * 8;
-      int xc;
-      if (BITS == 8) {
-        xc = g * group + c * KC + kk;
-      } else {
-        xc = g * group + c * (KC / 2) + (kk < KC / 2 ? kk : group / 2 + kk - KC / 2);
-      }
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < B) v = *reinterpret_cast<const uint4*>(x + size_t(r) * D + xc);
-      *reinterpret_cast<uint4*>(Xs + r * XLD + kk) = v;
-    }
-  };
-
-  if (g_lo < g_hi) load_w(g_lo, 0);
-  for (int g = g_lo; g < g_hi; ++g) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-    wmma::fill_fragment(cf, 0.f);
-    for (int c = 0; c < chunks; ++c) {
-      __syncthreads();  // the previous chunk's products are done with Xs / Ws
-      store_w();
-      load_x(g, c);
-      if (c + 1 < chunks) {
-        load_w(g, c + 1);
-      } else if (g + 1 < g_hi) {
-        load_w(g + 1, 0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k0 = 0; k0 < KC; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Ws + k0 * WLD + warp * 16, WLD);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-        wmma::load_matrix_sync(afr, Xs + k0, XLD);
-        wmma::mma_sync(cf, afr, bfr, cf);
-      }
-    }
-    // scale this group's products by its column scales, in fp32
-    const uint4 sraw = *reinterpret_cast<const uint4*>(scales + size_t(g) * F + col);
-    const bf16* sv = reinterpret_cast<const bf16*>(&sraw);
-    float* cs = Cs + warp * 256;
-    wmma::store_matrix_sync(cs, cf, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] += cs[er * 16 + ec + e] * __bfloat162float(sv[e]);
-    __syncwarp();
-  }
-
-  if (er >= B) return;
-  if (work == nullptr) {
-    uint4 o;
-    o.x = pack_bf16x2(acc[0], acc[1]); o.y = pack_bf16x2(acc[2], acc[3]);
-    o.z = pack_bf16x2(acc[4], acc[5]); o.w = pack_bf16x2(acc[6], acc[7]);
-    *reinterpret_cast<uint4*>(out + size_t(er) * F + col) = o;
-  } else {
-    float4* p = reinterpret_cast<float4*>(work + (size_t(blockIdx.z) * B + er) * F + col);
-    p[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    p[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-}
-
-// ---- qmm_tile_kernel ------------------------------------------------------
+// ---- primitives -----------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -299,8 +194,9 @@ __device__ __forceinline__ void unroll(Fn&& f) {
   unroll_seq(f, std::make_integer_sequence<int, N>{});
 }
 
-// B fragments straight from the packed bytes (frag_int8 / frag_int4 of
-// int_unpack.cuh). ldmatrix.trans on bytes (an 8 x 8 matrix of b16 = 8 byte
+// Fragments straight from the packed bytes (frag_int8 / frag_int4 of
+// int_unpack.cuh): qmm_tile_kernel's B fragments, qmm_rows_kernel's A
+// fragments. ldmatrix.trans on bytes (an 8 x 8 matrix of b16 = 8 byte
 // rows k of 16 columns) gives thread (g, t) one 32-bit word: bytes 0, 1 =
 // row 2t at columns 2g, 2g + 1, and bytes 2, 3 = row 2t + 1 at the same
 // columns. Bytes 0 and 2 make the B fragment word of column 2g, bytes 1 and
@@ -309,6 +205,282 @@ __device__ __forceinline__ void unroll(Fn&& f) {
 // kb + group/2): frag_int4's lo and hi.
 using dst::frag_int4;
 using dst::frag_int8;
+
+// x's B fragments of rows [0, 8) (one n8 tile) from a bf16 tile: lanes 0-15
+// address the two 8 x 8 matrices, k xk .. +7 and xk + 8 .. +15
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c = a b (ZERO) or c += a b
+template <bool ZERO>
+__device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  if constexpr (ZERO)
+    mma_bf16_zero(c, a, b[0], b[1]);
+  else
+    mma_bf16(c, a, b[0], b[1]);
+}
+
+// ---- qmm_rows_kernel ------------------------------------------------------
+
+// One warp's ring: RSTAGES slots of [RB packed rows of RN bytes | the x
+// columns they multiply, NT x 8 rows | the group's RN scales]. Row pitches
+// carry 16 bytes of skew so every ldmatrix phase hits 8 distinct bank quads.
+// After its last stage a warp writes its sums over its own ring.
+template <int BITS, int NT>
+struct RowSmem {
+  static constexpr int WP = RN + 16;                   // byte pitch of the packed rows
+  static constexpr int XK = BITS == 8 ? RB : 2 * RB;   // x columns a stage
+  static constexpr int XP = XK + 8;                    // bf16 pitch of the x tile
+  static constexpr size_t X_OFF = size_t(RB) * WP;
+  static constexpr size_t S_OFF = X_OFF + size_t(NT) * 8 * XP * 2;
+  static constexpr size_t STAGE = S_OFF + size_t(RN) * 2;
+  static constexpr size_t WARP = RSTAGES * STAGE;
+  static constexpr size_t SUMS = size_t(RN / 16) * NT * 4 * 32 * 4;  // a warp's fp32 sums
+  static_assert(SUMS <= WARP, "a warp's sums fit over its ring");
+  static constexpr size_t BYTES = RWARPS * WARP;
+};
+
+// The split tickets, one a column tile: zero between launches (the last CTA
+// of a tile resets its own). Launches must be ordered (one stream).
+constexpr int MAX_TILES = 4096;
+__device__ int row_tickets[MAX_TILES];
+
+// out[B, F] (or split blockIdx.z's fp32 partial) for B <= 8 NT rows; see the
+// file's note. Thread (g, t) = lane (4 g + t) holds, of m tile j (columns
+// 16 j .. +15 of the CTA's) and n tile n, c[0], c[1] = column 16 j + 2 g at
+// rows 8 n + 2 t, + 1 and c[2], c[3] = column 16 j + 2 g + 1 at the same rows.
+template <int BITS, int NT>
+__global__ void __launch_bounds__(RWARPS * 32, 2)
+    qmm_rows_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                    const bf16* __restrict__ scales, bf16* __restrict__ out,
+                    float* __restrict__ work, int B, int D, int F, int G, int per) {
+  using SM = RowSmem<BITS, NT>;
+  constexpr int WP = SM::WP, XK = SM::XK, XP = SM::XP, MT = RN / 16;
+  // 16-byte pieces a lane copies a stage: packed piece column lane % 8 of
+  // rows lane / 8 + 4 i (i < RB / 4); x pieces lane + 32 i (i < XN) of the
+  // NT x 8 rows of XC pieces
+  constexpr int XC = XK / 8, XN = NT * 8 * XC / 32;
+  static_assert(RN == 128 && RB % 16 == 0 && NT * 8 * XC % 32 == 0, "whole pieces a lane");
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[RWARPS * RSTAGES];
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * RN;
+  const int g_lo = blockIdx.z * per, ng = max(0, min(G, g_lo + per) - g_lo);
+  const int group = D / G, rows = BITS == 8 ? group : group / 2;  // packed rows a group
+  const int spg = rows / RB;                                       // stages a group
+  // this warp's groups [wg, wg_end): a contiguous share of the split's
+  const int wg = g_lo + warp * ng / RWARPS, wg_end = g_lo + (warp + 1) * ng / RWARPS;
+  const int nstages = (wg_end - wg) * spg;
+  unsigned char* wsm = smem + warp * SM::WARP;
+  const uint32_t ring = smem_u32(wsm), full0 = smem_u32(bars + warp * RSTAGES);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < RSTAGES; ++k) mbar_init(full0 + k * 8, 32);
+  }
+  __syncthreads();
+
+  // The copies of stage t (part j of group gg): packed rows [j RB, +RB) of
+  // the group; their x columns -- int8: [j RB, +RB) of the group; int4:
+  // [j RB, +RB) (low nibbles) then [group/2 + j RB, +RB) (high nibbles).
+  const int8_t* w_src = w + size_t(lane >> 3) * F + n0 + (lane & 7) * 16;
+  const uint32_t w_dst = (lane >> 3) * WP + (lane & 7) * 16;
+  size_t x_off[XN];
+  uint32_t x_dst[XN];
+  bool x_ok[XN];
+#pragma unroll
+  for (int i = 0; i < XN; ++i) {
+    const int p = lane + 32 * i, r = p / XC, kk = (p % XC) * 8;
+    x_ok[i] = r < B;
+    x_off[i] = size_t(r) * D + (BITS == 8 || kk < RB ? kk : group / 2 + kk - RB);
+    x_dst[i] = SM::X_OFF + (r * XP + kk) * 2;
+  }
+  int ig = wg, ij = 0;  // the next stage to issue: group and part
+  auto issue = [&](int t) {
+    if (t >= nstages) return;
+    const int k = t % RSTAGES;
+    const uint32_t st = ring + k * SM::STAGE;
+    const int8_t* src = w_src + (size_t(ig) * rows + ij * RB) * F;
+#pragma unroll
+    for (int i = 0; i < RB / 4; ++i)
+      cp_async16(st + w_dst + i * 4 * WP, src + size_t(4 * i) * F, 16);
+    const size_t xcol = size_t(ig) * group + ij * RB;
+#pragma unroll
+    for (int i = 0; i < XN; ++i)
+      cp_async16(st + x_dst[i], x_ok[i] ? x + x_off[i] + xcol : x, x_ok[i] ? 16 : 0);
+    if (ij == spg - 1 && lane < RN / 8)
+      cp_async16(st + SM::S_OFF + lane * 16, scales + size_t(ig) * F + n0 + lane * 8, 16);
+    mbar_arrive_on_copies(full0 + k * 8);
+    if (++ij == spg) ij = 0, ++ig;
+  };
+
+  float acc[MT][NT][4], gsum[MT][NT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  // x's B fragments of the k step at x tile column xk
+  auto load_x = [&](uint32_t xs, int xk, uint32_t(&b)[NT][2]) {
+    if constexpr (NT == 1) {
+      ldsm_x2(b[0], xs + ((lane & 7) * XP + xk + ((lane >> 3) & 1) * 8) * 2);
+    } else {
+      uint32_t r[4];
+      ldsm_x4(r, xs + (((lane & 7) + ((lane >> 4) & 1) * 8) * XP + xk + ((lane >> 3) & 1) * 8) * 2);
+      b[0][0] = r[0], b[0][1] = r[1], b[1][0] = r[2], b[1][1] = r[3];
+    }
+  };
+  // One stage's products; FIRST: the group's first stage, whose first k
+  // step starts each sum from zero (a template argument: no branch in the
+  // unrolled body). Byte rows [16 kb, +16) of columns [32 h, +32) come in as
+  // one ldmatrix.trans x4: matrices (rows +0, cols +0), (+8, +0), (+0, +16),
+  // (+8, +16), whose words r[0] .. r[3] become the A fragments of m tiles
+  // 2 h (from r[0], r[1]) and 2 h + 1 (r[2], r[3]).
+  auto products = [&](uint32_t ws, auto first_c) {
+    constexpr bool FIRST = decltype(first_c)::value;
+    const uint32_t xs = ws + SM::X_OFF;
+    unroll<RB / 16>([&](auto kb_c) {
+      constexpr int kb = decltype(kb_c)::value;
+      constexpr bool ZERO = FIRST && kb == 0;
+      // int8: the k step's x columns [16 kb, +16); int4: the low nibbles'
+      // [16 kb, +16), the high nibbles' [RB + 16 kb, +16)
+      uint32_t bx[BITS == 8 ? 1 : 2][NT][2];
+      load_x(xs, 16 * kb, bx[0]);
+      if constexpr (BITS == 4) load_x(xs, RB + 16 * kb, bx[1]);
+      unroll<RN / 32>([&](auto h_c) {
+        constexpr int h = decltype(h_c)::value;
+        uint32_t r[4];
+        ldsm_x4_trans(r, ws + (16 * kb + ((lane >> 3) & 1) * 8 + (lane & 7)) * WP + h * 32 +
+                             (lane >> 4) * 16);
+        if constexpr (BITS == 8) {
+          const uint2 f0 = frag_int8(r[0]), f1 = frag_int8(r[1]);
+          const uint2 f2 = frag_int8(r[2]), f3 = frag_int8(r[3]);
+          const uint32_t a0[4] = {f0.x, f0.y, f1.x, f1.y}, a1[4] = {f2.x, f2.y, f3.x, f3.y};
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            mma_acc<ZERO>(gsum[2 * h][n], a0, bx[0][n]);
+            mma_acc<ZERO>(gsum[2 * h + 1][n], a1, bx[0][n]);
+          }
+        } else {
+          uint2 l0, h0, l1, h1, l2, h2, l3, h3;
+          frag_int4(r[0], l0, h0);
+          frag_int4(r[1], l1, h1);
+          frag_int4(r[2], l2, h2);
+          frag_int4(r[3], l3, h3);
+          const uint32_t a0[4] = {l0.x, l0.y, l1.x, l1.y}, a1[4] = {l2.x, l2.y, l3.x, l3.y};
+          const uint32_t b0[4] = {h0.x, h0.y, h1.x, h1.y}, b1[4] = {h2.x, h2.y, h3.x, h3.y};
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            mma_acc<ZERO>(gsum[2 * h][n], a0, bx[0][n]);
+            mma_acc<ZERO>(gsum[2 * h + 1][n], a1, bx[0][n]);
+            mma_acc<false>(gsum[2 * h][n], b0, bx[1][n]);
+            mma_acc<false>(gsum[2 * h + 1][n], b1, bx[1][n]);
+          }
+        }
+      });
+    });
+  };
+
+#pragma unroll
+  for (int t = 0; t < RSTAGES - 1; ++t) issue(t);
+  int cj = 0;  // part of the group the products are in
+  for (int s = 0; s < nstages; ++s) {
+    issue(s + RSTAGES - 1);  // into the slot read last iteration
+    const int k = s % RSTAGES;
+    mbar_wait(full0 + k * 8, (s / RSTAGES) & 1);  // stage s landed
+    const uint32_t ws = ring + k * SM::STAGE;
+    const bool first = cj == 0, last = ++cj == spg;
+    if (last) cj = 0;
+    if (first)
+      products(ws, std::true_type{});
+    else
+      products(ws, std::false_type{});
+    if (last) {  // the group ends: acc += its sum x its column scales
+      const unsigned char* sc = wsm + k * SM::STAGE + SM::S_OFF + (lane >> 2) * 4;
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(sc + j * 32);
+        const float s0 = __low2float(s2), s1 = __high2float(s2);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          acc[j][n][0] = fmaf(gsum[j][n][0], s0, acc[j][n][0]);
+          acc[j][n][1] = fmaf(gsum[j][n][1], s0, acc[j][n][1]);
+          acc[j][n][2] = fmaf(gsum[j][n][2], s1, acc[j][n][2]);
+          acc[j][n][3] = fmaf(gsum[j][n][3], s1, acc[j][n][3]);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with slot k before it is refilled
+  }
+
+  // the warps' sums, added in warp order: warp w adds m tiles [w MT/RWARPS, +MT/RWARPS)
+  float* sums = reinterpret_cast<float*>(wsm);
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sums[((j * NT + n) * 4 + e) * 32 + lane] = acc[j][n][e];
+  __syncthreads();
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int jj = 0; jj < MT / RWARPS; ++jj) {
+    const int j = warp * (MT / RWARPS) + jj;
+    const int col = n0 + 16 * j + 2 * (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = 0.f;
+#pragma unroll
+        for (int u = 0; u < RWARPS; ++u)
+          v[e] += reinterpret_cast<const float*>(smem + u * SM::WARP)[((j * NT + n) * 4 + e) * 32 +
+                                                                      lane];
+      }
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = 8 * n + 2 * (lane & 3) + rh;
+        if (row >= B) continue;
+        if (split)
+          *reinterpret_cast<float2*>(work + (size_t(blockIdx.z) * B + row) * F + col) =
+              make_float2(v[rh], v[2 + rh]);
+        else
+          *reinterpret_cast<uint32_t*>(out + size_t(row) * F + col) = pack_bf16x2(v[rh], v[2 + rh]);
+      }
+    }
+  }
+  if (!split) return;
+
+  // the ticket: the last split of this column tile to finish adds them all
+  __threadfence();  // this thread's partial, before the ticket
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = row_tickets + blockIdx.x;
+    const bool last = atomicAdd(ticket, 1) == int(gridDim.z) - 1;
+    if (last) *ticket = 0;  // every split has taken its ticket: ready for the next launch
+    is_last = last;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t stride = size_t(B) * F;
+  for (int i = tid; i < B * RN; i += RWARPS * 32) {
+    const size_t o = size_t(i / RN) * F + n0 + i % RN;
+    float s = 0.f;
+    for (int z = 0; z < int(gridDim.z); ++z) s += __ldcg(work + z * stride + o);
+    out[o] = __float2bfloat16(s);
+  }
+}
+
+// ---- qmm_tile_kernel ------------------------------------------------------
 
 // Shared memory: a STAGES-deep ring of slots [x tile | packed weight bytes |
 // the group's scales]. Row pitches carry 16 bytes of skew so every ldmatrix
@@ -558,7 +730,7 @@ __global__ void split_sum_kernel(const float* __restrict__ work, bf16* __restric
   }
 }
 
-// kern on grid, then the split sum when there are splits
+// qmm_tile_kernel on grid, then the split sum when there are splits
 template <typename Kern>
 int launch_split(Kern kern, size_t smem_bytes, dim3 grid, int threads, const bf16* x,
                  const int8_t* w, const bf16* s, bf16* out, float* work, int B, int D, int F,
@@ -577,12 +749,28 @@ int launch_split(Kern kern, size_t smem_bytes, dim3 grid, int threads, const bf1
   return static_cast<int>(cudaGetLastError());
 }
 
+// qmm_rows_kernel: one launch, its splits added by the kernel's last CTA of
+// each column tile
+template <int BITS, int NT>
+int launch_rows(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float* work, int B,
+                int D, int F, int G, int splits, cudaStream_t stream) {
+  using SM = RowSmem<BITS, NT>;
+  if (splits > 1 && F / RN > MAX_TILES) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(qmm_rows_kernel<BITS, NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(SM::BYTES));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per = (G + splits - 1) / splits;
+  qmm_rows_kernel<BITS, NT><<<dim3(F / RN, 1, splits), RWARPS * 32, SM::BYTES, stream>>>(
+      x, w, s, out, splits > 1 ? work : nullptr, B, D, F, G, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS>
 int launch_bits(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float* work, int B,
                 int D, int F, int G, int splits, cudaStream_t stream) {
-  if (B <= 16)
-    return launch_split(qmm_rows_kernel<BITS>, RowSmem::bytes, dim3(F / BN, 1, splits),
-                        NTHREADS, x, w, s, out, work, B, D, F, G, splits, stream);
+  if (B <= 8) return launch_rows<BITS, 1>(x, w, s, out, work, B, D, F, G, splits, stream);
+  if (B <= 16) return launch_rows<BITS, 2>(x, w, s, out, work, B, D, F, G, splits, stream);
   return launch_split(qmm_tile_kernel<BITS>, TileSmem<BITS>::BYTES,
                       dim3((B + TM - 1) / TM, F / TN, splits), TWARPS * 32, x, w, s, out, work,
                       B, D, F, G, splits, stream);
@@ -591,8 +779,8 @@ int launch_bits(const bf16* x, const int8_t* w, const bf16* s, bf16* out, float*
 int launch(const void* x, const void* w, const void* s, void* out, float* work, int B, int D,
            int F, int G, int bits, int splits, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (B > 256 || D % KC || F % TN || F % BN || G <= 0 || D % G || (D / G) % KC ||
-      (D / G) % TK || splits < 1 || (splits > 1 && work == nullptr) || (bits != 4 && bits != 8))
+  if (B > 256 || D % TK || F % TN || F % RN || G <= 0 || D % G || (D / G) % TK || splits < 1 ||
+      (splits > 1 && work == nullptr) || (bits != 4 && bits != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
   const int8_t* wb = static_cast<const int8_t*>(w);
@@ -628,5 +816,11 @@ int dst_qmm_stacked(const void* x, const void* w, const void* scales, void* out,
 // const has internal linkage otherwise).
 extern const int dst_qmm_tile_smem_bytes[2] = {static_cast<int>(dq::TileSmem<4>::BYTES),
                                                static_cast<int>(dq::TileSmem<8>::BYTES)};
+
+// qmm_rows_kernel's dynamic shared memory in bytes: int4 at B <= 8 and at
+// B <= 16, then int8 at the same
+extern const int dst_qmm_rows_smem_bytes[4] = {
+    static_cast<int>(dq::RowSmem<4, 1>::BYTES), static_cast<int>(dq::RowSmem<4, 2>::BYTES),
+    static_cast<int>(dq::RowSmem<8, 1>::BYTES), static_cast<int>(dq::RowSmem<8, 2>::BYTES)};
 
 }  // extern "C"

@@ -34,12 +34,14 @@ from deepspeed_tpu_torch.ops import cuda_operand, on_cpu, stream_ptr
 from deepspeed_tpu_torch.ops._build import KERNELS
 
 MAX_ROWS = 256          # widest activation batch the kernels take
-# csrc/quant_matmul.cu's tiles: B <= 16 rows take qmm_rows_kernel (16 rows x
-# _BN columns a CTA), more take qmm_tile_kernel (_TM rows x _TN columns)
-_BN = 64
+# csrc/quant_matmul.cu's tiles: B <= 16 rows take qmm_rows_kernel (_RN
+# columns a CTA, its contraction split over _RWARPS warps of whole groups),
+# more take qmm_tile_kernel (_TM rows x _TN columns)
+_RN = 128
+_RWARPS = 4
 _TM = _TN = 128
 _SMS = 132              # H100 SXM streaming multiprocessors
-_CTAS_PER_SM = 8        # the split target of qmm_splits at B <= 16
+_ROW_CTAS_PER_SM = 2    # qmm_rows_kernel's CTAs an SM (its shared memory)
 
 
 def quantize_matmul_weight(w: torch.Tensor, bits: int = 4, group: int = 128
@@ -120,16 +122,24 @@ def uses_kernel(x: torch.Tensor, scales: torch.Tensor) -> bool:
 
 def qmm_splits(B: int, F: int, G: int) -> int:
     """Contraction splits so a narrow product still fills the card (each
-    split sums a range of groups; a second pass adds the splits in order).
-    At B <= 16 the kernel is latency-bound, so more CTAs in flight is the
-    cheapest speed: enough for eight per SM (``tools/qmm_sweep.py``). Above,
-    one 256-thread CTA holds an SM and each does the same work, so the most
+    split sums a range of groups). At B <= 16 the kernel's last CTA of each
+    column tile adds the splits: the most splits that keep the grid within
+    one wave of ``_ROW_CTAS_PER_SM`` CTAs an SM while every split's groups
+    share evenly over the CTA's ``_RWARPS`` warps, which take whole groups
+    (``tools/qmm_sweep.py`` on the card: more CTAs, or warps given unequal
+    runs, were slower). Above 16 rows a second pass adds them, and one
+    256-thread CTA holds an SM and each does the same work, so the most
     splits that keep the grid within one wave: more would only add waves
     and partial-sum traffic."""
     if B <= 16:
-        want = -(-_CTAS_PER_SM * _SMS // (F // _BN))
-    else:
-        want = _SMS // ((F // _TN) * -(-B // _TM))
+        tiles = F // _RN
+        for per in range(_RWARPS, G, _RWARPS):
+            splits = -(-G // per)     # the kernel's per is ceil(G / splits)
+            if (-(-G // splits) == per
+                    and tiles * splits <= _ROW_CTAS_PER_SM * _SMS):
+                return splits
+        return 1
+    want = _SMS // ((F // _TN) * -(-B // _TM))
     per = -(-G // min(G, max(1, want)))
     return -(-G // per)
 

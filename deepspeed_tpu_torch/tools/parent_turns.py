@@ -1,19 +1,23 @@
-"""Phase 3's d = 64 / 128 kernel rows of a parent tree and of this one, in
-turns on one card, and whether their d = 64 / 128 attention kernels
-compiled to the same SASS.
+"""Phase 3's d = 64 / 128 kernel rows and G/H rows of a parent tree and of
+this one, in turns on one card, and whether their d = 64 / 128 attention
+kernels and G/H's multi-row kernel compiled to the same SASS.
 
     python -m deepspeed_tpu_torch.tools.parent_turns build/parent
 
 The parent is a checkout unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists. Each reading runs in a process of its own from
 its tree -- that tree's ``chip_smoke.py`` checks (``kernel_checks``,
-``backward_checks``, ``tile_checks`` at their default shapes) and its
-package, whose libraries build from its sources -- in the order parent,
-this, this, parent. Prints each row's four kernel ms and the ratio of the
-means (this / parent), then, for each d = 64 / 128 instantiation of
-kernels A, D, E and F, whether ``cuobjdump -sass`` of the two builds is
-identical (instruction offsets aside); the card's name and power limit
-come last. Needs a CUDA card and the toolkit's ``cuobjdump``.
+``backward_checks``, ``tile_checks`` at their default shapes), this
+tree's ``qmm_checks`` (G/H at every row of phase 3, so both trees are
+timed at the same rows by the same code) and its package, whose
+libraries build from its sources -- in the order parent, this, this,
+parent. Prints each row's four kernel ms and the ratio of the means (this
+/ parent), with G/H's launches on the card a call at B <= 16 (profiler
+count) in each tree; then, for each d = 64 / 128 instantiation of kernels
+A, D, E and F and each of ``qmm_tile_kernel<4/8>``, whether ``cuobjdump
+-sass`` of the two builds is identical (instruction offsets aside); the
+card's name and power limit come last. Needs a CUDA card and the
+toolkit's ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -27,12 +31,17 @@ import sys
 from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[2]
-LIBS = ("paged_decode", "flash_forward", "flash_backward")
+# library: the functions whose SASS is compared
+SASS = {"paged_decode": r"Li(64|128)E", "flash_forward": r"Li(64|128)E",
+        "flash_backward": r"Li(64|128)E", "quant_matmul": r"qmm_tile_kernel"}
 
 
 def rows(root: str) -> dict:
-    """Run in the tree ``root``: its phase-3 rows at d = 64 / 128 (kernel
-    ms) and the paths of its libraries."""
+    """Run in the tree ``root``: its phase-3 rows at d = 64 / 128 and G/H's
+    rows (kernel ms, and G/H's launches a call at B <= 16) and the paths of
+    its libraries."""
+    import importlib.util
+
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -41,14 +50,22 @@ def rows(root: str) -> dict:
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quant_matmul as qm
 
+    spec = importlib.util.spec_from_file_location("chip_smoke_this",
+                                                  THIS / "chip_smoke.py")
+    this = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(this)
     _build.build_all()
     got = chip_smoke.kernel_checks(torch, pa, fa, _build.KERNELS)
     got.update(chip_smoke.backward_checks(torch, fa, _build.KERNELS))
     got.update(chip_smoke.tile_checks(torch, pa, _build.KERNELS))
+    got.update(this.qmm_checks(torch, qm, _build.KERNELS, one_launch=False))
     return {"ms": {k: r["ms"] for k, r in got.items()
                    if not k.endswith(("d96", "d256"))},
-            "libs": {n: str(_build._lib_path(n)) for n in LIBS}}
+            "launches": {k: r["launches_per_call"] for k, r in got.items()
+                         if "launches_per_call" in r},
+            "libs": {n: str(_build._lib_path(n)) for n in SASS}}
 
 
 def reading(root: Path) -> dict:
@@ -82,11 +99,14 @@ def main() -> int:
     for name in got[0]["ms"]:
         ms = [g["ms"][name] for g in got]
         ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        calls = (f"; launches a call: parent {got[0]['launches'][name]}, "
+                 f"this {got[1]['launches'][name]}"
+                 if name in got[0]["launches"] else "")
         print(f"row {name}: parent {ms[0]:.4f} {ms[3]:.4f}, this {ms[1]:.4f} "
-              f"{ms[2]:.4f} ms; this / parent {ratio:.3f}")
-    for lib in LIBS:
+              f"{ms[2]:.4f} ms; this / parent {ratio:.3f}{calls}")
+    for lib, pattern in SASS.items():
         old, new = sass(got[0]["libs"][lib]), sass(got[1]["libs"][lib])
-        for fn in sorted(f for f in old if re.search(r"Li(64|128)E", f)):
+        for fn in sorted(f for f in old if re.search(pattern, f)):
             same = new.get(fn) == old[fn]
             print(f"sass {lib} {fn}: {'identical' if same else 'differs'}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

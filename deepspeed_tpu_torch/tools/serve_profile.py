@@ -14,9 +14,12 @@ B=256, as in the chunk steps of a mixed ``put``). Prints, for each
 profiled phase, the wall time per step (profiler on, so above an
 unprofiled run), the device time the profiler recorded (sum of CUDA kernel
 durations, one stream), the device's idle share of the wall time, the
-number of kernel launches, the top kernels by device time and kernel A's
-(``paged_decode_kernel``) device time and launches; then the card's name
-and power limit. Weights are random (seed 0); the numbers
+number of kernel launches, the top kernels by device time, and the device
+time and launches of kernel A (``paged_decode_kernel``), of kernels G/H
+(``qmm_rows_kernel`` at B <= 16, ``qmm_tile_kernel`` above) and of the
+second pass that adds G/H's splits above 16 rows (``split_sum_kernel``;
+at B <= 16 the decode kernel adds its own); then the card's name and power
+limit. Weights are random (seed 0); the numbers
 depend on shapes only. Needs a CUDA card.
 """
 
@@ -76,6 +79,13 @@ def profile_phase(name, fn, steps_per_call: int, top: int = 12) -> None:
     a_calls = sum(r[2] for r in a_rows) / steps_per_call
     print(f"[{name}] kernel A: {a_ms:.3f} ms/step, {a_calls:.1f} calls/step",
           flush=True)
+    for tag, key in (("kernels G/H", "qmm_"),
+                     ("G/H split sums", "split_sum_kernel")):
+        sel = [r for r in rows if key in r[0]]
+        ms = sum(r[1] for r in sel) / 1e3 / steps_per_call
+        calls = sum(r[2] for r in sel) / steps_per_call
+        print(f"[{name}] {tag}: {ms:.3f} ms/step, {calls:.1f} calls/step",
+              flush=True)
     return prof
 
 

@@ -560,14 +560,22 @@ def _card_qmm_operands(dev, bits, B, D, F, group, layer):
     (16, 14336, 4096, 128, 1), (17, 512, 384, 256, None),
     (256, 4096, 1024, 128, 0), (200, 256, 128, 128, 3),
     (128, 4096, 4096, 128, 2), (129, 4096, 6144, 128, None),
-    (255, 4096, 28672, 128, 3), (256, 14336, 4096, 128, 1)])
+    (255, 4096, 28672, 128, 3), (256, 14336, 4096, 128, 1),
+    # the decode kernel's row tiles at their edges (8 and 16 rows, one
+    # row past the first), split and unsplit, and groups of 256 (int4:
+    # 128 byte rows a group, the high nibbles 128 rows on)
+    (2, 4096, 6144, 128, 3), (8, 4096, 4096, 128, 0),
+    (9, 14336, 4096, 128, 2), (15, 4096, 28672, 128, None),
+    (6, 4096, 4096, 256, 1), (16, 4096, 6144, 256, None),
+    (3, 512, 384, 256, 2)])
 def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
                                          layer):
     """G (one matrix) and H (layer of a 4-deep stack): the decode kernel
-    (B <= 16) and the 128-row tile kernel at its edges (one full tile, one
-    row past it, one row short of two), split and unsplit contractions
-    (w_down at B=256 splits), groups of 128 and 256. Past 64 rows the
-    output is held per 64-row tile too, so a fault in a later row tile
+    (B <= 16, at B = 1, 2, 6, 8, 9, 15, 16) and the 128-row tile kernel at
+    its edges (one full tile, one row past it, one row short of two), split
+    and unsplit contractions (w_down at B=256 splits; at B <= 16 every
+    product narrower than the card), groups of 128 and 256. Past 64 rows
+    the output is held per 64-row tile too, so a fault in a later row tile
     cannot hide under the tensor-wide tolerance."""
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
     from deepspeed_tpu_torch.ops._build import KERNELS
@@ -588,19 +596,46 @@ def test_kernels_g_h_match_plain_on_card(cuda_device, bits, B, D, F, group,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("D,F", [(4096, 28672), (14336, 4096)])
-def test_kernel_h_is_deterministic_on_card(cuda_device, bits, D, F):
-    """Two launches on the same inputs give the same bits at B=256, with
-    the contraction unsplit (w_gateup) and split (w_down): the splits are
-    added in order by a second kernel, never by atomics."""
+@pytest.mark.parametrize("B,D,F", [(256, 4096, 28672), (256, 14336, 4096),
+                                   (6, 14336, 4096), (6, 4096, 4096),
+                                   (6, 4096, 28672)])
+def test_kernel_h_is_deterministic_on_card(cuda_device, bits, B, D, F):
+    """Two launches on the same inputs give the same bits, with the
+    contraction unsplit (w_gateup at B=256 and B=6) and split: at B=256
+    (w_down) a second kernel adds the splits in order, at B=6 (w_down in 7
+    splits, wo in 8) the last CTA of each column tile does, behind a ticket
+    that it resets for the next launch; never atomics on the sums."""
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
 
-    assert tqm.qmm_splits(256, F, D // 128) == (2 if F == 4096 else 1)
-    x, packed, scales = _card_qmm_operands(cuda_device, bits, 256, D, F, 128,
+    want = {(256, 4096): 2, (256, 28672): 1, (6, 4096): 7 if D > 4096 else 8,
+            (6, 28672): 1}[B, F]
+    assert tqm.qmm_splits(B, F, D // 128) == want
+    x, packed, scales = _card_qmm_operands(cuda_device, bits, B, D, F, 128,
                                            1)
     a = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=1)
     b = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=1)
-    assert torch.equal(a, b)
+    c = tqm.quantized_matmul(x, packed, scales, bits=bits, layer=1)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,D,F,layer", [
+    (6, 4096, 65536, None), (6, 14336, 4096, 1), (16, 4096, 6144, 2),
+    (1, 4096, 28672, 0)])
+def test_decode_call_is_one_launch_on_card(cuda_device, bits, B, D, F,
+                                           layer):
+    """One G/H call at B <= 16 is one kernel on the card, split or not (the
+    splits are added inside the kernel): counted by ``torch.profiler``,
+    since the ``Kernel`` record counts wrapper calls only."""
+    from chip_smoke import device_launches
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+
+    x, packed, scales = _card_qmm_operands(cuda_device, bits, B, D, F, 128,
+                                           layer)
+    tqm.quantized_matmul(x, packed, scales, bits=bits, layer=layer)
+    assert device_launches(torch, lambda: tqm.quantized_matmul(
+        x, packed, scales, bits=bits, layer=layer)) == 1
 
 
 def _card_quant_pools(dev, bits, nbp1=65, bs=128, K=8, d=128):

@@ -135,8 +135,12 @@ def test_kernel_args_refuse_a_mismatched_stack():
 
 
 @pytest.mark.parametrize("B,F,G,want", [
-    (6, 128256, 32, 1), (6, 4096, 32, 16), (6, 4096, 112, 16),
-    (6, 28672, 32, 3), (256, 28672, 32, 1), (8, 6144, 32, 11),
+    # the decode kernel (B <= 16): at most one wave of two 128-column CTAs
+    # an SM, a multiple of RWARPS groups a split -- the head (1002 CTAs)
+    # and w_gateup (224) unsplit, wqkv (48) in 4 (8 groups each), wo (32)
+    # in 8 (4 each), w_down's 112 groups in 7 (16 each)
+    (6, 128256, 32, 1), (6, 4096, 32, 8), (6, 4096, 112, 7),
+    (6, 28672, 32, 1), (256, 28672, 32, 1), (8, 6144, 32, 4),
     (17, 384, 2, 2),
     # the 128 x 128 tile kernel at B=256: wo and w_down (64 CTAs) split in
     # two, wqkv (96) and w_gateup (448) fill a wave already
@@ -150,6 +154,28 @@ def test_splits_fill_the_card_and_cover_every_group(B, F, G, want):
     if B > 16:          # one CTA an SM: the grid stays within one wave
         ctas = (F // tqm._TN) * -(-B // tqm._TM)
         assert splits == 1 or ctas * splits <= tqm._SMS
+    else:               # a split's groups share evenly over the warps
+        assert splits == 1 or per % tqm._RWARPS == 0
+
+
+@pytest.mark.parametrize("B", [1, 6, 16])
+@pytest.mark.parametrize("F", [128, 384, 4096, 6144, 28672, 128256])
+@pytest.mark.parametrize("G", [1, 2, 8, 32, 112])
+def test_decode_splits_are_one_wave_at_most(B, F, G):
+    """At B <= 16 the split count is a pure function of (B, F, G) that
+    covers every group with no empty split, gives every warp of a CTA the
+    same number of groups whenever it splits, and stays within one wave of
+    the decode kernel's CTAs (two an SM); no split count with those
+    properties is larger."""
+    splits = tqm.qmm_splits(B, F, G)
+    per = -(-G // splits)
+    assert 1 <= splits <= G and (splits - 1) * per < G <= splits * per
+    tiles, wave = F // tqm._RN, tqm._ROW_CTAS_PER_SM * tqm._SMS
+    assert splits == 1 or (per % tqm._RWARPS == 0 and tiles * splits <= wave)
+    assert not any(s > splits and -(-G // s) % tqm._RWARPS == 0
+                   and (s - 1) * -(-G // s) < G and tiles * s <= wave
+                   for s in range(2, G + 1))
+    assert tqm.qmm_splits(B, F, G) == tqm.qmm_splits(1, F, G)
 
 
 def _cu_constants():
@@ -161,10 +187,68 @@ def _cu_constants():
 
 def test_wrapper_tiles_are_the_kernels():
     """The split rule's tile sizes are the kernels' own: the decode
-    kernel's columns a CTA, the tile kernel's rows and columns a CTA."""
+    kernel's columns and warps a CTA, and the CTAs an SM its shared memory
+    allows (a warp's ring of RSTAGES slots of RB packed rows of RN bytes
+    with 16 bytes of skew, their x columns for 16 rows, RN scales; 228 KB
+    an SM, 1 KB of it reserved a CTA); the tile kernel's rows and columns a
+    CTA."""
     c = _cu_constants()
-    assert (c["BN"], c["TM"], c["TN"]) == (tqm._BN, tqm._TM, tqm._TN)
+    assert (c["RN"], c["RWARPS"], c["TM"], c["TN"]) == (
+        tqm._RN, tqm._RWARPS, tqm._TM, tqm._TN)
     assert tqm.MAX_ROWS == 2 * c["TM"]        # B=256 is two row tiles
+    for bits in (4, 8):
+        for nt in (1, 2):
+            xk = c["RB"] * (1 if bits == 8 else 2)
+            stage = (c["RB"] * (c["RN"] + 16) + nt * 8 * (xk + 8) * 2
+                     + c["RN"] * 2)
+            cta = c["RWARPS"] * c["RSTAGES"] * stage + 1024 + 256
+            assert 233472 // cta == tqm._ROW_CTAS_PER_SM, (bits, nt, cta)
+    assert c["RSTAGES"] >= 4
+    assert tqm.qmm_splits(6, 128256, 32) == 1
+    assert 128256 // c["RN"] <= c["MAX_TILES"]    # the head has a ticket
+
+
+def _rows_kernel_body(code):
+    return code[code.index("qmm_rows_kernel(const"):
+                code.index("struct TileSmem")]
+
+
+def test_rows_kernel_source_keeps_its_contract():
+    """The decode kernel (B <= 16): mma.sync m16n8k16 on fragments in
+    registers (no wmma, no bf16 tile stored to shared memory and read
+    back), the packed bytes turned into A fragments by ldmatrix.trans and
+    frag_int8 / frag_int4, a cp.async ring of at least four stages run by
+    mbarriers (CTA-wide barriers only after they are set up, before the
+    warps' sums are added and around the ticket, none a stage), per-group
+    scaling in
+    registers from a fresh sum, and its splits added inside the kernel
+    behind an atomic ticket: no split_sum_kernel launch at B <= 16."""
+    src = (ROOT / "deepspeed_tpu_torch/csrc/quant_matmul.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    body = _rows_kernel_body(code)
+    assert "wmma" not in code and "store_matrix_sync" not in code
+    assert "#include <mma.h>" not in code
+    for call in ("mma_acc<ZERO>(", "mma_acc<false>(", "ldsm_x4_trans(",
+                 "cp_async16(", "mbar_init(", "mbar_wait(",
+                 "mbar_arrive_on_copies(", "frag_int8(", "frag_int4(",
+                 "atomicAdd(", "__ldcg(", "fmaf("):
+        assert call in body, call
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global",
+                   "cp.async.mbarrier.arrive.noinc.shared::cta.b64"):
+        assert needle in code, needle
+    assert "mma_bf16_zero(" in code[code.index("void mma_acc("):]
+    assert body.count("__syncthreads()") == 4  # set-up, sums, the ticket x2
+    assert "__syncthreads()" not in body[body.index("for (int s = 0;"):
+                                         body.index("float* sums")]
+    assert _cu_constants()["RSTAGES"] >= 4
+    # the B <= 16 launch is the kernel alone; the split sum serves B > 16
+    launch = code[code.index("int launch_rows("):
+                  code.index("int launch_bits(")]
+    assert "split_sum_kernel" not in launch and "launch_split" not in launch
+    bits = code[code.index("int launch_bits("):code.index("int launch(")]
+    assert bits.index("launch_rows<BITS, 2>") < bits.index("launch_split(")
 
 
 def test_tile_kernel_source_keeps_its_contract():
