@@ -9,10 +9,11 @@ Phases, in order (any failure raises and the script exits non-zero):
 2. build   -- compile the port's CUDA kernels from ``deepspeed_tpu_torch/
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
-              fails the run) and shared memory of kernels D, E and F and of
-              A in each pool mode per head dim (64, 96, 128, 256), of G/H's
-              decode kernel per weight width and row tile (8 or 16 rows),
-              and of G/H's multi-row kernel per weight width;
+              fails the run) and shared memory of kernels D, E and F, of
+              A in each pool mode and of I's decode and flash regimes per
+              head dim (64, 96, 128, 256), of G/H's decode kernel per
+              weight width and row tile (8 or 16 rows), and of G/H's
+              multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
               K=8, d=128, block 128) on seeded random bf16 inputs, each held
               against its plain PyTorch version (atol = rtol = 2e-2 on
@@ -43,10 +44,13 @@ Phases, in order (any failure raises and the script exits non-zero):
               tile's max |plain|), timed likewise beside one SDPA backward
               (its backend named; E then F in turns with it, as one
               ratio); kernel I at the serve shapes (a t=1
-              tile over 8 slots at A's pasts, a t=700 tile over 4 slots
-              from position 0; its output held per 64-row tile like
-              dq/dk/dv), J on [4096, 4096] and [6, 4096] bf16 and
-              [4096, 4096] fp32 rows (forward, and the autograd backward
+              tile over 8 slots at A's pasts -- its decode regime, timed
+              from a CUDA graph of launches -- and a t=700 tile over 4
+              slots from position 0 -- its flash regime; its output held
+              per 64-row tile like dq/dk/dv, each call one launch on the
+              card by the profiler's count, two launches bit for bit), J
+              on [4096, 4096] and [6, 4096] bf16 and [4096, 4096] fp32
+              rows (forward, and the autograd backward
               against the plain version's; 1e-2 bf16, 1e-5 fp32, beside
               ``F.rms_norm``) and K on the probe's 256 MB array (relative
               1e-6, beside ``torch.sum``); A-F and I again at phi3-mini's
@@ -327,10 +331,10 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
 CARD_HEAD_DIMS = (64, 96, 128, 256)
 
 # (library, kernel, pattern of its mangled name, variants, unit, shared
-# memory symbol): kernels D, E and F and A's pool modes (int4: paired kv
-# heads, then one nibble) per head dim, G/H's decode kernel (B <= 16) per
-# weight width and row tile (8 or 16 rows), and G/H's multi-row kernel
-# (16 < B <= 256) per weight width
+# memory symbol): kernels D, E and F, A's pool modes (int4: paired kv
+# heads, then one nibble) and I's two regimes per head dim, G/H's decode
+# kernel (B <= 16) per weight width and row tile (8 or 16 rows), and G/H's
+# multi-row kernel (16 < B <= 256) per weight width
 PTXAS_REPORTS = (
     ("paged_decode", "paged_decode",
      r"paged_decode_kernelILi16ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
@@ -350,6 +354,10 @@ PTXAS_REPORTS = (
      CARD_HEAD_DIMS, "d", "dst_flash_bwd_dq_smem_bytes"),
     ("flash_backward", "flash_bwd_dkv", r"flash_bwd_dkv_kernelILi(\d+)E",
      CARD_HEAD_DIMS, "d", "dst_flash_bwd_dkv_smem_bytes"),
+    ("paged_tile", "paged_tile decode", r"paged_tile_decode_kernelILi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_paged_tile_decode_smem_bytes"),
+    ("paged_tile", "paged_tile flash", r"paged_tile_kernelILi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_paged_tile_smem_bytes"),
     ("quant_matmul", "qmm_rows", r"qmm_rows_kernelILi(\d+)ELi(\d+)E",
      ((4, 1), (4, 2), (8, 1), (8, 2)), "(bits, n8 tiles)",
      "dst_qmm_rows_smem_bytes"),
@@ -883,11 +891,15 @@ def log_turns(name: str, r: dict) -> None:
 def tile_checks(torch, pa, KERNELS, H=32, K=8, d=128, suffix="", seed=9012):
     """Kernel I at the serve shapes (H=32, K=8, d=128 by default, block 128,
     16 blocks a slot): a t=1 tile over 8 slots at kernel A's pasts (38-1101,
-    two empty), and a t=700 tile over 4 slots from position 0 (phase 7's
-    prompt step). Held per 64-row tile, slot and head (:func:`close_tiles`):
-    late causal rows average hundreds of columns and are small, so one
-    tensor-wide tolerance would let a fault in the late columns pass. The
-    rows' keys end in ``suffix``."""
+    two empty; the decode regime at rep <= 16), and a t=700 tile over 4
+    slots from position 0 (phase 7's prompt step; the flash regime). Held
+    per 64-row tile, slot and head (:func:`close_tiles`): late causal rows
+    average hundreds of columns and are small, so one tensor-wide tolerance
+    would let a fault in the late columns pass. Each call must be one launch
+    on the card (``launches_per_call``, the profiler's count) and two
+    launches must give the same bits. The t=1 tile is shorter than its
+    launch from Python: its kernel time comes from a CUDA graph of launches
+    (``loop_ms``: the loop). The rows' keys end in ``suffix``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     bs, nb_max, n_slots = 128, 16, 8
@@ -903,25 +915,39 @@ def tile_checks(torch, pa, KERNELS, H=32, K=8, d=128, suffix="", seed=9012):
         B = len(pos)
         q = torch.randn(B, t, H, d, generator=g, device=dev).bfloat16()
         btb = bt[:B].contiguous()
-        out = pa.paged_attention(q, kpool, vpool, btb, ps, layer=layer)
+
+        def call():
+            return pa.paged_attention(q, kpool, vpool, btb, ps, layer=layer)
+
+        out = call()
         ref = pa.plain_paged_attention(q, kpool, vpool, btb, ps, layer=layer)
-        tiles = {"out": close_tiles(f"I out (t={t}{suffix})", out, ref)}
+        tag = f"I (t={t}{suffix})"
+        tiles = {"out": close_tiles(f"{tag} out", out, ref)}
+        if not torch.equal(call(), out):
+            raise AssertionError(f"{tag}: two launches on the same inputs "
+                                 f"differ")
+        launches = device_launches(torch, call)
+        if launches != 1:
+            raise AssertionError(f"{tag}: {launches} launches on the card "
+                                 f"for one call, not 1")
         cols = sum(min(p + t, S) for p in pos)       # KV rows read per slot
         pairs = sum(min(p + i, S - 1) + 1 for p in pos for i in range(t))
         nbytes = cols * K * d * 2 * 2 + (q.numel() + out.numel()) * 2
-        args, _ = pa.paged_tile_kernel_args(q, kpool, vpool, btb, ps,
-                                            layer=layer)
+
+        def make_args():
+            return pa.paged_tile_kernel_args(q, kpool, vpool, btb, ps,
+                                             layer=layer)[0]
+
         rows[key + suffix] = dict(
-            err=tiles["out"][0], tiles=tiles,
+            err=tiles["out"][0], tiles=tiles, launches_per_call=launches,
             bound=bound(nbytes, 4 * H * d * pairs), library_ms=None,
-            **timings(KERNELS["paged_tile"], args,
-                      lambda: pa.paged_attention(q, kpool, vpool, btb, ps,
-                                                 layer=layer),
+            **timings(KERNELS["paged_tile"], make_args(), call,
                       lambda: pa.plain_paged_attention(q, kpool, vpool, btb,
-                                                       ps, layer=layer)),
+                                                       ps, layer=layer),
+                      make_args if t == 1 else None),
             shape=f"B={B} t={t}, H={H} K={K} d={d} bs=128, pos "
                   + ",".join(map(str, pos)))
-        del q, out, ref, args
+        del q, out, ref
     return rows
 
 
@@ -2350,9 +2376,10 @@ def main() -> int:
             e["grad_max_abs_err"] = r["grad_err"]
         if "splits" in r:
             e["splits"] = r["splits"]
-        if "loop_ms" in r:                   # A, G/H at B <= 16: a CUDA graph
+        if "loop_ms" in r:                   # A, G/H at B <= 16, I at t=1:
+                                             # a CUDA graph
             e["loop_ms"] = r["loop_ms"]
-        if "launches_per_call" in r:         # G/H at B <= 16
+        if "launches_per_call" in r:         # G/H at B <= 16, I
             e["launches_per_call"] = r["launches_per_call"]
         if "turns" in r:
             e["turns_ms"] = dict(zip(("library", "kernel", "kernel_again",

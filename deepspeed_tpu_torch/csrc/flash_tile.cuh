@@ -1,8 +1,8 @@
-// One flash-attention tile engine shared by the paged attention kernels (paged
-// decode partials, paged chunk-past partials and their int modes, the
-// dense-tile paged kernel) and the seeded chunk-self flash. Kernel D, the
-// causal flash forward, has its own register-resident kernel
-// (flash_forward.cu).
+// One flash-attention tile engine shared by kernel B, the paged chunk-past
+// partials and their int modes (paged_attention.cu), and kernel C, the seeded
+// chunk-self flash (flash_attention.cu). Kernels A (paged_decode.cu), D
+// (flash_forward.cu) and I (paged_tile.cu) have register-resident kernels of
+// their own.
 //
 // A CTA owns BM = 64 query rows of ONE kv head group and walks a column range
 // in BN = 64-wide tiles with an fp32 online softmax:

@@ -1,16 +1,12 @@
-// Paged past-partials on Hopper: kernels B and I of the serving path, modes
+// Paged chunk-past partials on Hopper: kernel B of the serving path, a mode
 // of the tile engine (flash_tile.cuh). Kernel A, the decode partials, has its
-// own kernel (paged_decode.cu).
+// own kernel (paged_decode.cu), and so has kernel I, the dense-tile paged
+// attention (paged_tile.cu).
 //
-// Replaces (deepspeed_tpu/ops/paged_attention.py):
-//   B  _past_kernel (:782) via _prefill_attention (:952): the tq*rep rows of
-//      a chunk atom per kv head over its pooled past < pos0, returned as
-//      unnormalised flash partials (acc fp32, m, l) that kernel C seeds its
-//      self flash with. And
-//   I  _paged_kernel (:110) via _paged_pallas (:161): the packed=False
-//      engine's dense query tile [B, t, H, d] (every slot a row) over each
-//      slot's paged KV, causal from pos[b], the tile's own K/V already in
-//      the pool; output normalised bf16.
+// Replaces deepspeed_tpu/ops/paged_attention.py _past_kernel (:782) via
+// _prefill_attention (:952): the tq*rep rows of a chunk atom per kv head
+// over its pooled past < pos0, returned as unnormalised flash partials (acc
+// fp32, m, l) that kernel C seeds its self flash with.
 //
 // What bounds it on the card: the KV bytes. Every live past block of a
 // sequence is read once per kv head group, so the floor is
@@ -27,17 +23,6 @@
 //     memory.
 // What it does not do yet: overlap the next tile's loads with this tile's
 // math (cp.async / TMA). That is tuning work.
-//
-// Kernel I is one more Mode of the same engine (TileMode below), grid
-// (B, K, ceil(t*rep / 64)): the rep heads of a GQA group share each K/V tile.
-// The TPU kernel's (B, H, nb_max) grid, with a scratch carry from one block
-// step to the next and an index map that clamps dead steps onto a live
-// block (:177-188), is not carried over: a CTA computes its own live column
-// range -- from the window start of its oldest row to its newest row's
-// position, clamped to the table's nb_max*bs columns (a slot at a deep pos
-// has padded rows whose positions pass the table) -- and walks only that.
-// Bound: at decode (t = 1) the KV bytes, as A; for a wide prefill tile the
-// causal score FLOPs (rows x visible columns), as C/D.
 //
 // Atoms with nothing to read (pos0 == 0, or a window past everything) write
 // m = -1e30, l = 0, acc = 0: the merge's exp(m - m2) = 0 then drops them.
@@ -126,61 +111,6 @@ struct PastMode : PagedPast {
       m_out[row] = m;
       l_out[row] = l;
     }
-  }
-};
-
-// I: grid (B, K, ceil(t * rep / 64)); row g = i * rep + rr is tile token i
-// of slot b (position pos[b] + i) at head kk * rep + rr
-struct TileMode {
-  const bf16* kpool;  // stacked lane-folded [L, nbp1, bs, K*hd]
-  const bf16* vpool;
-  int layer, nbp1, bs, K, hd;
-  const int* bt;  // [B, nb_max]
-  int nb_max;
-  const int* pos;  // [B] tokens cached before the tile
-  const bf16* q;   // [B, t, H, hd]
-  int H, rep, t, window;
-  bf16* out;  // [B, t, H, hd]
-  // per-CTA
-  int b, kk, g0, p0, c_lo, c_hi;
-
-  __device__ void setup() {
-    b = blockIdx.x;
-    kk = blockIdx.y;
-    g0 = blockIdx.z * BM;
-    p0 = pos[b];
-    const int first = g0 / rep, last = (g0 + rows() - 1) / rep;
-    c_hi = min(p0 + last + 1, nb_max * bs);
-    c_lo = window > 0 ? max(0, p0 + first - window + 1) : 0;
-  }
-  __device__ int rows() const { return min(BM, t * rep - g0); }
-  __device__ const bf16* q_row(int r) const {
-    const int g = g0 + r;
-    return q + ((size_t(b) * t + g / rep) * H + kk * rep + g % rep) * hd;
-  }
-  __device__ const bf16* pool_row(const bf16* pool, int c) const {
-    const int phys = bt[size_t(b) * nb_max + c / bs];
-    return pool + ((size_t(layer) * nbp1 + phys) * bs + c % bs) * size_t(K) * hd +
-           size_t(kk) * hd;
-  }
-  __device__ const bf16* k_row(int c) const { return pool_row(kpool, c); }
-  __device__ const bf16* v_row(int c) const { return pool_row(vpool, c); }
-  __device__ int col_lo() const { return c_lo; }
-  __device__ int col_hi() const { return c_hi; }
-  __device__ bool keep(int r, int c) const {
-    const int rp = p0 + (g0 + r) / rep;
-    return c <= rp && (window <= 0 || c > rp - window);
-  }
-  __device__ float seed_m(int) const { return NEG_INF; }
-  __device__ float seed_l(int) const { return 0.f; }
-  __device__ float seed_acc(int, int) const { return 0.f; }
-  // the reference's _finalize (:155-158): acc / max(l, 1e-30), so a row
-  // with nothing visible gives 0
-  __device__ void finish(int r, const float* o, float, float l, int lane) const {
-    const int g = g0 + r;
-    bf16* dst = out + ((size_t(b) * t + g / rep) * H + kk * rep + g % rep) * hd;
-    const float denom = fmaxf(l, 1e-30f);
-    for (int j = lane; j < hd; j += 32) dst[j] = __float2bfloat16(o[j] / denom);
   }
 };
 
@@ -327,25 +257,6 @@ int dst_paged_past_int4(const void* q, const void* kpool, const void* vpool,
   return dst::launch_past_quant<4>(q, kpool, vpool, kv_scale, layer, nbp1, bs, H, K, hd, bt,
                                    nb_max, slot, pos0, lo, nblk, A, tq, window, scale, acc, m, l,
                                    static_cast<cudaStream_t>(stream));
-}
-
-// Kernel I. Returns the launch's cudaError_t (0 = launched).
-int dst_paged_tile(const void* q, const void* kpool, const void* vpool, int layer, int nbp1,
-                   int bs, int H, int K, int hd, const int* bt, int nb_max, const int* pos, int B,
-                   int t, int window, float scale, void* out, void* stream) {
-  if (B <= 0 || t <= 0) return 0;
-  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
-  dst::TileMode md{};
-  md.kpool = static_cast<const bf16*>(kpool);
-  md.vpool = static_cast<const bf16*>(vpool);
-  md.layer = layer; md.nbp1 = nbp1; md.bs = bs; md.K = K; md.hd = hd;
-  md.bt = bt; md.nb_max = nb_max; md.pos = pos;
-  md.q = static_cast<const bf16*>(q);
-  md.H = H; md.rep = H / K; md.t = t; md.window = window;
-  md.out = static_cast<bf16*>(out);
-  const int R = t * (H / K);
-  return dst::launch_any_hd(md, hd, dim3(B, K, (R + dst::BM - 1) / dst::BM), scale,
-                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -30,13 +30,15 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"paged_attention": "paged_attention.cu",
             "paged_decode": "paged_decode.cu",
+            "paged_tile": "paged_tile.cu",
             "flash_attention": "flash_attention.cu",
             "flash_forward": "flash_forward.cu",
             "flash_backward": "flash_backward.cu",
             "quant_matmul": "quant_matmul.cu",
             "rms_norm": "rms_norm.cu",
             "hbm_stream": "hbm_stream.cu"}
-_HEADERS = ("flash_tile.cuh", "flash_mma.cuh", "int_unpack.cuh")
+_HEADERS = ("flash_tile.cuh", "flash_mma.cuh", "flash_fwd_tile.cuh",
+            "int_unpack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,7 +97,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "deepspeed_tpu/ops/paged_attention.py:782"),
     Kernel("paged_past_int4", "paged_attention",
            "deepspeed_tpu/ops/paged_attention.py:782"),
-    Kernel("paged_tile", "paged_attention",
+    Kernel("paged_tile", "paged_tile",
            "deepspeed_tpu/ops/paged_attention.py:110"),
     Kernel("rms_norm", "rms_norm", "deepspeed_tpu/ops/rms_norm.py:20"),
     Kernel("hbm_stream", "hbm_stream", "bench_infer.py:67"),
@@ -248,10 +250,12 @@ def _declare(lib, name: str) -> None:
                                     P, P, I, I, I, F, P, P, P, P],
             "dst_paged_past_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
                                     P, P, I, I, I, F, P, P, P, P],
+        },
+        "paged_tile": {
             # q kpool vpool layer nbp1 bs H K hd bt nb_max pos B t window
-            # scale out stream
+            # scale bps nsplit ws tickets out stream
             "dst_paged_tile": [P, P, P, I, I, I, I, I, I, P, I, P, I, I, I,
-                               F, P, P],
+                               F, I, I, P, P, P, P],
         },
         "flash_attention": {
             # q ks vs alen m0 l0 a0 out A tq H K hd window scale stream

@@ -33,7 +33,10 @@ version named in brackets):
   row, chunks right-padded) over each slot's paged KV, causal from
   ``pos[b]``: the ``packed=False`` engine's attention, after
   :func:`paged_update` has written the tile's own K/V into the layer
-  [``plain_paged_attention``].
+  [``plain_paged_attention``]. One launch a call: a decode step's rows
+  (``t * rep <= 16``) split each slot's past over CTAs as A does
+  (:func:`paged_tile_splits`, :func:`tile_live_blocks`), a wider tile runs
+  kernel D's register-resident flash over the paged columns.
 
 Each wrapper gets its launcher's arguments from a ``*_kernel_args`` function
 (operand checks, int32 metadata, output allocation) and launches through
@@ -176,16 +179,24 @@ MAX_SPLITS = 64
 MAX_SPLIT_BLOCKS = 128
 
 
+def _block_splits(bs: int, nb_max: int, max_splits: int, max_blocks: int,
+                  kernel: str) -> Tuple[int, int]:
+    """(blocks a split, splits a grid): runs of whole pool blocks, at least
+    ``_SPLIT_COLS`` columns each, at most ``max_splits`` of them over a
+    table of ``nb_max`` blocks, at most ``max_blocks`` blocks each."""
+    bps = max(-(-_SPLIT_COLS // bs), -(-nb_max // max_splits))
+    if bps > max_blocks:
+        raise ValueError(f"a block table of {nb_max} blocks of {bs} rows "
+                         f"needs {bps} blocks a split; {kernel} takes at "
+                         f"most {max_blocks}")
+    return bps, -(-nb_max // bps)
+
+
 def decode_splits(bs: int, nb_max: int) -> Tuple[int, int]:
     """(blocks a split, splits a grid) of kernel A for block size ``bs`` and
     a block table of ``nb_max`` blocks: split ``z`` of an atom covers its
     live blocks ``[lo + z*bps, lo + (z+1)*bps)`` (:func:`_past_ranges`)."""
-    bps = max(-(-_SPLIT_COLS // bs), -(-nb_max // MAX_SPLITS))
-    if bps > MAX_SPLIT_BLOCKS:
-        raise ValueError(f"a block table of {nb_max} blocks of {bs} rows "
-                         f"needs {bps} blocks a split; kernel A takes at "
-                         f"most {MAX_SPLIT_BLOCKS}")
-    return bps, -(-nb_max // bps)
+    return _block_splits(bs, nb_max, MAX_SPLITS, MAX_SPLIT_BLOCKS, "kernel A")
 
 
 def merge_decode_partials(parts):
@@ -209,9 +220,10 @@ _tickets = {}
 
 
 def _ticket_buffer(device, n: int) -> torch.Tensor:
-    """Kernel A's split tickets on ``device``: int32, zero between launches
-    (the last split of each atom and kv head group resets its own). One
-    buffer a device, so launches on it must be ordered (one stream)."""
+    """Kernel A's and kernel I's split tickets on ``device``: int32, zero
+    between launches (the last split of each atom or slot and kv head group
+    resets its own). One buffer a device, so launches on it must be ordered
+    (one stream)."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
@@ -735,20 +747,67 @@ def plain_paged_attention(q, k_pool, v_pool, block_tables, pos,
     return out.reshape(B, t, H, d).to(q.dtype)
 
 
+# Kernel I's regimes (csrc/paged_tile.cu): a call whose t * rep rows of a GQA
+# group fit one m16 tile (TILE_DECODE_ROWS) runs the decode regime, its
+# slots' live columns split over CTAs like kernel A's pasts (at most
+# TILE_MAX_SPLITS splits of at most TILE_MAX_SPLIT_BLOCKS blocks: the
+# source's MAX_SPLITS and MAX_BPS); a wider tile runs the flash regime.
+TILE_DECODE_ROWS = 16
+TILE_MAX_SPLITS = 64
+TILE_MAX_SPLIT_BLOCKS = 128
+
+
+def paged_tile_splits(bs: int, nb_max: int) -> Tuple[int, int]:
+    """(blocks a split, splits a grid) of kernel I's decode regime: split
+    ``z`` of a slot covers its live blocks ``[lo + z*bps, lo + (z+1)*bps)``
+    (:func:`tile_live_blocks`)."""
+    return _block_splits(bs, nb_max, TILE_MAX_SPLITS, TILE_MAX_SPLIT_BLOCKS,
+                         "kernel I")
+
+
+def tile_live_blocks(pos: torch.Tensor, t: int, bs: int, nb_max: int,
+                     window: Optional[int] = None):
+    """(first live block, live block count) of each slot of a ``t``-token
+    tile: the columns from the window start of its oldest row (position
+    ``pos``) to its newest (``pos + t - 1``), clamped to the table's
+    ``nb_max*bs``. Kernel I's decode regime computes the same in its
+    prologue; a slot with no live column has count 0."""
+    p = pos.long()
+    c_lo = (torch.clamp_min(p - (window - 1), 0) if window is not None
+            else torch.zeros_like(p))
+    c_hi = torch.clamp_max(p + t, nb_max * bs)
+    lo = torch.div(c_lo, bs, rounding_mode="floor")
+    n = torch.where(c_hi > c_lo,
+                    torch.div(c_hi - 1, bs, rounding_mode="floor") + 1 - lo,
+                    torch.zeros_like(p))
+    return lo.to(torch.int32), n.to(torch.int32)
+
+
 def paged_tile_kernel_args(q, k_pool, v_pool, block_tables, pos,
                            window: Optional[int] = None, layer: int = 0):
     """Kernel I's launcher arguments and its output ``(out,)`` [B, t, H, d]
-    bf16."""
+    bf16. The decode regime's split, workspace and tickets come with them
+    (a wider tile's launch takes none)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     B, t, H, d = q.shape
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool)
     card_head_dim(d, "kernel I")
     cuda_operand(q, "q", torch.bfloat16)
     _pool_operands(k_pool, v_pool, None, 8)
     bt = int32_meta(block_tables)
+    nb_max = bt.shape[1]
+    bps = nsplit = 0
+    ws = tickets = None
+    if t * rep <= TILE_DECODE_ROWS:
+        bps, nsplit = paged_tile_splits(bs, nb_max)
+        ws = torch.empty(B * H * t * nsplit * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        tickets = _ticket_buffer(q.device, B * K)
     out = torch.empty_like(q)
-    args = (q, k_pool, v_pool, int(layer), nbp1, bs, H, K, d, bt,
-            bt.shape[1], int32_meta(pos), B, t, int(window or 0),
-            1.0 / math.sqrt(d), out, stream_ptr(q))
+    args = (q, k_pool, v_pool, int(layer), nbp1, bs, H, K, d, bt, nb_max,
+            int32_meta(pos), B, t, int(window or 0), 1.0 / math.sqrt(d),
+            bps, nsplit, ws, tickets, out, stream_ptr(q))
     return args, (out,)
 
 

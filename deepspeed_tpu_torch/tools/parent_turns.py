@@ -1,23 +1,24 @@
-"""Phase 3's d = 64 / 128 kernel rows and G/H rows of a parent tree and of
-this one, in turns on one card, and whether their d = 64 / 128 attention
-kernels and G/H's multi-row kernel compiled to the same SASS.
+"""Phase 3's d = 64 / 128 kernel rows and G/H and I rows of a parent tree
+and of this one, in turns on one card, and whether their d = 64 / 128
+attention kernels and G/H's multi-row kernel compiled to the same SASS.
 
     python -m deepspeed_tpu_torch.tools.parent_turns build/parent
 
 The parent is a checkout unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists. Each reading runs in a process of its own from
 its tree -- that tree's ``chip_smoke.py`` checks (``kernel_checks``,
-``backward_checks``, ``tile_checks`` at their default shapes), this
-tree's ``qmm_checks`` (G/H at every row of phase 3, so both trees are
-timed at the same rows by the same code) and its package, whose
-libraries build from its sources -- in the order parent, this, this,
-parent. Prints each row's four kernel ms and the ratio of the means (this
-/ parent), with G/H's launches on the card a call at B <= 16 (profiler
-count) in each tree; then, for each d = 64 / 128 instantiation of kernels
-A, D, E and F and each of ``qmm_tile_kernel<4/8>``, whether ``cuobjdump
--sass`` of the two builds is identical (instruction offsets aside); the
-card's name and power limit come last. Needs a CUDA card and the
-toolkit's ``cuobjdump``.
+``backward_checks`` at their default shapes), this tree's ``qmm_checks``
+(G/H at every row of phase 3) and ``tile_checks`` (I's t = 1 and t = 700
+rows at every head dim), so both trees are timed at the same rows by the
+same code, and its package, whose libraries build from its sources -- in
+the order parent, this, this, parent. Prints each row's four kernel ms and
+the ratio of the means (this / parent), with the launches on the card a
+call (profiler count) of G/H at B <= 16 and of I in each tree; then, for
+each d = 64 / 128 instantiation of kernels A, B, C, D, E and F and each
+of ``qmm_tile_kernel<4/8>``, whether ``cuobjdump -sass`` of the two builds
+is identical (instruction offsets and the padding of lines aside; a
+function of one build only is named so); the card's name and power limit
+come last. Needs a CUDA card and the toolkit's ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -33,13 +34,14 @@ from pathlib import Path
 THIS = Path(__file__).resolve().parents[2]
 # library: the functions whose SASS is compared
 SASS = {"paged_decode": r"Li(64|128)E", "flash_forward": r"Li(64|128)E",
-        "flash_backward": r"Li(64|128)E", "quant_matmul": r"qmm_tile_kernel"}
+        "flash_backward": r"Li(64|128)E", "quant_matmul": r"qmm_tile_kernel",
+        "paged_attention": r"Li(64|128)E", "flash_attention": r"Li(64|128)E"}
 
 
 def rows(root: str) -> dict:
     """Run in the tree ``root``: its phase-3 rows at d = 64 / 128 and G/H's
-    rows (kernel ms, and G/H's launches a call at B <= 16) and the paths of
-    its libraries."""
+    and I's rows (kernel ms, and the launches a call of G/H at B <= 16 and
+    of I) and the paths of its libraries."""
     import importlib.util
 
     sys.path.insert(0, root)
@@ -59,10 +61,14 @@ def rows(root: str) -> dict:
     _build.build_all()
     got = chip_smoke.kernel_checks(torch, pa, fa, _build.KERNELS)
     got.update(chip_smoke.backward_checks(torch, fa, _build.KERNELS))
-    got.update(chip_smoke.tile_checks(torch, pa, _build.KERNELS))
+    got.update(this.tile_checks(torch, pa, _build.KERNELS))
+    for sfx, H, K, d in this.HEAD_DIM_SHAPES:
+        got.update(this.tile_checks(torch, pa, _build.KERNELS, H, K, d, sfx,
+                                    seed=9012 + d))
     got.update(this.qmm_checks(torch, qm, _build.KERNELS, one_launch=False))
     return {"ms": {k: r["ms"] for k, r in got.items()
-                   if not k.endswith(("d96", "d256"))},
+                   if k.startswith("paged_tile")
+                   or not k.endswith(("d96", "d256"))},
             "launches": {k: r["launches_per_call"] for k, r in got.items()
                          if "launches_per_call" in r},
             "libs": {n: str(_build._lib_path(n)) for n in SASS}}
@@ -75,13 +81,17 @@ def reading(root: Path) -> dict:
 
 
 def sass(path: str) -> dict:
-    """Each function's SASS in a library, instruction offsets removed."""
+    """Each function's SASS in a library: its instructions and their
+    encodings, without the offsets, each run of blanks one space
+    (``cuobjdump`` pads every line to the longest instruction of the
+    library)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", text)
-    return {name: re.sub(r"/\*[0-9a-f]{4}\*/", "", body).strip()
+    return {name: re.sub(r"[ \t]+", " ",
+                         re.sub(r"/\*[0-9a-f]{4}\*/", "", body)).strip()
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
@@ -106,9 +116,12 @@ def main() -> int:
               f"{ms[2]:.4f} ms; this / parent {ratio:.3f}{calls}")
     for lib, pattern in SASS.items():
         old, new = sass(got[0]["libs"][lib]), sass(got[1]["libs"][lib])
-        for fn in sorted(f for f in old if re.search(pattern, f)):
-            same = new.get(fn) == old[fn]
-            print(f"sass {lib} {fn}: {'identical' if same else 'differs'}")
+        for fn in sorted(f for f in {**old, **new} if re.search(pattern, f)):
+            if fn not in new or fn not in old:
+                state = f"only in {'parent' if fn in old else 'this tree'}"
+            else:
+                state = "identical" if new[fn] == old[fn] else "differs"
+            print(f"sass {lib} {fn}: {state}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -2,7 +2,7 @@
 warm ``decode_batch`` and mixed ``put`` steps of the engine.
 
     python -m deepspeed_tpu_torch.tools.serve_profile [--preset llama3-8b]
-        [--batch 6] [--steps 8] [--past 700]
+        [--batch 6] [--steps 8] [--past 700] [--dense]
 
 Three configurations, one after the other: the bf16 engine
 (``decode_batch`` and a mixed ``put``), then Q1 and Q2, the quantized
@@ -18,9 +18,12 @@ number of kernel launches, the top kernels by device time, and the device
 time and launches of kernel A (``paged_decode_kernel``), of kernels G/H
 (``qmm_rows_kernel`` at B <= 16, ``qmm_tile_kernel`` above) and of the
 second pass that adds G/H's splits above 16 rows (``split_sum_kernel``;
-at B <= 16 the decode kernel adds its own); then the card's name and power
-limit. Weights are random (seed 0); the numbers
-depend on shapes only. Needs a CUDA card.
+at B <= 16 the decode kernel adds its own) and of kernel I; then the
+card's name and power limit. ``--dense`` profiles the ``packed=False``
+engine instead (kernel I, chip_smoke's phase 7 engine (a)): a ``put`` of
+phase 4's four prompts (37, 128, 129 and 700 tokens: one 700-row tile)
+and ``--steps`` single-token ``put`` steps of the four. Weights are random
+(seed 0); the numbers depend on shapes only. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -79,9 +82,10 @@ def profile_phase(name, fn, steps_per_call: int, top: int = 12) -> None:
     a_calls = sum(r[2] for r in a_rows) / steps_per_call
     print(f"[{name}] kernel A: {a_ms:.3f} ms/step, {a_calls:.1f} calls/step",
           flush=True)
-    for tag, key in (("kernels G/H", "qmm_"),
-                     ("G/H split sums", "split_sum_kernel")):
-        sel = [r for r in rows if key in r[0]]
+    for tag, keys in (("kernels G/H", ("qmm_",)),
+                      ("G/H split sums", ("split_sum_kernel",)),
+                      ("kernel I", ("paged_tile", "TileMode"))):
+        sel = [r for r in rows if any(k in r[0] for k in keys)]
         ms = sum(r[1] for r in sel) / 1e3 / steps_per_call
         calls = sum(r[2] for r in sel) / steps_per_call
         print(f"[{name}] {tag}: {ms:.3f} ms/step, {calls:.1f} calls/step",
@@ -102,6 +106,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--past", type=int, default=700,
                     help="prompt length of each sequence before decoding")
+    ap.add_argument("--dense", action="store_true",
+                    help="profile the packed=False engine (kernel I)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA card")
@@ -110,6 +116,27 @@ def main(argv=None) -> int:
     from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
 
     cfg = get_preset(args.preset, param_dtype="bfloat16")
+    if args.dense:
+        eng = InferenceEngineV2(TransformerLM(cfg), max_sequences=8,
+                                max_seq_len=2048, block_size=128,
+                                device="cuda", packed=False)
+        rng = np.random.default_rng(0)
+        uids = [0, 1, 2, 3]
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (37, 128, 129, 700)]
+
+        def prompt_put():
+            eng.put(uids, prompts)
+            eng.flush(uids)
+
+        profile_phase("dense prompt put 4 prompts", prompt_put, 1)
+        eng.put(uids, prompts)
+        one = [np.array([1], np.int32)] * len(uids)
+        profile_phase("dense decode put B=4",
+                      lambda: [eng.put(uids, one) for _ in range(args.steps)],
+                      args.steps)
+        print_card()
+        return 0
     uids = list(range(args.batch))
     toks = [1] * args.batch
     for tag, quant in (("bf16", {}),

@@ -381,13 +381,17 @@ LAUNCHES = {"flash_tile.cuh": ["launch_tiles<{d}>"],
             "flash_forward.cu": ["launch_fwd<{d}>"],
             "flash_backward.cu": ["launch_bwd<{d}, DKV>"],
             "paged_decode.cu": ["launch_decode<4, true, {d}>",
-                                "launch_decode<BITS, false, {d}>"]}
+                                "launch_decode<BITS, false, {d}>"],
+            "paged_tile.cu": ["launch_tile_decode<{d}>",
+                              "launch_tile_flash<{d}>"]}
 SMEM = {"flash_forward.cu": ["dst_flash_fwd_smem_bytes"],
         "flash_backward.cu": ["dst_flash_bwd_dq_smem_bytes",
                               "dst_flash_bwd_dkv_smem_bytes"],
         "paged_decode.cu": ["dst_paged_decode_smem_bytes",
                             "dst_paged_decode_int8_smem_bytes",
-                            "dst_paged_decode_int4_smem_bytes"]}
+                            "dst_paged_decode_int4_smem_bytes"],
+        "paged_tile.cu": ["dst_paged_tile_decode_smem_bytes",
+                          "dst_paged_tile_smem_bytes"]}
 
 
 @pytest.mark.parametrize("source", sorted(LAUNCHES))
@@ -406,16 +410,19 @@ def test_every_launcher_dispatches_the_card_head_dims(source):
     if source in SMEM:        # (paged_decode.cu: one macro, three arrays)
         found = [int(x) for x in
                  re.findall(r"Tiles<(?:BITS, )?(\d+)>::\w*BYTES", code)]
-        n = 2 if source == "flash_backward.cu" else 1
+        n = 2 if source in ("flash_backward.cu", "paged_tile.cu") else 1
         assert found == list(CARD_HEAD_DIMS) * n
 
 
 def test_the_tile_engine_kernels_dispatch_through_one_function():
-    """B, I (paged_attention.cu) and C (flash_attention.cu) launch the tile
-    engine only through its head-dim dispatch."""
+    """B (paged_attention.cu) and C (flash_attention.cu) launch the tile
+    engine only through its head-dim dispatch; I (paged_tile.cu) left the
+    tile engine for kernels of its own."""
     for source in ("paged_attention.cu", "flash_attention.cu"):
         code = (CSRC / source).read_text()
         assert "launch_any_hd(" in code and "launch_tiles<" not in code
+    code = (CSRC / "paged_tile.cu").read_text()
+    assert "launch_any_hd(" not in code and "flash_tile.cuh" not in code
 
 
 def test_chip_smoke_reads_every_card_head_dim():
@@ -423,7 +430,7 @@ def test_chip_smoke_reads_every_card_head_dim():
 
     assert chip_smoke.CARD_HEAD_DIMS == CARD_HEAD_DIMS
     rows = [r for r in chip_smoke.PTXAS_REPORTS if r[4] == "d"]
-    assert len(rows) == 7 and all(r[3] == CARD_HEAD_DIMS for r in rows)
+    assert len(rows) == 9 and all(r[3] == CARD_HEAD_DIMS for r in rows)
 
 
 def _refusals(d):

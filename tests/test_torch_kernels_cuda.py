@@ -840,28 +840,65 @@ def test_quant_engine_on_card_matches_plain_cpu_engine(cuda_device, wd, kd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", CARD_HEAD_DIMS)
-@pytest.mark.parametrize("t,pos,window", [
-    (1, [38, 129, 2047, 0], None),      # decode rows
-    (1, [38, 129, 2047, 0], 300),
-    (700, [0, 1, 1500, 1800], None),    # deep slots: padded rows pass 2048
-    (100, [0, 64, 700, 1999], 90),
-    (13, [5, 0, 2040, 300], 1)])
-def test_kernel_i_matches_plain_on_card(cuda_device, t, pos, window, d):
-    """Kernel I over the stacked pool at layer 1, GQA 32 over 8 heads; rows
-    whose positions pass the 16-block table included (both give a finite
-    value there, 0 where nothing is visible). Held per 64-row tile, slot and
-    head: late causal rows are small."""
+@pytest.mark.parametrize("t,pos,window,H", [
+    (1, [38, 129, 2047, 0], None, 32),      # decode rows
+    (1, [38, 129, 2047, 0], 300, 32),
+    (4, [38, 129, 2045, 0], None, 32),      # t rep = 16: the decode regime
+    (4, [38, 129, 2045, 0], 40, 32),
+    (5, [38, 129, 2045, 0], None, 32),      # t rep = 20: the flash regime
+    (5, [38, 129, 2045, 0], 40, 32),
+    (16, [38, 129, 2040, 0], None, 8),      # rep 1: t = 16, the decode regime
+    (16, [38, 129, 2040, 0], 7, 8),
+    (17, [38, 129, 2040, 0], None, 8),      # rep 1: t = 17, the flash regime
+    (17, [38, 129, 2040, 0], 7, 8),
+    (700, [0, 1, 1500, 1800], None, 32),    # deep slots: padded rows pass 2048
+    (100, [0, 64, 700, 1999], 90, 32),
+    (13, [5, 0, 2040, 300], 1, 32)])
+def test_kernel_i_matches_plain_on_card(cuda_device, t, pos, window, H, d):
+    """Kernel I over the stacked pool at layer 1, H query heads over 8 kv
+    heads, on both sides of the boundary between its regimes (t rep <= 16:
+    the decode regime); rows whose positions pass the 16-block table
+    included (both give a finite value there, 0 where nothing is visible).
+    Held per 64-row tile, slot and head: late causal rows are small. One
+    launch on the card a call (the profiler's count), and a second launch
+    gives the same bits."""
+    from chip_smoke import device_launches
     from deepspeed_tpu_torch.ops._build import KERNELS
 
     kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
-    q = torch.randn(4, t, 32, d, generator=g, device=cuda_device).bfloat16()
+    q = torch.randn(4, t, H, d, generator=g, device=cuda_device).bfloat16()
     ps = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+
+    def call():
+        return tpa.paged_attention(q, kp, vp, bt, ps, window=window, layer=1)
+
     n = KERNELS["paged_tile"].launches
-    out = tpa.paged_attention(q, kp, vp, bt, ps, window=window, layer=1)
+    out = call()
     torch.cuda.synchronize()
     assert KERNELS["paged_tile"].launches == n + 1
     ref = tpa.plain_paged_attention(q, kp, vp, bt, ps, window=window, layer=1)
     close_tiles("I out", out, ref)
+    assert torch.equal(call(), out)
+    assert device_launches(torch, call) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
+def test_kernel_i_at_pos_0_equals_kernel_d_bitwise_on_card(cuda_device, d):
+    """Kernel I's flash regime runs kernel D's tile body on the same tiles
+    in the same order: a tile from position 0 over K/V in the pool gives D's
+    bits on the same K/V laid out dense."""
+    kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
+    t = 333
+    q = torch.randn(4, t, 32, d, generator=g, device=cuda_device).bfloat16()
+    ps = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    out = tpa.paged_attention(q, kp, vp, bt, ps, layer=1)
+
+    def dense(pool):
+        return pool[1][bt.long()].reshape(4, -1, 8, d)[:, :t].contiguous()
+
+    want, _ = tfa.flash_attention_lse(q, dense(kp), dense(vp), causal=True)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
