@@ -10,8 +10,9 @@ Phases, in order (any failure raises and the script exits non-zero):
               csrc`` (one ``nvcc`` per source, in parallel), timed; print
               the ptxas report (registers, stack and spill bytes; a spill
               fails the run) and shared memory of kernels D, E and F, of
-              A in each pool mode and of I's decode and flash regimes per
-              head dim (64, 96, 128, 256), of G/H's decode kernel per
+              A and B in each pool mode, of C and of I's decode and flash
+              regimes per head dim (64, 96, 128, 256), of G/H's decode
+              kernel per
               weight width and row tile (8 or 16 rows), and of G/H's
               multi-row kernel per weight width;
 3. kernels -- kernels A-D at the serving path's Llama-3-8B shapes (H=32,
@@ -19,11 +20,17 @@ Phases, in order (any failure raises and the script exits non-zero):
               against its plain PyTorch version (atol = rtol = 2e-2 on
               normalised outputs, 1e-2 on m / lse; D's out per 64-row tile
               like dq/dk/dv below) and timed: the kernel alone (its
-              launcher on arguments prepared once), the whole wrapper, its
+              launcher on arguments prepared once; A, B and C, shorter
+              than their launch from Python, from a CUDA graph of
+              launches), the whole wrapper, its
               plain version, its bound and, for D, SDPA (in turns: SDPA,
               kernel, kernel, SDPA); the int8 and int4 modes of A and B on
               the same atoms over the pools quantized by
-              ``packed_kv_append_quant``; G on the
+              ``packed_kv_append_quant``; B in each pool mode and C one
+              launch on the card a call (the profiler's count) and bit for
+              bit against a second launch; B then C over a 1024-token
+              prompt chunked at 256, 512 and 768 (its past in a shuffled
+              bf16 pool) bit for bit against D over the whole prompt; G on the
               llama3-8b head (B=6, D=4096, F=128256) and H at layer 2 of a
               stack of each layer product -- wqkv (D=4096, F=6144), wo
               (4096, 4096), w_gateup (4096, 28672), w_down (14336, 4096)
@@ -279,10 +286,11 @@ def timings(kernel, args, wrapper, plain, make_args=None) -> dict:
     (CUDA events see only the card's time while launches queue faster than
     the kernel runs); ``wrapper_ms``: the whole wrapper (operand checks,
     metadata, allocation, launch); ``plain_ms``: the plain version. A kernel
-    shorter than its launch (A) gives ``make_args`` (its launcher's
-    arguments, made on the current stream): ``ms`` is then its device time
-    from a CUDA graph of launches (``decode_time.graph_ms``), and
-    ``loop_ms`` the loop of launches, which times the host."""
+    shorter than its launch (A, B, C, I's decode regime) gives
+    ``make_args`` (its launcher's arguments, made on the
+    current stream; :func:`on_stream`): ``ms`` is then its device time from
+    a CUDA graph of launches (``decode_time.graph_ms``), and ``loop_ms``
+    the loop of launches, which times the host."""
     r = dict(ms=time_ms(lambda: kernel.launch(*args)),
              wrapper_ms=time_ms(wrapper), plain_ms=time_ms(plain, iters=5))
     if make_args is not None:
@@ -291,6 +299,15 @@ def timings(kernel, args, wrapper, plain, make_args=None) -> dict:
         r["loop_ms"] = r["ms"]
         r["ms"] = graph_ms(lambda: kernel.launch(*make_args()))
     return r
+
+
+def on_stream(args):
+    """A launcher's arguments (its stream last, as every launcher of the
+    port takes it) with the current stream: a CUDA graph captures only
+    launches on its own stream."""
+    import torch
+
+    return (*args[:-1], torch.cuda.current_stream().cuda_stream)
 
 
 def build_report(build, lib: str, kernel: str, pattern: str, variants,
@@ -331,10 +348,10 @@ def build_report(build, lib: str, kernel: str, pattern: str, variants,
 CARD_HEAD_DIMS = (64, 96, 128, 256)
 
 # (library, kernel, pattern of its mangled name, variants, unit, shared
-# memory symbol): kernels D, E and F, A's pool modes (int4: paired kv
-# heads, then one nibble) and I's two regimes per head dim, G/H's decode
-# kernel (B <= 16) per weight width and row tile (8 or 16 rows), and G/H's
-# multi-row kernel (16 < B <= 256) per weight width
+# memory symbol): kernels D, E and F, A's and B's pool modes (A's int4:
+# paired kv heads, then one nibble), C and I's two regimes per head dim,
+# G/H's decode kernel (B <= 16) per weight width and row tile (8 or 16
+# rows), and G/H's multi-row kernel (16 < B <= 256) per weight width
 PTXAS_REPORTS = (
     ("paged_decode", "paged_decode",
      r"paged_decode_kernelILi16ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
@@ -348,6 +365,14 @@ PTXAS_REPORTS = (
     ("paged_decode", "paged_decode_int4 one-nibble",
      r"paged_decode_kernelILi4ELb0ELi(\d+)E", CARD_HEAD_DIMS, "d",
      "dst_paged_decode_int4_smem_bytes"),
+    ("paged_attention", "paged_past", r"paged_past_kernelILi16ELi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_paged_past_smem_bytes"),
+    ("paged_attention", "paged_past_int8", r"paged_past_kernelILi8ELi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_paged_past_int8_smem_bytes"),
+    ("paged_attention", "paged_past_int4", r"paged_past_kernelILi4ELi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_paged_past_int4_smem_bytes"),
+    ("flash_attention", "chunk_self", r"chunk_self_kernelILi(\d+)E",
+     CARD_HEAD_DIMS, "d", "dst_chunk_self_smem_bytes"),
     ("flash_forward", "flash_fwd", r"flash_fwd_kernelILi(\d+)E",
      CARD_HEAD_DIMS, "d", "dst_flash_fwd_smem_bytes"),
     ("flash_backward", "flash_bwd_dq", r"flash_bwd_dq_kernelILi(\d+)E",
@@ -415,10 +440,12 @@ def flash_fwd_checks(torch, fa, KERNELS, q, k, v, tag: str) -> dict:
 
 
 def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
-                  seed=1234):
+                  seed=1234, one_launch=True):
     """Kernels A-D and A/B's int modes at the serve phase's shapes: H query
     heads over K kv heads of head dim d (Llama-3-8B's by default); the rows'
-    keys end in ``suffix``."""
+    keys end in ``suffix``. B (each pool mode) and C: two launches give the
+    same bits, and a call is one launch on the card (``launches_per_call``;
+    ``one_launch`` False records the count without the gate)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     bs = 128
@@ -476,6 +503,8 @@ def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
     err = close("B out", normalised(accb, lb), normalised(paccb, plb),
                 ATOL, RTOL)
     close("B m", mb, pmb, STAT_TOL, STAT_TOL)
+    launches = one_call(torch, f"B{suffix}", lambda: pa.past_partials(
+        qb, kpool, vpool, layer, bt, slotb, pos0b, tq), one_launch)
     cols = int(pos0b.sum())
     nbytes = (cols * KD * 2 * 2 + qb.numel() * 2 + accb.numel() * 4
               + 2 * mb.numel() * 4)
@@ -484,11 +513,13 @@ def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
                                   tq)
     rows[f"paged_past{suffix}"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
+        launches_per_call=launches,
         **timings(KERNELS["paged_past"], args,
                   lambda: pa.past_partials(qb, kpool, vpool, layer, bt,
                                            slotb, pos0b, tq),
                   lambda: pa.plain_past_partials(qb, kpool, vpool, layer, bt,
-                                                 slotb, pos0b, tq)),
+                                                 slotb, pos0b, tq),
+                  lambda: on_stream(args)),
         shape=f"2 atoms x tq=256, H={H} K={K} d={d} bs=128, pos0 256,768")
 
     # ---- C: the same atoms' self flash, seeded from B's (plain) partials
@@ -499,6 +530,8 @@ def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
     outc = pa.self_attention(qb, ks, vs, alen, tq, seed)
     poutc = pa.plain_self_attention(qb, ks, vs, alen, tq, seed)
     err = close("C out", outc, poutc, ATOL, RTOL)
+    launches = one_call(torch, f"C{suffix}", lambda: pa.self_attention(
+        qb, ks, vs, alen, tq, seed), one_launch)
     pairs = sum(n * (n + 1) // 2 for n in alen.tolist())
     nbytes = ((qb.numel() + ks.numel() + vs.numel() + outc.numel()) * 2
               + (paccb.numel() + 2 * pmb.numel()) * 4)
@@ -506,10 +539,12 @@ def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
     args, _ = pa.self_kernel_args(qb, ks, vs, alen, tq, seed)
     rows[f"chunk_self{suffix}"] = dict(
         err=err, bound=bound(nbytes, flops), library_ms=None,
+        launches_per_call=launches,
         **timings(KERNELS["chunk_self"], args,
                   lambda: pa.self_attention(qb, ks, vs, alen, tq, seed),
                   lambda: pa.plain_self_attention(qb, ks, vs, alen, tq,
-                                                  seed)),
+                                                  seed),
+                  lambda: on_stream(args)),
         shape=f"2 atoms x tq=256 (alen 256,200), H={H} K={K} d={d}, "
               f"seeded")
 
@@ -522,7 +557,8 @@ def kernel_checks(torch, pa, fa, KERNELS, H=32, K=8, d=128, suffix="",
         torch, fa, KERNELS, qd, kd, vd, f"serve shape{suffix}")
     rows.update(quant_pool_checks(
         torch, pa, KERNELS, kpool, vpool, layer, bt,
-        decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq), suffix=suffix))
+        decode=(q, slot, pos0), past=(qb, slotb, pos0b, tq), suffix=suffix,
+        one_launch=one_launch))
     torch.cuda.synchronize()
     for name, r in rows.items():
         loop = (f", a loop of launches {r['loop_ms']:.4f} ms"
@@ -556,10 +592,10 @@ def quantize_pool(torch, pa, pool_k, pool_v, bits):
 
 
 def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
-                      past, suffix=""):
+                      past, suffix="", one_launch=True):
     """The int8 / int4 modes of A and B on the bf16 checks' atoms, over the
     same pools quantized by the port's append (rows' keys end in
-    ``suffix``)."""
+    ``suffix``); B's as :func:`kernel_checks` holds B's bf16 mode."""
     rows = {}
     q, slot, pos0 = decode
     qb, slotb, pos0b, tq = past
@@ -605,6 +641,8 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
         err = close(f"{name} out", normalised(accb, lb),
                     normalised(paccb, plb), ATOL, RTOL)
         close(f"{name} m", mb, pmb, STAT_TOL, STAT_TOL)
+        launches = one_call(torch, f"{name}{suffix}", lambda: pa.past_partials(
+            qb, kq, vq, layer, bt, slotb, pos0b, tq, **kw), one_launch)
         cols = int(pos0b.sum())
         nbytes = (cols * (KD * bits // 8 + 4) * 2 + qb.numel() * 2
                   + accb.numel() * 4 + 2 * mb.numel() * 4)
@@ -612,30 +650,103 @@ def quant_pool_checks(torch, pa, KERNELS, kpool, vpool, layer, bt, decode,
                                       tq, **kw)
         rows[name + suffix] = dict(
             err=err, bound=bound(nbytes, 4 * tq * H * d * cols),
-            library_ms=None,
+            library_ms=None, launches_per_call=launches,
             **timings(KERNELS[name], args,
                       lambda: pa.past_partials(qb, kq, vq, layer, bt, slotb,
                                                pos0b, tq, **kw),
                       lambda: pa.plain_past_partials(qb, kq, vq, layer, bt,
-                                                     slotb, pos0b, tq, **kw)),
+                                                     slotb, pos0b, tq, **kw),
+                      lambda: on_stream(args)),
             shape=f"int{bits} pool, the bf16 B atoms")
         del kq, vq, sc
     return rows
 
 
-def device_launches(torch, fn) -> int:
+def one_call(torch, tag: str, call, one_launch: bool = True) -> int:
+    """``call`` twice on the same inputs gives the same bits, and one call
+    is one launch on the card (:func:`device_launches`; ``one_launch``
+    False only counts). Returns the count."""
+    first, second = call(), call()
+    if not isinstance(first, tuple):
+        first, second = (first,), (second,)
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError(f"{tag}: two launches on the same inputs differ")
+    launches = device_launches(torch, call)
+    if one_launch and launches != 1:
+        raise AssertionError(f"{tag}: {launches} launches on the card for "
+                             f"one call, not 1")
+    return launches
+
+
+def chunked_equals_whole(torch, pa, fa, H=32, K=8, d=128, T=1024, tq=256,
+                         bs=128, seed=5678) -> list:
+    """A prompt of T tokens whose first P tokens' K/V sit in a bf16 pool
+    behind a shuffled block table (P = 256, 512, 768): kernel B over the
+    next tq rows at pos0 = P, then kernel C seeded from B's partials, must
+    give kernel D's bits for those rows of the whole prompt. The serve
+    phase's chunked-vs-whole gate rests on it. Returns the P checked."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, T, H, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(1, T, K, d, generator=g, device=dev).bfloat16()
+            for _ in "kv")
+    want, _ = fa.flash_forward(q, k, v, causal=True)
+    nb_max, nbp1 = T // bs, 2 * T // bs + 1
+    bt = torch.randperm(nbp1 - 1, generator=g, device=dev)[:nb_max]
+    bt = bt.to(torch.int32).reshape(1, nb_max).contiguous()
+    pools = [torch.zeros(1, nbp1, bs, K * d, dtype=torch.bfloat16,
+                         device=dev) for _ in "kv"]
+    for pool, x in zip(pools, (k, v)):
+        pool[0, bt[0].long()] = x[0].reshape(nb_max, bs, K * d)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    alen = torch.full((1,), tq, dtype=torch.int32, device=dev)
+    checked = []
+    for P in range(tq, T, tq):
+        rows = slice(P, P + tq)
+        pos0 = torch.full((1,), P, dtype=torch.int32, device=dev)
+        qc, kc, vc = (x[0, rows].contiguous() for x in (q, k, v))
+        seed_p = pa.past_partials(qc, *pools, 0, bt, slot, pos0, tq)
+        out = pa.self_attention(qc, kc, vc, alen, tq, seed_p)
+        if not torch.equal(out, want[0, rows]):
+            diff = float((out.float() - want[0, rows].float()).abs().max())
+            raise AssertionError(f"kernels B then C at pos0 = {P} differ "
+                                 f"from kernel D's rows (max abs {diff:.3e})")
+        checked.append(P)
+    log(f"kernels B then C vs kernel D (H={H} K={K} d={d}, a {T}-token "
+        f"prompt chunked at {checked} over a shuffled bf16 pool): bit for "
+        f"bit")
+    return checked
+
+
+def device_launches(torch, fn, traces: int = 3) -> int:
     """Kernels the card ran for one call of ``fn``, counted by
-    ``torch.profiler`` (a ``Kernel`` record counts wrapper calls only)."""
+    ``torch.profiler`` (a ``Kernel`` record counts wrapper calls only).
+
+    CUPTI now and then hands the profiler no records for a short trace (a
+    one-launch call once read 0 launches). So a control kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``) runs just before and just
+    after the call, and only a trace that shows both is read; another is
+    taken otherwise, and after ``traces`` incomplete ones the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for n in range(1, traces + 1):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA]
+        control = sum(e.count for e in events if "spin_kernel" in e.key)
+        if control == 2:
+            return sum(e.count for e in events) - control
+        log(f"device_launches: trace {n} of {traces} shows {control} of the "
+            f"2 control kernels; not read")
+    raise AssertionError(f"the profiler missed the control kernels in "
+                         f"{traces} traces: no launch count")
 
 
 def qmm_row(torch, qm, KERNELS, x, packed, scales, bits, layer, shape,
@@ -923,13 +1034,7 @@ def tile_checks(torch, pa, KERNELS, H=32, K=8, d=128, suffix="", seed=9012):
         ref = pa.plain_paged_attention(q, kpool, vpool, btb, ps, layer=layer)
         tag = f"I (t={t}{suffix})"
         tiles = {"out": close_tiles(f"{tag} out", out, ref)}
-        if not torch.equal(call(), out):
-            raise AssertionError(f"{tag}: two launches on the same inputs "
-                                 f"differ")
-        launches = device_launches(torch, call)
-        if launches != 1:
-            raise AssertionError(f"{tag}: {launches} launches on the card "
-                                 f"for one call, not 1")
+        launches = one_call(torch, tag, call)
         cols = sum(min(p + t, S) for p in pos)       # KV rows read per slot
         pairs = sum(min(p + i, S - 1) + 1 for p in pos for i in range(t))
         nbytes = cols * K * d * 2 * 2 + (q.numel() + out.numel()) * 2
@@ -2338,6 +2443,7 @@ def main() -> int:
     build_reports(_build)
 
     rows = kernel_checks(torch, pa, fa, _build.KERNELS)
+    chunked_equals_whole(torch, pa, fa)
     for sfx, H, K, d in HEAD_DIM_SHAPES:
         rows.update(kernel_checks(torch, pa, fa, _build.KERNELS, H, K, d, sfx,
                                   seed=1234 + d))
@@ -2376,8 +2482,8 @@ def main() -> int:
             e["grad_max_abs_err"] = r["grad_err"]
         if "splits" in r:
             e["splits"] = r["splits"]
-        if "loop_ms" in r:                   # A, G/H at B <= 16, I at t=1:
-                                             # a CUDA graph
+        if "loop_ms" in r:                   # A-C, G/H at B <= 16, I at
+                                             # t=1: a CUDA graph
             e["loop_ms"] = r["loop_ms"]
         if "launches_per_call" in r:         # G/H at B <= 16, I
             e["launches_per_call"] = r["launches_per_call"]

@@ -44,13 +44,13 @@
 //   * masks are computed only on tiles that cross the causal diagonal, the
 //     window's edge or the last valid column for some of a warp's rows (a
 //     second instantiation of the tile body); masked entries get p = 0.
-// A prompt served whole (kernel D) and in chunks (kernels B then C, on the
-// tile engine of flash_tile.cuh) must give the same logits: at full depth any
-// change of rounding grows to several percent of them. So D keeps the tile
-// engine's arithmetic exactly -- its 64-column tiles from column 0 in order,
-// scores scaled before the max, p = expf(score - m), each tile's row sum in
-// the engine's warp_sum order, l = l * corr + sum, the same mma k order --
-// and the two agree bit for bit (a card test holds D against C).
+// A prompt served whole (kernel D) and in chunks (kernels B then C) must give
+// the same logits: at full depth any change of rounding grows to several
+// percent of them. So B and C run D's own tile body (flash_fwd_tile.cuh) --
+// its 64-column tiles from column 0 in order, scores scaled before the max,
+// p = expf(score - m), each tile's row sum in one fixed order, l = fma(l,
+// corr, sum), the same mma k order -- and the paths agree bit for bit (card
+// tests hold D against C, and against B then C).
 // Not yet: wgmma and TMA with a producer warp, and K/V reuse across the heads
 // of a GQA group beyond what L2 gives (neighbouring CTAs are those heads).
 #include "flash_fwd_tile.cuh"
@@ -88,8 +88,8 @@ __global__ void __launch_bounds__(WARPS * 32, MINB) flash_fwd_kernel(const FwdAr
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // live columns [c_lo, c_hi) of the CTA's query positions [q_lo, q_hi]; D
-  // walks the tile engine's 64-column tiles from column 0 (no window) or
-  // c_lo, in order, so its sums meet kernels B and C's bit for bit
+  // walks 64-column tiles from column 0 (no window) or c_lo, in order, so
+  // its sums meet kernels B and C's bit for bit
   const int q_lo = t0 + a.rel, q_hi = t0 + nrows - 1 + a.rel;
   const int c_lo = a.window > 0 ? max(0, q_lo - (a.window - 1)) : 0;
   const int c_hi = a.causal ? max(0, min(a.S, q_hi + 1)) : a.S;

@@ -1,16 +1,18 @@
 // The register-resident flash tile of kernel D (flash_forward.cu), shared
-// with kernel I's prefill regime (paged_tile.cu): the tile shape, the tile
-// engine's arithmetic spelled out, S = Q K^T of one warp's 16 rows over a
-// 64-column tile, and the online softmax with O += P V. A kernel built on
-// these walks its 64-column tiles in order from its first live column and
-// gives the same bits as kernel D on the same rows and columns.
+// with kernel I's prefill regime (paged_tile.cu), kernel B's chunk-past
+// partials (paged_attention.cu) and kernel C's seeded chunk-self flash
+// (flash_attention.cu): the tile shape, the softmax arithmetic spelled out,
+// S = Q K^T of one warp's 16 rows over a 64-column tile, and the online
+// softmax with O += P V. A kernel built on these walks its 64-column tiles in
+// order from its first live column and gives the same bits as kernel D on
+// the same rows and columns.
 #pragma once
 
 #include "flash_mma.cuh"
 
 namespace dst {
 
-constexpr int BN = 64;  // the tile engine's column tile (flash_tile.cuh)
+constexpr int BN = 64;  // columns a tile
 // WARPS warps of 16 query rows a CTA, MINB CTAs per SM for
 // __launch_bounds__: the fastest shape without spills at d = 64 and d = 128
 // (chip_smoke prints ptxas's registers and spill bytes)
@@ -39,17 +41,16 @@ struct FwdTiles {
   static_assert(Q_ELEMS <= 2 * KV_ELEMS, "Q fits one stage");
 };
 
-// The tile engine's arithmetic (flash_tile.cuh), spelled out so that the
-// compiler cannot contract it differently here: score = s * scale, p =
-// expf(score - m), l = fma(l, corr, the tile's row sum) -- the engine's
-// `l * corr + psum`, which nvcc contracts.
+// The softmax arithmetic every kernel on this tile shares, spelled out so
+// that the compiler cannot contract it differently in one of them: score =
+// s * scale, p = expf(score - m), l = fma(l, corr, the tile's row sum).
 __device__ __forceinline__ float score_of(float s, float scale) { return __fmul_rn(s, scale); }
 
 __device__ __forceinline__ float p_of(float score, float m) { return expf(__fsub_rn(score, m)); }
 
-// A row's sum over a 64-column tile in the tile engine's order (its
-// warp_sum over lanes holding columns c and c + 32): column bits b5, b4 and
-// b3 (this thread's n8 tiles j), then b2 and b1 (across the quad), then b0.
+// A row's sum over a 64-column tile in one fixed order (a butterfly over
+// lanes holding columns c and c + 32): column bits b5, b4 and b3 (this
+// thread's n8 tiles j), then b2 and b1 (across the quad), then b0.
 // s[j][e0 + b0] holds column 8 j + 2 t + b0 of the row.
 __device__ __forceinline__ float tile_row_sum(const float (&s)[BN / 8][4], int e0) {
   float z[2];

@@ -37,8 +37,7 @@ _SOURCES = {"paged_attention": "paged_attention.cu",
             "quant_matmul": "quant_matmul.cu",
             "rms_norm": "rms_norm.cu",
             "hbm_stream": "hbm_stream.cu"}
-_HEADERS = ("flash_tile.cuh", "flash_mma.cuh", "flash_fwd_tile.cuh",
-            "int_unpack.cuh")
+_HEADERS = ("flash_mma.cuh", "flash_fwd_tile.cuh", "int_unpack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -241,15 +240,15 @@ def _declare(lib, name: str) -> None:
                                       P, P, I, I, F, I, I, P, P, P, P, P, P],
         },
         "paged_attention": {
-            # q kpool vpool layer nbp1 bs H K hd bt nb_max slot pos0 lo nblk
-            # A tq window scale acc m l stream
-            "dst_paged_past": [P, P, P, I, I, I, I, I, I, P, I, P, P, P, P,
-                               I, I, I, F, P, P, P, P],
+            # q kpool vpool layer nbp1 bs H K hd bt nb_max slot pos0 A tq
+            # window scale acc m l stream
+            "dst_paged_past": [P, P, P, I, I, I, I, I, I, P, I, P, P, I, I,
+                               I, F, P, P, P, P],
             # q kpool vpool kv_scale, then as dst_paged_past from layer
             "dst_paged_past_int8": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
-                                    P, P, I, I, I, F, P, P, P, P],
+                                    I, I, I, F, P, P, P, P],
             "dst_paged_past_int4": [P, P, P, P, I, I, I, I, I, I, P, I, P, P,
-                                    P, P, I, I, I, F, P, P, P, P],
+                                    I, I, I, F, P, P, P, P],
         },
         "paged_tile": {
             # q kpool vpool layer nbp1 bs H K hd bt nb_max pos B t window

@@ -26,9 +26,12 @@ version named in brackets):
   (:func:`merge_decode_partials` is the merge's plain twin, for tests);
 * B ``past_partials`` -- the same for the ``tq*rep`` rows of chunk atoms,
   per kv head [``plain_past_partials``]; ``paged_past_int8`` /
-  ``paged_past_int4`` over a quantized pool;
+  ``paged_past_int4`` over a quantized pool. One launch a call: the kernel
+  computes the live ranges itself;
 * C ``self_attention`` -- causal flash over each chunk atom's own tokens,
-  seeded from B's partials [``plain_self_attention``];
+  seeded from B's partials [``plain_self_attention``]. B and C run kernel
+  D's tile body, so a prompt chunked at multiples of 64 tokens gets D's
+  bits for its whole-prompt attention;
 * I ``paged_attention`` -- a dense query tile ``[B, t, H, d]`` (every slot a
   row, chunks right-padded) over each slot's paged KV, causal from
   ``pos[b]``: the ``packed=False`` engine's attention, after
@@ -65,8 +68,8 @@ def _past_ranges(atom_pos0: torch.Tensor, row_pos: torch.Tensor, bs: int,
                  nb_max: int, window: Optional[int]):
     """(pos0, lo block, live block count) of each atom's visible past.
     ``row_pos`` (>= pos0) anchors the window; ``pos0`` is the pool frontier.
-    An atom with ``pos0 == 0`` has no live block. Kernel B's wrapper uses
-    it; kernel A computes the same in its prologue."""
+    An atom with ``pos0 == 0`` has no live block. Kernels A and B compute
+    the same in their prologues (the plain twin of their formula)."""
     pos0 = atom_pos0.to(torch.int32)
     if window is not None:
         lo = torch.clamp_min(
@@ -389,24 +392,26 @@ def past_kernel_args(q, k_pool, v_pool, layer: int, block_tables, atom_slot,
                      atom_pos0, tq: int, *, window=None, kv_scale=None,
                      kv_bits: int = 8):
     """Kernel B's (or its int mode's) launcher arguments and its outputs
-    ``(acc, m, l)``. The oldest row of each atom (position pos0) bounds the
-    window's first live block."""
+    ``(acc, m, l)``, allocated here (CUDA tensors). No other launch: the
+    kernel computes each atom's live range (:func:`_past_ranges`, the window
+    anchored at the atom's oldest row, position pos0) itself."""
     N, H, d = q.shape
+    card_head_dim(d, "kernel B")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     L, nbp1, bs, K, rep = _pool_geometry((H, d), k_pool, kv_scale, kv_bits)
     A, R = N // tq, tq * rep
     nb_max = block_tables.shape[1]
-    card_head_dim(d, "kernel B")
     cuda_operand(q, "q", torch.bfloat16)
     pools = _pool_operands(k_pool, v_pool, kv_scale, kv_bits)
     bt = int32_meta(block_tables)
     slot = int32_meta(atom_slot)
-    pos0, lo, nblk = _past_ranges(atom_pos0, atom_pos0, bs, nb_max, window)
-    pos0, lo, nblk = int32_meta(pos0), int32_meta(lo), int32_meta(nblk)
+    pos0 = int32_meta(atom_pos0)
     acc = torch.empty(A, K, R, d, dtype=torch.float32, device=q.device)
     m = torch.empty(A, K, R, dtype=torch.float32, device=q.device)
     l = torch.empty(A, K, R, dtype=torch.float32, device=q.device)
     args = (q, *pools, int(layer), nbp1, bs, H, K, d, bt, nb_max,
-            slot, pos0, lo, nblk, A, tq, int(window or 0),
+            slot, pos0, A, tq, int(window or 0),
             1.0 / math.sqrt(d), acc, m, l, stream_ptr(q))
     return args, (acc, m, l)
 

@@ -1,24 +1,26 @@
-"""Phase 3's d = 64 / 128 kernel rows and G/H and I rows of a parent tree
-and of this one, in turns on one card, and whether their d = 64 / 128
-attention kernels and G/H's multi-row kernel compiled to the same SASS.
+"""Phase 3's kernel rows of a parent tree and of this one, in turns on one
+card, and whether their A, D, E, F and I kernels and G/H's multi-row kernel
+compiled to the same SASS.
 
     python -m deepspeed_tpu_torch.tools.parent_turns build/parent
 
 The parent is a checkout unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists. Each reading runs in a process of its own from
-its tree -- that tree's ``chip_smoke.py`` checks (``kernel_checks``,
-``backward_checks`` at their default shapes), this tree's ``qmm_checks``
-(G/H at every row of phase 3) and ``tile_checks`` (I's t = 1 and t = 700
-rows at every head dim), so both trees are timed at the same rows by the
-same code, and its package, whose libraries build from its sources -- in
-the order parent, this, this, parent. Prints each row's four kernel ms and
-the ratio of the means (this / parent), with the launches on the card a
-call (profiler count) of G/H at B <= 16 and of I in each tree; then, for
-each d = 64 / 128 instantiation of kernels A, B, C, D, E and F and each
-of ``qmm_tile_kernel<4/8>``, whether ``cuobjdump -sass`` of the two builds
-is identical (instruction offsets and the padding of lines aside; a
-function of one build only is named so); the card's name and power limit
-come last. Needs a CUDA card and the toolkit's ``cuobjdump``.
+its tree -- that tree's ``chip_smoke.py`` ``backward_checks`` (D, E and F at
+their default shapes), and this tree's ``kernel_checks`` (A-D and A/B's
+int modes at llama3-8b's heads, d = 128, and at d = 64, 96 and 256: B in
+each pool mode and C at every card head dim), ``qmm_checks`` (G/H at every
+row of phase 3) and ``tile_checks`` (I's t = 1 and t = 700 rows at every
+head dim), so both trees are timed at the same rows by the same code, and
+its package, whose libraries build from its sources -- in the order
+parent, this, this, parent. Prints each row's four kernel ms and the ratio
+of the means (this / parent), with the launches on the card a call
+(profiler count) of B, C, G/H at B <= 16 and I in each tree; then, for
+each instantiation of kernels A, D, E, F and I and each of
+``qmm_tile_kernel<4/8>``, whether ``cuobjdump -sass`` of the two builds is
+identical (instruction offsets and the padding of lines aside; a function
+of one build only is named so); the card's name and power limit come last.
+Needs a CUDA card and the toolkit's ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -33,15 +35,19 @@ from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[2]
 # library: the functions whose SASS is compared
-SASS = {"paged_decode": r"Li(64|128)E", "flash_forward": r"Li(64|128)E",
-        "flash_backward": r"Li(64|128)E", "quant_matmul": r"qmm_tile_kernel",
-        "paged_attention": r"Li(64|128)E", "flash_attention": r"Li(64|128)E"}
+CARD_DIMS = r"Li(64|96|128|256)E"
+SASS = {"paged_decode": CARD_DIMS, "flash_forward": CARD_DIMS,
+        "flash_backward": CARD_DIMS, "paged_tile": CARD_DIMS,
+        "quant_matmul": r"qmm_tile_kernel"}
+# kernel_checks' shapes beside its default (llama3-8b's heads, d = 128):
+# (row suffix, H, K, d)
+SHAPES = (("/d64", 32, 8, 64), ("/d96", 32, 32, 96), ("/d256", 8, 8, 256))
 
 
 def rows(root: str) -> dict:
-    """Run in the tree ``root``: its phase-3 rows at d = 64 / 128 and G/H's
-    and I's rows (kernel ms, and the launches a call of G/H at B <= 16 and
-    of I) and the paths of its libraries."""
+    """Run in the tree ``root``: its phase-3 rows (kernel ms, and the
+    launches a call of B, C, G/H at B <= 16 and I) and the paths of its
+    libraries."""
     import importlib.util
 
     sys.path.insert(0, root)
@@ -59,16 +65,17 @@ def rows(root: str) -> dict:
     this = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(this)
     _build.build_all()
-    got = chip_smoke.kernel_checks(torch, pa, fa, _build.KERNELS)
+    got = this.kernel_checks(torch, pa, fa, _build.KERNELS, one_launch=False)
+    for sfx, H, K, d in SHAPES:
+        got.update(this.kernel_checks(torch, pa, fa, _build.KERNELS, H, K, d,
+                                      sfx, seed=1234 + d, one_launch=False))
     got.update(chip_smoke.backward_checks(torch, fa, _build.KERNELS))
     got.update(this.tile_checks(torch, pa, _build.KERNELS))
     for sfx, H, K, d in this.HEAD_DIM_SHAPES:
         got.update(this.tile_checks(torch, pa, _build.KERNELS, H, K, d, sfx,
                                     seed=9012 + d))
     got.update(this.qmm_checks(torch, qm, _build.KERNELS, one_launch=False))
-    return {"ms": {k: r["ms"] for k, r in got.items()
-                   if k.startswith("paged_tile")
-                   or not k.endswith(("d96", "d256"))},
+    return {"ms": {k: r["ms"] for k, r in got.items()},
             "launches": {k: r["launches_per_call"] for k, r in got.items()
                          if "launches_per_call" in r},
             "libs": {n: str(_build._lib_path(n)) for n in SASS}}

@@ -18,7 +18,10 @@ number of kernel launches, the top kernels by device time, and the device
 time and launches of kernel A (``paged_decode_kernel``), of kernels G/H
 (``qmm_rows_kernel`` at B <= 16, ``qmm_tile_kernel`` above) and of the
 second pass that adds G/H's splits above 16 rows (``split_sum_kernel``;
-at B <= 16 the decode kernel adds its own) and of kernel I; then the
+at B <= 16 the decode kernel adds its own), of kernels B and C (the chunk
+steps' past partials and seeded self flash, each pool mode; the names of
+both their designs, so a parent tree profiled with this file reads the
+same lines) and of kernel I; then the
 card's name and power limit. ``--dense`` profiles the ``packed=False``
 engine instead (kernel I, chip_smoke's phase 7 engine (a)): a ``put`` of
 phase 4's four prompts (37, 128, 129 and 700 tokens: one 700-row tile)
@@ -84,6 +87,9 @@ def profile_phase(name, fn, steps_per_call: int, top: int = 12) -> None:
           flush=True)
     for tag, keys in (("kernels G/H", ("qmm_",)),
                       ("G/H split sums", ("split_sum_kernel",)),
+                      ("kernel B", ("paged_past_kernel", "PastMode",
+                                    "PastQuantMode")),
+                      ("kernel C", ("chunk_self_kernel", "SelfMode")),
                       ("kernel I", ("paged_tile", "TileMode"))):
         sel = [r for r in rows if any(k in r[0] for k in keys)]
         ms = sum(r[1] for r in sel) / 1e3 / steps_per_call

@@ -377,14 +377,19 @@ def test_paged_tile_matches_pallas(d, t, window):
 # ---------------------------------------------------------------------------
 
 # each launcher's instantiation per head dim
-LAUNCHES = {"flash_tile.cuh": ["launch_tiles<{d}>"],
+LAUNCHES = {"paged_attention.cu": ["launch_past<BITS, {d}>"],
+            "flash_attention.cu": ["launch_self<{d}>"],
             "flash_forward.cu": ["launch_fwd<{d}>"],
             "flash_backward.cu": ["launch_bwd<{d}, DKV>"],
             "paged_decode.cu": ["launch_decode<4, true, {d}>",
                                 "launch_decode<BITS, false, {d}>"],
             "paged_tile.cu": ["launch_tile_decode<{d}>",
                               "launch_tile_flash<{d}>"]}
-SMEM = {"flash_forward.cu": ["dst_flash_fwd_smem_bytes"],
+SMEM = {"paged_attention.cu": ["dst_paged_past_smem_bytes",
+                               "dst_paged_past_int8_smem_bytes",
+                               "dst_paged_past_int4_smem_bytes"],
+        "flash_attention.cu": ["dst_chunk_self_smem_bytes"],
+        "flash_forward.cu": ["dst_flash_fwd_smem_bytes"],
         "flash_backward.cu": ["dst_flash_bwd_dq_smem_bytes",
                               "dst_flash_bwd_dkv_smem_bytes"],
         "paged_decode.cu": ["dst_paged_decode_smem_bytes",
@@ -407,7 +412,8 @@ def test_every_launcher_dispatches_the_card_head_dims(source):
             assert call.format(d=d) in code, (source, call, d)
     for sym in SMEM.get(source, []):
         assert f"{sym}[{len(CARD_HEAD_DIMS)}]" in code, sym
-    if source in SMEM:        # (paged_decode.cu: one macro, three arrays)
+    if source in SMEM:        # (paged_decode.cu, paged_attention.cu: one
+                              # macro, three arrays)
         found = [int(x) for x in
                  re.findall(r"Tiles<(?:BITS, )?(\d+)>::\w*BYTES", code)]
         n = 2 if source in ("flash_backward.cu", "paged_tile.cu") else 1
@@ -415,14 +421,18 @@ def test_every_launcher_dispatches_the_card_head_dims(source):
 
 
 def test_the_tile_engine_kernels_dispatch_through_one_function():
-    """B (paged_attention.cu) and C (flash_attention.cu) launch the tile
-    engine only through its head-dim dispatch; I (paged_tile.cu) left the
-    tile engine for kernels of its own."""
-    for source in ("paged_attention.cu", "flash_attention.cu"):
+    """The wmma tile engine (``flash_tile.cuh``, its ``launch_any_hd``
+    dispatch and ``launch_tiles``) is gone: B (paged_attention.cu) and C
+    (flash_attention.cu), its last kernels, dispatch their head dims through
+    launchers of their own on kernel D's tile body, as I (paged_tile.cu)
+    does."""
+    assert not (CSRC / "flash_tile.cuh").exists()
+    for source in ("paged_attention.cu", "flash_attention.cu",
+                   "paged_tile.cu"):
         code = (CSRC / source).read_text()
-        assert "launch_any_hd(" in code and "launch_tiles<" not in code
-    code = (CSRC / "paged_tile.cu").read_text()
-    assert "launch_any_hd(" not in code and "flash_tile.cuh" not in code
+        assert '#include "flash_fwd_tile.cuh"' in code
+        assert "launch_any_hd(" not in code and "launch_tiles<" not in code
+        assert "flash_tile.cuh" not in code and "wmma" not in code
 
 
 def test_chip_smoke_reads_every_card_head_dim():
@@ -430,7 +440,7 @@ def test_chip_smoke_reads_every_card_head_dim():
 
     assert chip_smoke.CARD_HEAD_DIMS == CARD_HEAD_DIMS
     rows = [r for r in chip_smoke.PTXAS_REPORTS if r[4] == "d"]
-    assert len(rows) == 9 and all(r[3] == CARD_HEAD_DIMS for r in rows)
+    assert len(rows) == 13 and all(r[3] == CARD_HEAD_DIMS for r in rows)
 
 
 def _refusals(d):

@@ -292,18 +292,39 @@ def test_kernel_a_decode_loop_rows_match_plain_on_card(cuda_device, d):
     torch.testing.assert_close(m, rm, atol=1e-2, rtol=1e-2)
 
 
+# (tq, window) of kernel B's and C's checks: chunk widths 32 to 256, one
+# not a multiple of the 64-row tile, windows inside the past and one (1)
+# past every pooled column
+B_C_CASES = [(256, None), (100, None), (64, 90), (32, None), (32, 40),
+             (64, 1), (256, 1)]
+
+
+def _b_atoms(dev):
+    """Kernel B's atoms over ``_card_pools``' 16-block tables: pasts of 256,
+    1000 and 5 tokens (pos0 1000 and 5 cut a 64-column tile) and none."""
+    return (torch.tensor([0, 2, 3, 1], device=dev),
+            torch.tensor([256, 1000, 5, 0], device=dev))
+
+
+def _check_empty_rows(acc, m, l, rl):
+    """Rows with nothing visible (pos0 = 0, a window past every column):
+    m = -1e30, l = 0, acc = 0."""
+    dead = rl == 0
+    assert bool((m[dead] == -1e30).all()) and bool((l[dead] == 0).all())
+    assert float(acc[dead].abs().sum()) == 0.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", CARD_HEAD_DIMS)
-@pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
+@pytest.mark.parametrize("tq,window", B_C_CASES)
 def test_kernels_b_c_match_plain_on_card(cuda_device, tq, window, d):
     kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
-    A = 3
+    slot, pos0 = _b_atoms(cuda_device)
+    A = len(pos0)
     q = torch.randn(A * tq, 32, d, generator=g, device=cuda_device).bfloat16()
     ks = torch.randn(A * tq, 8, d, generator=g, device=cuda_device).bfloat16()
     vs = torch.randn(A * tq, 8, d, generator=g, device=cuda_device).bfloat16()
-    slot = torch.tensor([0, 2, 3], device=cuda_device)
-    pos0 = torch.tensor([256, 1000, 5], device=cuda_device)
-    alen = torch.tensor([tq, tq - 7, 1], device=cuda_device)
+    alen = torch.tensor([tq, tq - 7, 1, tq], device=cuda_device)
     acc, m, l = tpa.past_partials(q, kp, vp, 0, bt, slot, pos0, tq,
                                   window=window)
     ra, rm, rl = tpa.plain_past_partials(q, kp, vp, 0, bt, slot, pos0, tq,
@@ -312,6 +333,7 @@ def test_kernels_b_c_match_plain_on_card(cuda_device, tq, window, d):
                                rtol=2e-2)
     live = rl > 0
     torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+    _check_empty_rows(acc, m, l, rl)
     seed = (ra, rm, rl)
     out = tpa.self_attention(q, ks, vs, alen, tq, seed, window=window)
     ref = tpa.plain_self_attention(q, ks, vs, alen, tq, seed, window=window)
@@ -774,15 +796,15 @@ def test_kernel_a_is_deterministic_on_card(cuda_device, bits, window, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", CARD_HEAD_DIMS)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("tq,window", [(256, None), (100, None), (64, 90)])
+@pytest.mark.parametrize("tq,window", B_C_CASES)
 def test_kernel_b_int_modes_match_plain_on_card(cuda_device, bits, tq,
                                                 window, d):
     from deepspeed_tpu_torch.ops._build import KERNELS
 
     kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits, d=d)
-    q = torch.randn(3 * tq, 32, d, generator=g, device=cuda_device).bfloat16()
-    slot = torch.tensor([0, 2, 3], device=cuda_device)
-    pos0 = torch.tensor([256, 1000, 5], device=cuda_device)
+    slot, pos0 = _b_atoms(cuda_device)
+    q = torch.randn(len(pos0) * tq, 32, d, generator=g,
+                    device=cuda_device).bfloat16()
     kw = dict(window=window, kv_scale=sc, kv_bits=bits)
     name = f"paged_past_int{bits}"
     n = KERNELS[name].launches
@@ -795,6 +817,112 @@ def test_kernel_b_int_modes_match_plain_on_card(cuda_device, bits, tq,
                                rtol=2e-2)
     live = rl > 0
     torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+    _check_empty_rows(acc, m, l, rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,K", [(16, 1), (12, 3), (8, 8)])
+def test_kernel_b_int_modes_at_other_groups_match_plain_on_card(
+        cuda_device, bits, H, K, d):
+    """Kernel B's int modes with one and three kv heads (an int4 head's
+    features straddle the nibble halves: each 16-feature chunk picks its
+    own nibble) and with H = K, against the plain version."""
+    kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits, K=K, d=d)
+    slot, pos0 = _b_atoms(cuda_device)
+    tq = 64
+    q = torch.randn(len(pos0) * tq, H, d, generator=g,
+                    device=cuda_device).bfloat16()
+    kw = dict(kv_scale=sc, kv_bits=bits)
+    acc, m, l = tpa.past_partials(q, kp, vp, 0, bt, slot, pos0, tq, **kw)
+    ra, rm, rl = tpa.plain_past_partials(q, kp, vp, 0, bt, slot, pos0, tq,
+                                         **kw)
+    torch.testing.assert_close(_norm(acc, l), _norm(ra, rl), atol=2e-2,
+                               rtol=2e-2)
+    live = rl > 0
+    torch.testing.assert_close(m[live], rm[live], atol=1e-2, rtol=1e-2)
+    _check_empty_rows(acc, m, l, rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("window", [None, 90])
+def test_kernels_b_c_are_one_deterministic_launch_on_card(cuda_device, bits,
+                                                          window, d):
+    """Kernel B in each pool mode, and kernel C seeded from it: one launch
+    on the card a call (the profiler's count: the live ranges come from the
+    kernel, not the wrapper), and a second launch gives the same bits."""
+    from chip_smoke import device_launches
+
+    if bits == 16:
+        kp, vp, bt, g = _card_pools(cuda_device, lanes=8 * d)
+        kw = {}
+    else:
+        kp, vp, sc, bt, g = _card_quant_pools(cuda_device, bits, d=d)
+        kw = dict(kv_scale=sc, kv_bits=bits)
+    tq = 100
+    slot, pos0 = (x.to(torch.int32) for x in _b_atoms(cuda_device))
+    A = len(pos0)
+    q = torch.randn(A * tq, 32, d, generator=g, device=cuda_device).bfloat16()
+    ks, vs = (torch.randn(A * tq, 8, d, generator=g, device=cuda_device)
+              .bfloat16() for _ in "kv")
+    alen = torch.tensor([tq, tq - 7, 1, tq], dtype=torch.int32,
+                        device=cuda_device)
+
+    def past():
+        return tpa.past_partials(q, kp, vp, 0, bt, slot, pos0, tq,
+                                 window=window, **kw)
+
+    seed = past()
+
+    def self_():
+        return tpa.self_attention(q, ks, vs, alen, tq, seed, window=window)
+
+    for call in (past, self_):
+        first, second = call(), call()
+        for x, y in zip(first if isinstance(first, tuple) else (first,),
+                        second if isinstance(second, tuple) else (second,)):
+            assert torch.equal(x, y)
+        assert device_launches(torch, call) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CARD_HEAD_DIMS)
+@pytest.mark.parametrize("P", [256, 512, 768])
+def test_kernels_b_then_c_equal_kernel_d_bitwise_on_card(cuda_device, P, d):
+    """A prompt of 1024 tokens whose first P tokens' K/V sit in a bf16 pool
+    behind a shuffled block table: kernel B over the next 256 rows at
+    pos0 = P, then kernel C seeded from B's partials, gives kernel D's bits
+    for those rows of the whole prompt (no window). B walks D's 64-column
+    tiles over the past and C continues D's walk from B's fp32 state: the
+    property the serving engine's chunked-vs-whole gate rests on."""
+    T, H, K, bs, tq = 1024, 32, 8, 128, 256
+    g = torch.Generator(device=cuda_device).manual_seed(P + d)
+    q = torch.randn(1, T, H, d, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(1, T, K, d, generator=g, device=cuda_device)
+            .bfloat16() for _ in "kv")
+    want, _ = tfa.flash_forward(q, k, v, causal=True)
+    nb_max, nbp1 = T // bs, 2 * T // bs + 1
+    bt = torch.randperm(nbp1 - 1, generator=g, device=cuda_device)[:nb_max]
+    bt = bt.to(torch.int32).reshape(1, nb_max).contiguous()
+    kp, vp = (torch.zeros(2, nbp1, bs, K * d, dtype=torch.bfloat16,
+                          device=cuda_device) for _ in "kv")
+    live = bt[0, :P // bs].long()
+    kp[1, live] = k[0, :P].reshape(P // bs, bs, K * d)
+    vp[1, live] = v[0, :P].reshape(P // bs, bs, K * d)
+    slot = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    pos0 = torch.full((1,), P, dtype=torch.int32, device=cuda_device)
+    rows = slice(P, P + tq)
+    seed = tpa.past_partials(q[0, rows].contiguous(), kp, vp, 1, bt, slot,
+                             pos0, tq)
+    alen = torch.full((1,), tq, dtype=torch.int32, device=cuda_device)
+    out = tpa.self_attention(q[0, rows].contiguous(),
+                             k[0, rows].contiguous(), v[0, rows].contiguous(),
+                             alen, tq, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want[0, rows])
 
 
 @pytest.mark.cuda

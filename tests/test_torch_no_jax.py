@@ -55,6 +55,7 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.tools.serve_profile\n"
         "import deepspeed_tpu_torch.tools.qmm_sweep\n"
         "import deepspeed_tpu_torch.tools.flash_bwd_time\n"
+        "import deepspeed_tpu_torch.tools.launch_count\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "
