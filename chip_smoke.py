@@ -152,6 +152,44 @@ Phases, in order (any failure raises and the script exits non-zero):
               replays, and the 2-layer per-leaf gradient cross-check at
               2e-2. Every attention kernel must launch in this phase.
 
+9. serve-features -- ``InferenceEngineV2``'s serving features on
+              ``llama3-8b`` at full width and depth over phase 4's weights
+              (rebuilt from seed 0 and checked equal to phase 4's tree by
+              a sampled fingerprint; one bf16 tree every engine shares,
+              none copies;
+              max_seq_len 2048, 8 slots, block 128). (a) prefix cache: a
+              1024-token shared prefix with suffixes of 37, 128, 129 and
+              300 tokens, the first prompt put alone and then the other
+              three, on an engine with ``prefix_cache`` (tiers on) and on
+              one without, then ``decode_batch(steps=16)``: the warm puts
+              hit 1024 tokens each and launch B, last-token logits warm
+              vs cold within rel L2 2e-2, greedy tokens identical. (b)
+              tiers: every cache block demoted (48 MB host budget, the
+              rest to NVMe under a temporary directory removed at the
+              end), then a prefix attach promotes the 8 prefix blocks:
+              their pool bytes equal the bytes before the demote
+              (``torch.equal``) and the logits equal a warm attach before
+              the demote bit for bit; ms per block each way printed. (c)
+              speculative: four prompts that repeat a 23-token phrase,
+              ``decode_batch(steps=32, speculative=True)`` against
+              ``False``, and one ``spec_decode_round`` verifying the fused
+              loop's next four tokens as drafts; where tokens part, a
+              teacher-forced ``put`` must put the fused token and every
+              speculative token from there on within 0.25 standard
+              deviations of the logits below the argmax (printed with
+              the step).
+              (d) pause/resume: one of four requests paused and resumed
+              between two of three ``decode_batch`` calls gives the tokens
+              of an unpaused run bit for bit (bf16 and int8 pools); the
+              same request exported after the first call and adopted by a
+              second engine over the same tree gives them too. (e)
+              sampling (temperature 0.8, top-k 50, top-p 0.9): one seed
+              twice gives the same tokens, another seed others, and
+              ``temperature=0`` gives (a)'s greedy tokens. A, B, C and D
+              must launch; the first launch of D (cold put), B and C (warm
+              put, then the speculative verify) and A (past the frontier
+              in ``decode_batch``) is replayed through the plain version.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -1458,7 +1496,7 @@ def serve(torch, pa, fa, KERNELS, reset_counts):
         f"{6 * 32 / dt_decode:.1f} tokens/s (6 x 32, {dt_decode * 1e3:.1f} "
         f"ms)")
     eng.flush(list(range(7)))
-    return counts, out1
+    return counts, out1, tree_fingerprint(torch, eng.params)
 
 
 # ---------------------------------------------------------------------------
@@ -1477,14 +1515,24 @@ def tree_bytes(tree) -> int:
     return tree.nbytes
 
 
-def serve_params(torch, cfg):
+def serve_params(torch, cfg, device="cuda"):
     """Phase 4's weights: seed-0 random bf16 on the card, rescaled by
     :func:`attention_heavy`."""
     from deepspeed_tpu_torch import TransformerLM
 
-    params = TransformerLM(cfg).init(seed=0, device="cuda")
+    params = TransformerLM(cfg).init(seed=0, device=device)
     attention_heavy(params)
     return params
+
+
+def tree_fingerprint(torch, tree) -> list:
+    """Every 1009th element of each leaf of a parameter tree, in fp64 on the
+    host, leaves in key order: equal for two trees built alike, bit for
+    bit, and cheap to keep where the trees themselves are not."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_fingerprint(torch,
+                                                                  tree[k])]
+    return [tree.reshape(-1)[::1009].to(torch.float64).cpu()]
 
 
 def dequantized_tree(torch, qm, params):
@@ -2416,6 +2464,433 @@ def head_dims(torch, pa, fa, KERNELS, reset_counts):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the engine's serving features on llama3-8b
+# ---------------------------------------------------------------------------
+
+FEATURE_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
+FEATURE_PREFIX = 1024          # tokens of the shared prefix: 8 full blocks
+FEATURE_MAX_SEQ = 2048         # max_seq_len of every phase 9 engine
+FEATURE_SUFFIXES = (37, 128, 129, 300)
+FEATURE_STEPS = 16             # decode_batch steps of (a) and (e)
+SPEC_STEPS = 32
+PAUSE_CALLS = (8, 8, 8)        # decode_batch steps of (d)'s three calls
+TIER_HOST_BLOCKS = 3           # host budget of (b): 48 MB at llama3-8b
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+# (c): where speculative and fused tokens part, a token passes when its
+# teacher-forced logit lies at most this many standard deviations of the
+# logits below the argmax. The two paths' bf16 GEMM rows differ, so a near
+# tie can flip: on the H100 the token off the argmax read 0.0488 and 0.0244
+# sd (PERF.md, PR 15), 5x and 10x below the gate, every later token 0; the
+# largest of 128256 normal logits lies some 4.4 sd above their mean, so a
+# token drawn at random fails by far.
+SPEC_GAP_SD = 0.25
+
+
+class FeatureReplay(Replay):
+    """Phase 9's :class:`Replay`: D's first launch in the cold prompt put
+    (stage ``cold``), B's and C's in the warm (prefix-attached) put
+    (``warm``) and in the first speculative verify step (``spec``: 32-row
+    atoms of 2-5 tokens at unaligned positions), A's first launch past
+    the pool frontier in ``decode_batch``."""
+
+    REQUIRED = {("flash_fwd", "cold"), ("paged_past", "warm"),
+                ("chunk_self", "warm"), ("paged_past", "spec"),
+                ("chunk_self", "spec"), ("paged_decode", "decode_batch")}
+
+    def _wanted(self, target, name, x) -> bool:
+        return self.stage is not None and super()._wanted(target, name, x)
+
+
+def feature_traffic(V):
+    """Phase 9's prompts (numpy seed 9): the 1024-token shared prefix with
+    the four suffixes, four prompts that repeat (a random 23-token phrase
+    eight times over), and four short prompts (41, 96, 130, 257 tokens)
+    for pause/resume and sampling."""
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(1, V, FEATURE_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, rng.integers(1, V, n).astype(np.int32)])
+              for n in FEATURE_SUFFIXES]
+    repeat = [np.tile(rng.integers(1, V, 23).astype(np.int32), 8)
+              for _ in range(4)]
+    short = [rng.integers(1, V, n).astype(np.int32) for n in (41, 96, 130, 257)]
+    return shared, repeat, short
+
+
+def cold_then_warm(eng, prompts, uids, V, **sampling):
+    """The first prompt alone, then the other three in one put (on a prefix
+    cache engine the three attach the first's published prefix), then
+    ``decode_batch(FEATURE_STEPS)`` over all four from their argmax.
+    Returns (last-token logits per uid, tokens per uid)."""
+    out = dict(eng.put(uids[:1], prompts[:1]))
+    out.update(eng.put(uids[1:], prompts[1:]))
+    check_logits(out, V)
+    toks = eng.decode_batch(uids, [int(np.argmax(out[u])) for u in uids],
+                            steps=FEATURE_STEPS, **sampling)
+    return out, toks
+
+
+def pool_blocks(torch, eng, blocks):
+    idx = torch.as_tensor(blocks, device=eng.device)
+    return {n: t.index_select(1, idx).clone() for n, t in eng.cache.items()}
+
+
+def paused_run(eng, prompts, uids, pause=None, migrate=None):
+    """``put`` of ``prompts`` then ``decode_batch`` over ``uids`` for each
+    of ``PAUSE_CALLS``, feeding each call its last tokens. ``pause=uid``
+    pauses and resumes that uid between the first and second call;
+    ``migrate=(fn)`` instead pauses it and hands it to ``fn(uid, tok)``,
+    which returns its remaining tokens from another engine. Returns the
+    tokens per uid, concatenated over the calls."""
+    out = eng.put(uids, prompts)
+    cur = {u: int(np.argmax(out[u])) for u in uids}
+    got = {u: [] for u in uids}
+    live = list(uids)
+    for i, steps in enumerate(PAUSE_CALLS):
+        if i == 1 and pause is not None:
+            if not eng.pause_request(pause):
+                raise AssertionError(f"pause_request({pause}) refused")
+            if not eng.resume_request(pause):
+                raise AssertionError(f"resume_request({pause}) refused")
+        if i == 1 and migrate is not None:
+            uid, fn = migrate
+            if not eng.pause_request(uid):
+                raise AssertionError(f"pause_request({uid}) refused")
+            got[uid] += fn(uid, cur[uid])
+            live.remove(uid)
+        res = eng.decode_batch(live, [cur[u] for u in live], steps=steps)
+        for u in live:
+            got[u] += [int(t) for t in res[u]]
+            cur[u] = got[u][-1]
+    eng.flush(list(uids))
+    return got
+
+
+def teacher_forced_logits(eng, prompt, t0, toks, first, uid=990) -> list:
+    """The logits before each of ``toks[first:]`` under teacher forcing: a
+    ``put`` of the prompt, ``t0`` and ``toks[:first]``, then a ``put`` of
+    each next token in turn."""
+    feed = np.concatenate([prompt, [t0], np.asarray(toks[:first])])
+    out = [eng.put([uid], [feed.astype(np.int32)])[uid]]
+    for tok in toks[first:-1]:
+        out.append(eng.put([uid], [np.asarray([tok], np.int32)])[uid])
+    eng.flush([uid])
+    return out
+
+
+def sd_gap(lg, tok) -> float:
+    """How far token ``tok``'s logit lies below the largest logit, in
+    standard deviations of the logits."""
+    return (float(lg.max()) - float(lg[tok])) / float(lg.std())
+
+
+def spec_matches(tag, eng, prompt, t0, plain, spec) -> None:
+    """Speculative tokens ``spec`` against the fused loop's ``plain``.
+    Where they part (step ``s``), teacher-forced logits
+    (:func:`teacher_forced_logits`) must put the fused token at ``s`` and
+    every speculative token from ``s`` on within ``SPEC_GAP_SD`` standard
+    deviations of the logits below the argmax; printed with the step."""
+    n = min(len(plain), len(spec))
+    diff = np.nonzero(np.asarray(plain[:n]) != np.asarray(spec[:n]))[0]
+    if not diff.size:
+        return
+    s = int(diff[0])
+    logits = teacher_forced_logits(eng, prompt, t0, spec, s)
+    fused = sd_gap(logits[0], plain[s])
+    gaps = [sd_gap(lg, t) for lg, t in zip(logits, spec[s:])]
+    w = int(np.argmax(gaps))
+    log(f"serve-features (c) speculative {tag}: parts from the fused loop "
+        f"at step {s}; teacher-forced gap below the argmax, in sd of the "
+        f"logits: fused token {fused:.3e}, speculative token {gaps[0]:.3e}; "
+        f"largest over the {len(gaps)} speculative tokens from step {s} on "
+        f"{gaps[w]:.3e} at step {s + w} (gate {SPEC_GAP_SD})")
+    if not (fused <= SPEC_GAP_SD and gaps[w] <= SPEC_GAP_SD):
+        raise AssertionError(f"speculative {tag}: tokens part at step {s}; "
+                             f"fused token {fused:.3e} sd, speculative token "
+                             f"at step {s + w} {gaps[w]:.3e} sd below the "
+                             f"argmax")
+
+
+def serve_features(torch, pa, fa, KERNELS, reset_counts, name="llama3-8b",
+                   device="cuda", fingerprint=None, **overrides):
+    """Phase 9 on ``name`` (llama3-8b at full width and depth on the card)
+    over phase 4's bf16 weights, rebuilt from seed 0 by
+    :func:`serve_params` (phase 4's engine was freed) and held equal to
+    phase 4's tree by ``fingerprint`` (:func:`tree_fingerprint`) where one
+    is given; this one tree is shared by every engine, copied by none. (a)
+    prefix cache warm vs cold, (b) demote to host and NVMe and promote,
+    (c) speculative vs fused greedy decode, (d) pause/resume and
+    export/adopt (bf16 and int8 pools), (e) sampled decode. ``device`` and
+    preset ``overrides`` let the CPU tests drive it at a tiny width.
+    Returns the phase's launches per kernel."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM, get_preset
+    from deepspeed_tpu_torch.inference.kv_tier import (claim_manifest,
+                                                       load_manifest)
+
+    cfg = get_preset(name, **{"param_dtype": "bfloat16", **overrides})
+    model = TransformerLM(cfg)
+    tree = serve_params(torch, cfg, device)
+    if fingerprint is not None:
+        mine = tree_fingerprint(torch, tree)
+        if len(mine) != len(fingerprint) or not all(
+                torch.equal(a, b) for a, b in zip(mine, fingerprint)):
+            raise AssertionError("serve-features: the rebuilt tree is not "
+                                 "phase 4's")
+        log(f"serve-features: rebuilt tree equals phase 4's ({len(mine)} "
+            f"leaves, every 1009th element)")
+    V = cfg.vocab_size
+    card = torch.cuda.get_device_name(0) if device == "cuda" else device
+    shared, repeat, short = feature_traffic(V)
+    tmp = tempfile.mkdtemp(prefix="dstpu_kv_tier_")
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    host_mb = (TIER_HOST_BLOCKS * 2 * cfg.num_layers * 128 * cfg.num_kv_heads
+               * cfg.head_dim * itemsize / 2**20)
+
+    def engine(tag, **kw):
+        eng = InferenceEngineV2(model, tree, max_sequences=8,
+                                max_seq_len=FEATURE_MAX_SEQ, block_size=128,
+                                device=device, **kw)
+        owns_no_copy(tree, eng.params, tag)
+        return eng
+
+    try:
+        free_card(torch, device)
+        cold = engine("cold")
+        warm = engine("warm", speculative={"enabled": False},
+                      prefix_cache={"enabled": True, "tiers": {
+                          "enabled": True, "host_mb": host_mb,
+                          "nvme_path": os.path.join(tmp, "nvme")}})
+        free_card(torch, device)
+        reset_counts()
+        replay = FeatureReplay(torch, pa, fa)
+        with replay:
+            # ---- (a) prefix cache: warm against cold
+            replay.stage = "cold"
+            c_out, c_toks = cold_then_warm(cold, shared, [0, 1, 2, 3], V)
+            w_out = dict(warm.put([0], shared[:1]))
+            replay.stage = "warm"
+            hit0 = warm.prefix_cache.counters["hit_tokens"]
+            b0 = KERNELS["paged_past"].launches
+            w_out.update(warm.put([1, 2, 3], shared[1:]))
+            b_warm = KERNELS["paged_past"].launches - b0
+            hits = warm.prefix_cache.counters["hit_tokens"] - hit0
+            check_logits(w_out, V)
+            replay.stage = "decode_batch"
+            w_toks = warm.decode_batch(
+                [0, 1, 2, 3], [int(np.argmax(w_out[u])) for u in range(4)],
+                steps=FEATURE_STEPS)
+            replay.stage = None
+            rels = {u: rel_l2(w_out[u], c_out[u]) for u in range(4)}
+            log(f"serve-features (a) prefix: warm puts hit {hits} tokens "
+                f"({hits // 3} per request), kernel B launches in the warm "
+                f"put {b_warm}; last-token logits warm vs cold rel L2 "
+                f"{ {u: f'{r:.3e}' for u, r in rels.items()} } (gate "
+                f"{CROSS_PATH_REL_L2})")
+            if hits != 3 * FEATURE_PREFIX or (device == "cuda"
+                                               and b_warm == 0):
+                raise AssertionError(f"prefix: hit tokens {hits} (want "
+                                     f"{3 * FEATURE_PREFIX}), B launches "
+                                     f"{b_warm}")
+            if not max(rels.values()) <= CROSS_PATH_REL_L2:
+                raise AssertionError(f"prefix: warm vs cold rel L2 {rels}")
+            for u in range(4):
+                if not np.array_equal(w_toks[u], c_toks[u]):
+                    raise AssertionError(f"prefix: uid {u} greedy tokens "
+                                         f"warm {w_toks[u]} cold {c_toks[u]}")
+            log("serve-features (a) prefix: greedy tokens warm == cold for "
+                f"all four requests ({FEATURE_STEPS} steps)")
+            warm.flush([0, 1, 2, 3])
+
+            # ---- (b) tiers: demote to host and NVMe, then promote
+            prompt = shared[1]
+            ref = warm.put([20], [prompt])[20]
+            blocks = warm.state.sequences[20].blocks[:FEATURE_PREFIX // 128]
+            before = pool_blocks(torch, warm, blocks)
+            warm.flush([20])
+            pc = warm.prefix_cache
+            n_ev = pc.evictable_blocks()
+            free_card(torch, device)
+            t = time.perf_counter()
+            pc.evict(n_ev)
+            dt_demote = time.perf_counter() - t
+            rep = pc.report()
+            tiers = rep["tiers"]
+            log(f"serve-features (b) tiers: demoted {n_ev} blocks "
+                f"({tiers['host_entries']} host, {tiers['nvme_entries']} "
+                f"NVMe; host budget {host_mb:.1f} MB) in "
+                f"{dt_demote * 1e3:.1f} ms ({dt_demote * 1e3 / n_ev:.2f} "
+                f"ms/block)")
+            if rep["blocks"] != 0 or not tiers["nvme_entries"] \
+                    or not tiers["host_entries"]:
+                raise AssertionError(f"tiers: demote left {rep}")
+            n = warm.prefix_attach(21, prompt)
+            n_prom = len(warm._promote_q)
+            t = time.perf_counter()
+            warm._flush_promotes()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            dt_promote = time.perf_counter() - t
+            after = pool_blocks(torch, warm,
+                                warm.state.sequences[21].blocks[:len(blocks)])
+            exact = all(torch.equal(before[k], after[k]) for k in before)
+            got = warm.put([21], [prompt[n:]])[21]
+            rep = warm.tier_report()
+            log(f"serve-features (b) tiers: attach of {n} tokens promoted "
+                f"{n_prom} blocks ({rep['host_hits']} host, "
+                f"{rep['nvme_hits']} NVMe hits, {rep['batched_reads']} "
+                f"batched NVMe read) in {dt_promote * 1e3:.1f} ms "
+                f"({dt_promote * 1e3 / max(n_prom, 1):.2f} ms/block); "
+                f"promoted blocks == pre-demote bytes: {exact}; logits "
+                f"bit-identical to the warm attach before the demote: "
+                f"{np.array_equal(got, ref)}")
+            if n != FEATURE_PREFIX or n_prom != len(blocks) or not exact \
+                    or not np.array_equal(got, ref):
+                raise AssertionError("tiers: promote round trip not exact")
+            warm.flush([21])
+
+            # ---- (c) speculative against fused greedy decode
+            ids = (30, 31, 32, 33)
+            out = warm.put(list(ids), repeat)
+            t0 = [int(np.argmax(out[u])) for u in ids]
+            plain = warm.decode_batch(list(ids), t0, steps=SPEC_STEPS,
+                                      speculative=False)
+            warm.flush(list(ids))
+            warm.prefix_cache.clear()       # the spec run prefills cold too
+            warm.put(list(ids), repeat)
+            s0 = dict(warm.spec_stats)
+            replay.stage = "spec"
+            spec = warm.decode_batch(list(ids), t0, steps=SPEC_STEPS,
+                                     speculative=True)
+            st = {k: warm.spec_stats[k] - s0[k] for k in s0}
+            warm.flush(list(ids))
+            warm.prefix_cache.clear()
+            log(f"serve-features (c) speculative decode_batch: "
+                f"{st['rounds']} verify rounds, {st['drafted']} drafted, "
+                f"{st['accepted']} accepted, {st['emitted']} emitted, "
+                f"{st['fallback_steps']} fused fallback steps "
+                f"({len(ids) * SPEC_STEPS} tokens)")
+            for i, u in enumerate(ids):
+                spec_matches(f"prompt {i}", warm, repeat[i], t0[i],
+                             plain[u], spec[u])
+            # one round verifying the fused loop's own next four tokens as
+            # drafts: 5-token atoms at position 184 of each sequence
+            warm.put(list(ids), repeat)
+            res, info = warm.spec_decode_round(
+                list(ids), t0, drafts=[plain[u][:4] for u in ids])
+            replay.stage = None
+            warm.flush(list(ids))
+            log(f"serve-features (c) speculative round on the fused "
+                f"loop's tokens as drafts: {info['drafted']} drafted, "
+                f"{info['accepted']} accepted, {info['emitted']} emitted")
+            for i, u in enumerate(ids):
+                spec_matches(f"round, prompt {i}", warm, repeat[i], t0[i],
+                             plain[u], res[u])
+            log("serve-features (c) speculative: tokens checked against "
+                "the fused loop for all four prompts")
+
+            # ---- (e) sampling
+            ids = [40, 41, 42, 43]
+            draws = {}
+            for tag, seed in (("a", 7), ("b", 7), ("c", 8)):
+                out = cold.put(ids, short)
+                draws[tag] = cold.decode_batch(
+                    ids, [int(np.argmax(out[u])) for u in ids],
+                    steps=FEATURE_STEPS, seed=seed, **SAMPLING)
+                cold.flush(ids)
+            same = all(np.array_equal(draws["a"][u], draws["b"][u])
+                       for u in ids)
+            differ = any(not np.array_equal(draws["a"][u], draws["c"][u])
+                         for u in ids)
+            cold.flush([0, 1, 2, 3])
+            _, g_toks = cold_then_warm(cold, shared, [0, 1, 2, 3], V,
+                                       temperature=0.0, seed=7)
+            greedy = all(np.array_equal(g_toks[u], c_toks[u])
+                         for u in range(4))
+            cold.flush([0, 1, 2, 3])
+            log(f"serve-features (e) sampling {SAMPLING}: seed 7 twice "
+                f"identical {same}, seed 8 differs {differ}; temperature=0 "
+                f"decode == (a)'s greedy tokens {greedy}")
+            if not (same and differ and greedy):
+                raise AssertionError("sampling: reproducibility gates")
+            warm.close()
+            del warm
+            free_card(torch, device)
+            # ---- (d) pause/resume and export/adopt (bf16), pause/resume
+            # int8 (no captures: the replays above cover the kernels)
+            uids = [50, 51, 52, 53]
+            ref = paused_run(cold, short, uids)
+            got = paused_run(cold, short, uids, pause=52)
+            rep = cold.tier_report()
+            log(f"serve-features (d) pause/resume bf16: uid 52 paused and "
+                f"resumed between decode calls; tokens identical "
+                f"{got[52] == ref[52]} (others {all(got[u] == ref[u] for u in uids)}"
+                f"); store {rep['host_demotions']} demotions, "
+                f"{rep['host_hits']} hits, {rep['paused_requests']} paused")
+            if got != ref:
+                raise AssertionError(f"pause/resume bf16: tokens part {got} vs "
+                                     f"{ref}")
+            mig = os.path.join(tmp, "migrate")
+            cold.migration_nvme_path = mig
+            other = engine("adopter")
+            other.migration_nvme_path = mig
+
+            def hand_over(uid, tok):
+                path = cold.export_paused(uid, f"x-{uid}", mig, keep=False)
+                claimed = claim_manifest(path)
+                cold.flush([uid])
+                other.adopt_paused(900, load_manifest(claimed),
+                                   manifest_path=claimed)
+                if not other.resume_request(900):
+                    raise AssertionError("adopter: resume_request refused")
+                toks = []
+                for steps in PAUSE_CALLS[1:]:
+                    res = other.decode_batch([900], [tok], steps=steps)[900]
+                    toks += [int(t) for t in res]
+                    tok = toks[-1]
+                other.flush([900])
+                return toks
+
+            got = paused_run(cold, short, uids, migrate=(52, hand_over))
+            log(f"serve-features (d) migrate bf16: uid 52 exported after the "
+                f"first call and adopted by a second engine on the same tree; "
+                f"tokens identical {got[52] == ref[52]}; adopter store "
+                f"{other.tier_report()['durable_adopts']} durable adopts")
+            if got != ref:
+                raise AssertionError(f"migrate: tokens part {got[52]} vs "
+                                     f"{ref[52]}")
+            other.close()
+            cold.close()
+            del other, cold
+            free_card(torch, device)
+            q = engine("int8", kv_dtype="int8")
+            ref = paused_run(q, short, uids)
+            got = paused_run(q, short, uids, pause=52)
+            parts = sorted(q._extract_blocks([0])[0])
+            log(f"serve-features (d) pause/resume int8 pool (tier parts "
+                f"{parts}): tokens identical {got == ref}")
+            if got != ref:
+                raise AssertionError("pause/resume int8: tokens part")
+            q.close()
+            del q
+        counts = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        missing = [k for k in FEATURE_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"serve-features: kernels never launched "
+                                 f"{missing} (counts {counts})")
+        errs = replay.check()
+        log(f"serve-features: launches {counts}; captured launches replayed "
+            f"vs plain, max abs err {errs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tree
+    free_card(torch, device)
+    log(f"serve-features [{card}]: done")
+    return counts
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -2452,8 +2927,8 @@ def main() -> int:
     probe_rows, probed, _ = probe_checks(torch, pa, _build.KERNELS,
                                          _build.reset_counts)
     rows.update(probe_rows)
-    served, bf16_logits = serve(torch, pa, fa, _build.KERNELS,
-                                _build.reset_counts)
+    served, bf16_logits, served_tree = serve(torch, pa, fa, _build.KERNELS,
+                                             _build.reset_counts)
     gc.collect()
     torch.cuda.empty_cache()
     trained = train(torch, fa, _build.KERNELS, _build.reset_counts)
@@ -2467,6 +2942,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     head = head_dims(torch, pa, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    feat = serve_features(torch, pa, fa, _build.KERNELS, _build.reset_counts,
+                          fingerprint=served_tree)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -2501,7 +2980,8 @@ def main() -> int:
                                              ("train", trained),
                                              ("serve_quant", quant),
                                              ("serve_dense", dense),
-                                             ("head_dims", head))
+                                             ("head_dims", head),
+                                             ("serve_features", feat))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

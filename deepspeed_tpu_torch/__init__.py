@@ -7,16 +7,20 @@ kernel on a ported path is a hand-written CUDA kernel here, built at first
 use from ``csrc/``, with a plain PyTorch version beside it. Entry points run
 on the card unless a caller passes ``device="cpu"``.
 
-Ported so far, all on one device with greedy decoding:
+Ported so far, all on one device:
 - the serving paths of ``InferenceEngineV2``: the packed paged engine (bf16,
-  int8 or int4 weights and KV pool), the dense-tile ``packed=False`` engine
-  over the same pool and the dense-cache ``paged=False`` engine;
+  int8 or int4 weights and KV pool; greedy or sampled ``decode_batch``; the
+  radix prefix cache with host / NVMe KV tiers, n-gram speculative
+  decoding, pause / resume and durable export / adopt), the dense-tile
+  ``packed=False`` engine over the same pool and the dense-cache
+  ``paged=False`` engine;
 - :func:`init_inference` and its v1 ``InferenceEngine`` (``forward``,
   ``generate`` with greedy, temperature, top-k and top-p sampling);
 - the training path of :func:`initialize` (fp32 master weights, bf16 or
   fp32 compute, flash attention forward and backward on the card);
-- the op-builder registry (``ops.get_op_builder``: flash attention and the
-  fused RMSNorm) and the card's measured memory rates
+- the op-builder registry (``ops.get_op_builder``: flash attention, the
+  fused RMSNorm and the ``async_io`` library of the NVMe swapper,
+  ``offload.swap``) and the card's measured memory rates
   (``tools.hbm_bandwidth``).
 Every TPU kernel of the reference has a hand-written counterpart here.
 """

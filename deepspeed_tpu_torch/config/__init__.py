@@ -1,5 +1,6 @@
-"""Configuration of the training path (counterpart of
-``deepspeed_tpu/config``)."""
+"""Configuration of the training path and of the serving engine's features
+(counterpart of ``deepspeed_tpu/config``)."""
 
 from deepspeed_tpu_torch.config.config import (  # noqa: F401
-    DeepSpeedTpuConfig, from_config)
+    DeepSpeedTpuConfig, KVTierConfig, PrefixCacheConfig, SpeculativeConfig,
+    from_config)

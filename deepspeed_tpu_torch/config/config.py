@@ -220,6 +220,87 @@ class ActivationCheckpointingConfig(_Section):
         check_policy(self.policy)
 
 
+class _Checked(_Section):
+    """A section that checks itself when constructed directly too (the
+    serving sections are passed to ``InferenceEngineV2`` as instances,
+    dicts or bools, as the reference's pydantic models are)."""
+
+    def __post_init__(self):
+        for key, sub in self.NESTED.items():
+            val = getattr(self, key)
+            if not isinstance(val, sub):
+                setattr(self, key, sub.build(val, key))
+        self.validate("")
+
+
+@dataclasses.dataclass
+class KVTierConfig(_Checked):
+    """``inference.prefix_cache.tiers`` (the reference's :938): instead of
+    freeing an LRU cache block held only by the prefix tree, demote its KV
+    pages to a host buffer, and past ``host_mb`` on to NVMe under
+    ``<nvme_path>/kv``; a radix match on a demoted block promotes it
+    back."""
+
+    enabled: bool = False
+    host_mb: float = 64.0
+    nvme_path: str = ""
+    promote_depth: int = 4
+    nvme_max_mb: float = 0.0     # 0 = unbounded
+    nvme_ttl_s: float = 0.0      # 0 = no idle limit
+
+    def validate(self, path: str) -> None:
+        if self.host_mb <= 0:
+            raise ValueError(
+                "inference.prefix_cache.tiers.host_mb must be > 0")
+        if self.promote_depth < 1:
+            raise ValueError(
+                "inference.prefix_cache.tiers.promote_depth must be >= 1")
+        if self.nvme_max_mb < 0 or self.nvme_ttl_s < 0:
+            raise ValueError(
+                "inference.prefix_cache.tiers.nvme_max_mb / nvme_ttl_s "
+                "must be >= 0 (0 = unbounded)")
+
+
+@dataclasses.dataclass
+class PrefixCacheConfig(_Checked):
+    """``inference.prefix_cache`` (the reference's :981): a radix tree of
+    full-block token chunks over the paged pool; ``max_blocks`` caps the
+    tree (None: bounded by the pool, LRU reclaim under pressure)."""
+
+    enabled: bool = False
+    max_blocks: Optional[int] = None
+    tiers: KVTierConfig = dataclasses.field(default_factory=KVTierConfig)
+
+    NESTED = {"tiers": KVTierConfig}
+
+    def validate(self, path: str) -> None:
+        if self.max_blocks is not None and self.max_blocks < 1:
+            raise ValueError(
+                "inference.prefix_cache.max_blocks must be >= 1")
+
+
+@dataclasses.dataclass
+class SpeculativeConfig(_Checked):
+    """``inference.speculative`` (the reference's :1004): n-gram
+    self-drafting inside greedy decode; ``fallback_steps`` is the fused
+    loop's chunk when no sequence has a draft."""
+
+    enabled: bool = False
+    ngram: int = 3
+    max_draft: int = 4
+    fallback_steps: int = 8
+
+    def validate(self, path: str) -> None:
+        if self.ngram < 1:
+            raise ValueError("inference.speculative.ngram must be >= 1")
+        if not (1 <= self.max_draft <= 64):
+            raise ValueError(
+                "inference.speculative.max_draft must be in [1, 64]")
+        if self.fallback_steps < 1:
+            raise ValueError(
+                "inference.speculative.fallback_steps must be >= 1")
+
+
 @dataclasses.dataclass
 class DeepSpeedTpuConfig(_Section):
     """The root config. Build it with :func:`from_config`."""

@@ -2,7 +2,8 @@
 PyTorch version beside it (counterpart of ``deepspeed_tpu/ops``), and the
 op-builder registry (``OpBuilder``, ``ALL_OPS``, ``get_op_builder``,
 ``op_report``: the reference's ``ds_report`` / ``OpBuilder.load()``
-surface).
+surface), which also builds the host AIO library of the NVMe swapper
+(``async_io``).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from a CUDA tensor
@@ -102,6 +103,28 @@ class RMSNormBuilder(OpBuilder):
         return fused_rms_norm
 
 
+class AsyncIOBuilder(OpBuilder):
+    """The native AIO threadpool (the reference's ``AsyncIOBuilder``): the
+    repo's ``csrc/aio.cpp`` compiled with ``g++`` at first ``load()`` into
+    the port's build directory (``_build.host_library``); ``load()``
+    returns the ``ctypes`` library and raises when the build fails."""
+
+    NAME = "async_io"
+
+    def is_compatible(self, verbose: bool = False) -> bool:
+        import shutil
+
+        from deepspeed_tpu_torch.ops._build import _host_source
+
+        return shutil.which("g++") is not None and \
+            _host_source("aio").exists()
+
+    def load(self):
+        from deepspeed_tpu_torch.ops._build import host_library
+
+        return host_library("aio")
+
+
 class _Unported(OpBuilder):
     """An op of the reference the port does not have yet: listed under its
     reference name, not compatible, and ``load()`` names the ROADMAP item
@@ -130,7 +153,8 @@ class RingAttentionBuilder(_Unported):
 
 ALL_OPS: Dict[str, Type[OpBuilder]] = {
     b.NAME: b for b in (FlashAttentionBuilder, RMSNormBuilder,
-                        QuantizerBuilder, RingAttentionBuilder)
+                        QuantizerBuilder, RingAttentionBuilder,
+                        AsyncIOBuilder)
 }
 
 

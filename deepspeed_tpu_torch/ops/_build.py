@@ -9,6 +9,10 @@ named by a hash of the sources and flags so an edited source rebuilds.
 ``ctypes`` and ``subprocess`` are imported lazily: importing this module on a
 CPU-only machine does nothing.
 
+Host libraries (C++ with a plain C interface, no CUDA) are built the same
+way with ``g++`` by :func:`host_library`: the repo's ``csrc/aio.cpp``, the
+native AIO threadpool of the KV tiers' NVMe swapper.
+
 Every kernel of the ported paths has a :class:`Kernel` record in
 :data:`KERNELS`. :meth:`Kernel.launch` is the one place a kernel is launched:
 it calls the launcher, raises on a non-zero return code and adds one to
@@ -221,6 +225,82 @@ def library(name: str):
             _declare(lib, name)
             _libs[name] = lib
     return lib
+
+
+# host C++ libraries: name -> source under the repo's csrc/ (read-only; the
+# JAX package's builder compiles the same file for its own swapper)
+_HOST_SOURCES = {"aio": "aio.cpp"}
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+
+def _host_source(name: str) -> Path:
+    return _CSRC.parent.parent / "csrc" / _HOST_SOURCES[name]
+
+
+def host_library(name: str):
+    """The loaded ``ctypes`` library of the repo's ``csrc/<name>.cpp``,
+    compiled with ``g++`` into :func:`build_dir` at first use (named by a
+    hash of source and flags), with its C functions' types declared.
+    Raises with the compiler's output when the build fails."""
+    lib = _libs.get(f"host:{name}")
+    if lib is not None:
+        return lib
+    import ctypes
+    import shutil
+    import subprocess
+
+    src = _host_source(name)
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    path = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    with _lock:
+        lib = _libs.get(f"host:{name}")
+        if lib is not None:
+            return lib
+        if not path.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: the host library "
+                                   f"{name!r} is built from {src}")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"host library {name!r} build failed "
+                                   f"(g++ exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        _declare_host(lib, name)
+        _libs[f"host:{name}"] = lib
+    return lib
+
+
+def _declare_host(lib, name: str) -> None:
+    import ctypes
+
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    io = [P, ctypes.c_char_p, P, I64, I64, I]   # handle path buf n off o_direct
+    sigs = {
+        "aio": {
+            "ds_aio_handle_create": ([I], P),
+            "ds_aio_handle_destroy": ([P], None),
+            "ds_aio_pwrite": (io, None),
+            "ds_aio_pread": (io, None),
+            "ds_aio_submit_pwrite": (io, I64),
+            "ds_aio_submit_pread": (io, I64),
+            "ds_aio_wait_op": ([P, I64], I),
+            "ds_aio_poll_op": ([P, I64], I),
+            "ds_aio_wait": ([P], I64),
+            "ds_aio_pending": ([P], I64),
+            "ds_aio_stats": ([P, ctypes.POINTER(I64)], None),
+        },
+    }[name]
+    for fn, (args, res) in sigs.items():
+        f = getattr(lib, fn)
+        f.argtypes = args
+        f.restype = res
 
 
 def _declare(lib, name: str) -> None:

@@ -75,15 +75,19 @@ def test_closed_form_backward_matches_autograd_of_the_plain_version(dtype):
 
 
 def test_the_registry_lists_the_reference_ops():
-    assert list(tops.ALL_OPS) == list(jops.ALL_OPS)
-    assert [n for n, _ in tops.op_report()] == list(jops.ALL_OPS)
+    # the reference's registry, then its native AIO builder
+    # (``deepspeed_tpu/ops/op_builder.AsyncIOBuilder``) as ``async_io``
+    want = list(jops.ALL_OPS) + ["async_io"]
+    assert list(tops.ALL_OPS) == want
+    assert [n for n, _ in tops.op_report()] == want
     assert tops.get_op_builder("rms_norm").load() is fused_rms_norm
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
     assert tops.get_op_builder("flash_attn").load() is flash_attention
     assert dict(tops.op_report()) == {"flash_attn": True, "rms_norm": True,
                                       "quantizer": False,
-                                      "ring_attention": False}
+                                      "ring_attention": False,
+                                      "async_io": True}
     for name, item in (("quantizer", "item 10"), ("ring_attention", "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             tops.get_op_builder(name).load()

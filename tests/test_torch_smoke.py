@@ -10,7 +10,11 @@ quantized CPU engine, and its serve-dense phase (``dense_runs``,
 ``DenseReplay``, ``dense_controls``, ``dense_cross_check``:
 ``DENSE_REL_L2``) on a tiny fp32 CPU model, where stand-ins for kernel I and
 for the dense cache's attention that drop each row's newest visible column
-must be caught, and kernel I's per-tile gate."""
+must be caught, and kernel I's per-tile gate, and its serve-features phase
+(``serve_features``) end to end on a tiny fp32 CPU model, where a promote
+that drops a pool part must be caught, and its speculative gate
+(``spec_matches``, ``SPEC_GAP_SD``), which must catch a wrong token where
+the runs part and at any later step."""
 
 import functools
 import os
@@ -479,3 +483,122 @@ def test_dense_gate_passes_at_2e2_and_fails_a_fault(fault):
     faulty["a"] = 0.99 * margin * limits["a"]
     with pytest.raises(AssertionError, match="blind.*'a'"):
         chip_smoke.gate_controls("t", faulty, limits, margin)
+
+
+# ---------------------------------------------------------------------------
+# phase 9 (serve-features) at a tiny width on the CPU
+# ---------------------------------------------------------------------------
+
+FEATURE_TINY = dict(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                    intermediate_size=128, vocab_size=512, dtype="float32",
+                    param_dtype="float32")
+
+
+@pytest.fixture
+def tiny_features(monkeypatch):
+    """Phase 9 on the CPU: launches are counted on the card only, and the
+    traffic is cut to keep the suite's time: the shared prefix to 2
+    blocks, max_seq_len to 640 (the plain attention runs over every padded
+    row and block), the decode calls of (a), (d) and (e) to a few steps
+    each."""
+    monkeypatch.setattr(chip_smoke, "FEATURE_KERNELS", ())
+    monkeypatch.setattr(chip_smoke, "FEATURE_PREFIX", 256)
+    monkeypatch.setattr(chip_smoke, "FEATURE_MAX_SEQ", 640)
+    monkeypatch.setattr(chip_smoke, "FEATURE_STEPS", 4)
+    monkeypatch.setattr(chip_smoke, "PAUSE_CALLS", (3, 3, 3))
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)     # beside the suite's other workers
+    yield
+    torch.set_num_threads(n)
+
+
+def test_serve_features_phase_runs_on_a_tiny_cpu_model(tiny_features,
+                                                       monkeypatch):
+    """Phase 9's traffic, cut as ``tiny_features`` says, on llama3-8b's
+    preset cut to 2 layers and a 64-wide fp32 model on the CPU: every gate
+    passes (greedy identities,
+    byte-exact promote, reproducible sampling) and the replay captures each
+    required stage."""
+    captured = {}
+    check = chip_smoke.FeatureReplay.check
+
+    def spy(self):
+        captured.update(self.captured)
+        return check(self)
+
+    monkeypatch.setattr(chip_smoke.FeatureReplay, "check", spy)
+    from deepspeed_tpu_torch.ops import _build
+
+    chip_smoke.serve_features(torch, tpa, tfa, _build.KERNELS,
+                              _build.reset_counts, device="cpu",
+                              **FEATURE_TINY)
+    assert chip_smoke.FeatureReplay.REQUIRED <= set(captured)
+
+
+def test_serve_features_sees_a_promote_that_loses_a_block(tiny_features,
+                                                          monkeypatch):
+    """(b)'s byte check fails an upload that skips one pool part."""
+    promote = InferenceEngineV2._promote_impl
+
+    def lossy(self, idx, pages):
+        promote(self, idx, {k: v for k, v in pages.items() if k != "v"})
+
+    monkeypatch.setattr(InferenceEngineV2, "_promote_impl", lossy)
+    from deepspeed_tpu_torch.ops import _build
+
+    with pytest.raises(AssertionError, match="promote round trip"):
+        chip_smoke.serve_features(torch, tpa, tfa, _build.KERNELS,
+                                  _build.reset_counts, device="cpu",
+                                  **FEATURE_TINY)
+
+
+@pytest.fixture
+def spec_case(tiny_engine):
+    """A tiny fp32 engine, a prompt, its first token and 8 greedy tokens
+    from the fused decode loop."""
+    eng = tiny_engine
+    prompt = np.random.default_rng(5).integers(1, 256, 20).astype(np.int32)
+    t0 = int(np.argmax(eng.put([0], [prompt])[0]))
+    plain = [int(t) for t in eng.decode_batch([0], [t0], steps=8)[0]]
+    eng.flush([0])
+    return eng, prompt, t0, plain
+
+
+def test_teacher_forced_gaps_are_zero_on_greedy_tokens(spec_case):
+    eng, prompt, t0, plain = spec_case
+    logits = chip_smoke.teacher_forced_logits(eng, prompt, t0, plain, 0)
+    assert len(logits) == len(plain)
+    assert max(chip_smoke.sd_gap(lg, t) for lg, t in zip(logits, plain)) \
+        <= 1e-4
+    chip_smoke.spec_matches("same", eng, prompt, t0, plain, list(plain))
+
+
+def test_spec_gate_sees_a_wrong_token_where_the_runs_part(spec_case):
+    """The least likely token in place of the greedy one at step 5."""
+    eng, prompt, t0, plain = spec_case
+    lg = chip_smoke.teacher_forced_logits(eng, prompt, t0, plain, 5)[0]
+    spec = plain[:5] + [int(np.argmin(lg))] + plain[6:]
+    with pytest.raises(AssertionError, match="part at step 5"):
+        chip_smoke.spec_matches("wrong", eng, prompt, t0, plain, spec)
+
+
+def test_spec_gate_checks_every_token_after_the_runs_part(spec_case,
+                                                          monkeypatch):
+    """The runs part at step 3 on the runner-up token (the gate set just
+    above its gap, as a near tie on the card would be): the speculative
+    run's own greedy continuation passes, and the least likely token at
+    step 6 fails."""
+    eng, prompt, t0, plain = spec_case
+    lg = chip_smoke.teacher_forced_logits(eng, prompt, t0, plain, 3)[0]
+    spec = plain[:3] + [int(np.argsort(lg)[-2])]
+    monkeypatch.setattr(chip_smoke, "SPEC_GAP_SD",
+                        1.01 * chip_smoke.sd_gap(lg, spec[3]))
+    while len(spec) < len(plain):
+        nxt = chip_smoke.teacher_forced_logits(eng, prompt, t0, spec + [0],
+                                               len(spec))[0]
+        spec.append(int(np.argmax(nxt)))
+    chip_smoke.spec_matches("runner-up", eng, prompt, t0, plain, spec)
+    lg = chip_smoke.teacher_forced_logits(eng, prompt, t0, spec, 6)[0]
+    spec[6] = int(np.argmin(lg))
+    with pytest.raises(AssertionError, match="at step 6"):
+        chip_smoke.spec_matches("late", eng, prompt, t0, plain, spec)
