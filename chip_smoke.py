@@ -190,6 +190,33 @@ Phases, in order (any failure raises and the script exits non-zero):
               put, then the speculative verify) and A (past the frontier
               in ``decode_batch``) is replayed through the plain version.
 
+10. observability -- the engine's instruments on phase 9's model and
+              tree (no new tree, no copy): after a fresh process registry
+              (``set_registry(None)``) and with tracing on, a prefix-cache
+              engine with phase 9's tier settings and ``enable_metrics()``
+              runs phase 9 (a)'s traffic. Gates: its greedy tokens equal
+              phase 9 (a)'s (hooks off) bit for bit; the registry reads
+              the traffic (``inference/tokens`` = prompt tokens less the
+              prefix hits, ``decode_tokens`` = 4 x 16, 1024 hit tokens
+              per warm request); device launches of a 4-sequence decode
+              ``put`` (the profiler's count, :func:`device_launches`) are
+              equal with the hooks on and off; a ``ProfileTrigger`` armed
+              by its trigger file (warm-up 1, 2 capture steps, ``check``
+              after each ``decode_batch``) writes a ``torch.profiler``
+              trace naming kernel A (``paged_decode_kernel``); a
+              ``resume_io_error`` pinned to ``nvme`` unwinds a resume (the
+              injector's ``fired`` list holds it, the uid is gone); every
+              cache block demoted and the prefix promoted back: the tier
+              demotion counters equal the blocks demoted and paused, the
+              ``prefix_cache_tier_promote_ms`` counts the blocks promoted;
+              a clean pause/resume gives an unpaused run's tokens; no
+              block leaked; the exported trace passes ``validate_trace``
+              with no repaired pair; ``flight_dump`` writes a file under a
+              temporary directory that reads back the events. Prints the
+              p50 and p90 of ``inference/put_host_ms``, ``put_fetch_ms``
+              and ``decode_fetch_ms`` and of the puts' ``dispatch_ms``,
+              beside the card's name and power limit.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -2622,7 +2649,8 @@ def serve_features(torch, pa, fa, KERNELS, reset_counts, name="llama3-8b",
     (c) speculative vs fused greedy decode, (d) pause/resume and
     export/adopt (bf16 and int8 pools), (e) sampled decode. ``device`` and
     preset ``overrides`` let the CPU tests drive it at a tiny width.
-    Returns the phase's launches per kernel."""
+    Returns the phase's launches per kernel and what phase 10 reuses: the
+    model, the tree, (a)'s warm greedy tokens and the tier host budget."""
     import shutil
     import tempfile
 
@@ -2885,9 +2913,321 @@ def serve_features(torch, pa, fa, KERNELS, reset_counts, name="llama3-8b",
             f"vs plain, max abs err {errs}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del tree
     free_card(torch, device)
     log(f"serve-features [{card}]: done")
+    return counts, dict(model=model, tree=tree, greedy=w_toks,
+                        host_mb=host_mb)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: observability -- the engine's instruments on llama3-8b
+# ---------------------------------------------------------------------------
+
+OBS_KERNEL = "paged_decode_kernel"     # kernel A's symbol in a profile
+OBS_STEP_UIDS = (0, 1, 2)              # requests of the launch count
+OBS_CAPTURES = 3                       # trigger captures, at most
+
+
+def step_launches(torch, fn, traces: int = 2) -> list:
+    """Kernels the card ran for each of ``traces`` calls of ``fn``, counted
+    from ``torch.profiler`` as ``tools/serve_profile.py`` counts a step's
+    launches (every device row with device time, its calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.tools.serve_profile import _device_events
+
+    counts = []
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(r[2] for r in _device_events(prof)))
+    return counts
+
+
+def host_ms_line(reg, timing) -> str:
+    """p50 / p90 of the engine's ``inference/*`` histograms, and of the
+    puts' dispatch split, in ms."""
+    parts = []
+    for name in ("put_host_ms", "put_fetch_ms", "decode_fetch_ms"):
+        h = reg.histogram(f"inference/{name}")
+        parts.append(f"{name} p50 {h.percentile(50):.3f} p90 "
+                     f"{h.percentile(90):.3f} (n={h.count})")
+    disp = [t["dispatch_ms"] for t in timing if t]
+    if disp:
+        parts.append(f"put dispatch_ms p50 {np.percentile(disp, 50):.3f} "
+                     f"p90 {np.percentile(disp, 90):.3f} (n={len(disp)})")
+    return "; ".join(parts)
+
+
+def capture_trace(torch, eng, uids, cur, root, device) -> tuple:
+    """A :class:`ProfileTrigger` armed through its trigger file (warm-up 1,
+    2 capture steps, default ``torch.profiler`` start/stop), ``check``
+    called after each ``decode_batch(steps=2)`` of ``uids``. The profiler
+    now and then hands a trace no device records at all (see
+    :func:`device_launches`): such a capture is taken again
+    (``OBS_CAPTURES`` at most); a control kernel (``spin_kernel``) before
+    and after each captured call is counted in the log. Returns (the
+    trace's event names, the tokens fed next, captures taken)."""
+    from deepspeed_tpu_torch.observability import ProfileTrigger
+    from deepspeed_tpu_torch.observability.profiler import TRACE_FILE
+
+    for n in range(1, OBS_CAPTURES + 1):
+        trig = ProfileTrigger(os.path.join(root, f"attempt{n}"),
+                              capture_steps=2, warmup_steps=1,
+                              rate_limit_s=0.0)
+        os.makedirs(trig.output_dir, exist_ok=True)
+        open(trig.trigger_file, "w").close()
+        cap, step = None, 0
+        while cap is None and step < 6:
+            step += 1
+            live = trig.capturing and device == "cuda"
+            if live:
+                torch.cuda._sleep(1000)
+            res = eng.decode_batch(list(uids), [cur[u] for u in uids],
+                                   steps=2)
+            cur = {u: int(res[u][-1]) for u in uids}
+            if live:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            cap = trig.check(step)
+        trig.close()
+        if cap is None or os.path.exists(trig.trigger_file):
+            raise AssertionError(f"profile trigger: no capture "
+                                 f"({trig.report()})")
+        with open(os.path.join(cap, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        spins = sum("spin_kernel" in x for x in names)
+        log(f"observability: capture {n}: {kernels} kernel records, {spins} "
+            f"of the 4 control kernels")
+        if device != "cuda" or kernels:
+            return names, cur, n
+    raise AssertionError(f"the profiler delivered no kernel record in "
+                         f"{OBS_CAPTURES} captures")
+
+
+def observability(torch, KERNELS, reset_counts, model, tree, greedy,
+                  host_mb, device="cuda"):
+    """Phase 10 on phase 9's model and tree (no new tree, no copy): a
+    prefix-cache engine with tiers on (phase 9's settings) built after a
+    fresh process registry (``set_registry(None)``) and with tracing on,
+    ``enable_metrics()``. Phase 9 (a)'s traffic, then launches per decode
+    step with the hooks on and off, a profile capture armed through its
+    trigger file, a resume failed by an injected fault, a demote and
+    promote of the cache, a clean pause/resume, a flight dump. Gates: see
+    the module docstring. Returns the phase's launches per kernel."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import (configure_tracing,
+                                                   flight_dump, get_registry,
+                                                   set_registry, trace_export,
+                                                   validate_trace)
+    from deepspeed_tpu_torch.resilience import (FaultInjector, FaultSpec,
+                                                set_injector)
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    card = card_line() if device == "cuda" else device
+    shared, _, short = feature_traffic(V)
+    tmp = tempfile.mkdtemp(prefix="dstpu_obs_")
+    uids = [0, 1, 2, 3]
+    reg = set_registry(None)
+    set_injector(None)
+    dumps = os.path.join(tmp, "flight")
+    bus = configure_tracing(enabled=True, ring_size=1 << 16, sample=1,
+                            dump_dir=dumps)
+    bus.clear()
+    timing = []
+    try:
+        free_card(torch, device)
+        eng = InferenceEngineV2(
+            model, tree, max_sequences=8, max_seq_len=FEATURE_MAX_SEQ,
+            block_size=128, device=device, speculative={"enabled": False},
+            prefix_cache={"enabled": True, "tiers": {
+                "enabled": True, "host_mb": host_mb,
+                "nvme_path": os.path.join(tmp, "nvme")}})
+        owns_no_copy(tree, eng.params, "observability")
+        eng.enable_metrics()
+        reset_counts()
+        # ---- phase 9 (a)'s traffic with the hooks on
+        out = dict(eng.put(uids[:1], shared[:1]))
+        timing.append(eng.timing)
+        out.update(eng.put(uids[1:], shared[1:]))
+        timing.append(eng.timing)
+        toks = eng.decode_batch(uids, [int(np.argmax(out[u])) for u in uids],
+                                steps=FEATURE_STEPS)
+        same = all(np.array_equal(toks[u], greedy[u]) for u in uids)
+        log(f"observability: greedy tokens with the hooks on == phase 9 "
+            f"(a)'s with them off: {same} ({len(uids)} x {FEATURE_STEPS})")
+        if not same:
+            raise AssertionError("observability: the hooks changed the "
+                                 "greedy tokens")
+
+        def value(name, **labels):
+            return reg.counter(name, labels=labels or None).value
+
+        want = {"inference/tokens": sum(len(p) for p in shared)
+                - 3 * FEATURE_PREFIX,
+                "inference/decode_tokens": len(uids) * FEATURE_STEPS,
+                "inference/prefix_cache_hit_tokens": 3 * FEATURE_PREFIX,
+                "inference/prefix_cache_hits": 3,
+                "inference/decode_dispatches": 1}
+        got = {k: value(k) for k in want}
+        log(f"observability: registry after (a) {got} (want {want}; "
+            f"inference/tokens counts what put() ran through the model: "
+            f"the prompts' tokens less the {3 * FEATURE_PREFIX} prefix hits)")
+        if got != want:
+            raise AssertionError(f"observability: registry {got} != {want}")
+
+        # ---- launches per bf16 decode step, hooks on and off
+        cur = {u: int(toks[u][-1]) for u in uids}
+
+        def step():
+            res = eng.put(uids, [np.asarray([cur[u]], np.int32)
+                                 for u in uids])
+            timing.append(eng.timing)
+            cur.update({u: int(np.argmax(res[u])) for u in uids})
+
+        if device == "cuda":
+            # the most of two traces each: a record the profiler drops can
+            # only lower a count
+            on = step_launches(torch, step)
+            obs_on = eng._obs
+            configure_tracing(enabled=False)
+            eng._obs = None
+            off = step_launches(torch, step)
+            configure_tracing(enabled=True, dump_dir=dumps)
+            eng._obs = obs_on
+            log(f"observability: device launches per decode step (4 "
+                f"sequences, put; profiler, as serve_profile counts) hooks "
+                f"on {on}, off {off}")
+            if max(on) != max(off) or not max(on):
+                raise AssertionError(f"observability: launches differ with "
+                                     f"the hooks ({on} vs {off})")
+        else:
+            step()
+
+        # ---- the profile trigger's capture (after the launch count:
+        # profiler sessions do not nest)
+        names, cur, tries = capture_trace(torch, eng, uids, cur,
+                                          os.path.join(tmp, "profiles"),
+                                          device)
+        hits = sum(OBS_KERNEL in x for x in names)
+        log(f"observability: trigger-file capture (warm-up 1, 2 steps, "
+            f"capture {tries}): {len(names)} trace events, {hits} of "
+            f"kernel A ({OBS_KERNEL})")
+        if device == "cuda" and not hits:
+            raise AssertionError(f"observability: the capture does not "
+                                 f"name {OBS_KERNEL}")
+        if not names:
+            raise AssertionError("observability: empty capture")
+
+        # ---- a resume failed on its NVMe read unwinds
+        pause_uid = 3
+        if not eng.pause_request(pause_uid):
+            raise AssertionError("observability: pause_request refused")
+        nb = eng.paused_blocks(pause_uid)
+        inj = set_injector(FaultInjector([FaultSpec(kind="resume_io_error",
+                                                    site="nvme")]))
+        try:
+            resumed = eng.resume_request(pause_uid)
+            failed = eng.flush_resumes()
+        finally:
+            set_injector(None)
+        log(f"observability: resume of {nb} paused blocks with "
+            f"resume_io_error pinned to nvme: resume_request {resumed}, "
+            f"failed {failed}, fired {inj.fired}, uid live "
+            f"{pause_uid in eng.state.sequences}")
+        if failed != [pause_uid] or inj.fired != [
+                "resume_io_error@resume:nvme:step=-1"] \
+                or pause_uid in eng.state.sequences \
+                or eng.is_paused(pause_uid):
+            raise AssertionError("observability: the faulted resume did not "
+                                 "unwind")
+        eng.flush(uids[:pause_uid])
+
+        # ---- demote every cache block, promote the prefix back
+        pc = eng.prefix_cache
+        n_ev = pc.evictable_blocks()
+        pc.evict(n_ev)
+        n = eng.prefix_attach(20, shared[1])
+        n_prom = len(eng._promote_q)
+        eng._flush_promotes()
+        eng.put([20], [shared[1][n:]])
+        timing.append(eng.timing)
+        eng.flush([20])
+        store = eng._tier_store.counters
+        dem = {t: value("inference/prefix_cache_tier_demotions", tier=t)
+               for t in ("host", "nvme")}
+        prom = sum(reg.histogram("inference/prefix_cache_tier_promote_ms",
+                                 labels={"tier": t}).count
+                   for t in ("host", "nvme"))
+        log(f"observability: demoted {n_ev} cache blocks after pausing {nb}:"
+            f" tier demotions {dem} (store {store['host_demotions']} host, "
+            f"{store['nvme_demotions']} NVMe); promoted {n_prom} blocks, "
+            f"promote_ms count {prom}")
+        if dem != {"host": n_ev + nb, "nvme": store["nvme_demotions"]} \
+                or not dem["nvme"] or prom != n_prom \
+                or n_prom != FEATURE_PREFIX // 128:
+            raise AssertionError("observability: tier counters disagree "
+                                 "with the demotes and promotes")
+
+        # ---- a clean resume gives the unpaused run's tokens
+        ids = [50, 51, 52, 53]
+        pc.clear()
+        ref = paused_run(eng, short, ids)
+        pc.clear()
+        got = paused_run(eng, short, ids, pause=52)
+        log(f"observability: pause/resume without a fault: tokens == the "
+            f"unpaused run's {got == ref}")
+        if got != ref:
+            raise AssertionError("observability: resumed tokens differ")
+        pc.clear()
+        leaked = eng.state.allocator.leaked_blocks()
+        if leaked:
+            raise AssertionError(f"observability: leaked blocks {leaked}")
+        eng.close()         # reaps the swapper's last tickets (their ends)
+
+        # ---- the trace and the flight recorder
+        doc = trace_export(bus)
+        errors = validate_trace(doc)
+        synthetic = sum(1 for e in doc["traceEvents"]
+                        if e.get("args", {}).get("synthetic_end"))
+        kinds = {}
+        for e in doc["traceEvents"]:
+            key = f"{e['cat']}/{e['name']}"
+            kinds[key] = kinds.get(key, 0) + 1
+        log(f"observability: trace {len(doc['traceEvents'])} events, "
+            f"validate_trace errors {errors[:3]}, repaired ends {synthetic};"
+            f" {dict(sorted(kinds.items()))}")
+        if errors or synthetic:
+            raise AssertionError("observability: the trace is not valid "
+                                 "and balanced")
+        path = flight_dump("chip_smoke", extra={"phase": 10})
+        with open(path) as f:
+            dumped = json.load(f)
+        n_dump = len(dumped["trace"]["traceEvents"])
+        log(f"observability: flight dump {os.path.basename(path)} reads "
+            f"back {n_dump} events")
+        if not path.startswith(tmp) or n_dump != len(doc["traceEvents"]):
+            raise AssertionError("observability: flight dump")
+        log(f"observability host ms per engine call [{card}]: "
+            f"{host_ms_line(reg, timing)}")
+        del eng
+        counts = {k: v.launches for k, v in KERNELS.items() if v.launches}
+    finally:
+        configure_tracing(enabled=False)
+        bus.clear()
+        set_injector(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch, device)
+    log(f"observability [{card}]: done")
     return counts
 
 
@@ -2944,8 +3284,10 @@ def main() -> int:
     head = head_dims(torch, pa, fa, _build.KERNELS, _build.reset_counts)
     gc.collect()
     torch.cuda.empty_cache()
-    feat = serve_features(torch, pa, fa, _build.KERNELS, _build.reset_counts,
-                          fingerprint=served_tree)
+    feat, kept = serve_features(torch, pa, fa, _build.KERNELS,
+                                _build.reset_counts, fingerprint=served_tree)
+    obs = observability(torch, _build.KERNELS, _build.reset_counts, **kept)
+    del kept
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -2981,7 +3323,8 @@ def main() -> int:
                                              ("serve_quant", quant),
                                              ("serve_dense", dense),
                                              ("head_dims", head),
-                                             ("serve_features", feat))
+                                             ("serve_features", feat),
+                                             ("observability", obs))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

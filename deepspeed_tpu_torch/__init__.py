@@ -82,5 +82,6 @@ def init_inference(model=None, config=None, checkpoint=None, dtype=None,
         raise NotImplementedError(
             "init_inference(checkpoint=...) is not ported yet: HF checkpoints "
             "need models/hf.py and engine checkpoints runtime/checkpoint.py "
-            "(ROADMAP section 1, items 10 and 1); pass params= instead")
+            '(ROADMAP section 1, "Remainder" and "The rest of training"); '
+            'pass params= instead')
     return InferenceEngine(model=model, config=config, dtype=dtype, **kwargs)

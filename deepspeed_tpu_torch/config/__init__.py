@@ -2,5 +2,5 @@
 (counterpart of ``deepspeed_tpu/config``)."""
 
 from deepspeed_tpu_torch.config.config import (  # noqa: F401
-    DeepSpeedTpuConfig, KVTierConfig, PrefixCacheConfig, SpeculativeConfig,
-    from_config)
+    DeepSpeedTpuConfig, KVTierConfig, ObservabilityConfig, PrefixCacheConfig,
+    ProfileTriggerConfig, SpeculativeConfig, TracingConfig, from_config)

@@ -6,7 +6,8 @@ single-device training engine reads are ported: the batch triple,
 ``optimizer``, ``scheduler``, ``fp16`` / ``bf16``, ``gradient_clipping``,
 ``steps_per_print``, ``seed``, ``zero_optimization.stage`` (0-3 compute the
 same thing on one device, as the reference does on a one-device mesh),
-``mesh`` (every axis 1) and ``activation_checkpointing``. Keys are checked:
+``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``
+and ``wall_clock_breakdown``. Keys are checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
 the reference that this port does not implement raises
 ``NotImplementedError`` naming it -- nothing is silently ignored.
@@ -302,6 +303,76 @@ class SpeculativeConfig(_Checked):
 
 
 @dataclasses.dataclass
+class ProfileTriggerConfig(_Section):
+    """``observability.profile`` (the reference's :1058): on-demand
+    ``torch.profiler`` capture armed from outside a running job (trigger
+    file or SIGUSR2) -- see
+    :class:`~deepspeed_tpu_torch.observability.ProfileTrigger`."""
+
+    enabled: bool = False
+    output_dir: str = "./xla_profiles"
+    # "" = <output_dir>/TRIGGER; touching the file arms one capture
+    trigger_file: str = ""
+    signal_enabled: bool = False      # SIGUSR2 arms a capture
+    capture_steps: int = 5            # steps traced per capture
+    rate_limit_s: float = 300.0       # at most one capture per this window
+    warmup_steps: int = 2             # never arm before this many boundaries
+
+
+@dataclasses.dataclass
+class TracingConfig(_Section):
+    """``observability.tracing`` (the reference's :1074): the causal event
+    bus and crash flight recorder (``observability/events.py`` /
+    ``trace.py``). Off by default; when off the cost is one attribute check
+    per instrumented site and nothing is recorded."""
+
+    enabled: bool = False
+    # events kept per category (a deque maxlen: drops oldest, never grows)
+    ring_size: int = 4096
+    # keep every Nth request trace (1 = all), counted, not sampled at random
+    sample: int = 1
+    dump_dir: str = "./flight_dumps"
+    # terminal request spans retained after the serving ledger evicts them
+    retain_terminal: int = 256
+
+    def validate(self, path: str) -> None:
+        if self.ring_size < 16:
+            raise ValueError("observability.tracing.ring_size must be "
+                             ">= 16")
+        if self.sample < 1:
+            raise ValueError("observability.tracing.sample must be >= 1")
+        if self.retain_terminal < 0:
+            raise ValueError("observability.tracing.retain_terminal must "
+                             "be >= 0")
+
+
+@dataclasses.dataclass
+class ObservabilityConfig(_Section):
+    """``observability`` (the reference's :1112): the process-wide metrics
+    registry, the ``/metrics`` + ``/healthz`` / ``/readyz`` server, the
+    profile trigger and the event bus. ``enabled`` defaults True: the
+    registry costs a handful of host float ops per step and no device
+    sync; the HTTP server and the breakdown timers stay opt-in. The
+    registry-to-monitor bridge's cadence (``flush_interval_steps``) is
+    accepted; monitors are not ported, so nothing flushes."""
+
+    enabled: bool = True
+    http_server: bool = False         # stand up /metrics on engine init
+    http_host: str = "127.0.0.1"
+    http_port: int = 0                # 0 = ephemeral
+    flush_interval_steps: int = 0     # bridge cadence (0 = steps_per_print)
+    # per-step fwd/bwd/optimizer timer gauges (train/*_ms); also turned on
+    # by the top-level wall_clock_breakdown flag
+    train_breakdown: bool = False
+    monitor_memory: bool = False      # host memory on the periodic speed log
+    profile: ProfileTriggerConfig = dataclasses.field(
+        default_factory=ProfileTriggerConfig)
+    tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
+
+    NESTED = {"profile": ProfileTriggerConfig, "tracing": TracingConfig}
+
+
+@dataclasses.dataclass
 class DeepSpeedTpuConfig(_Section):
     """The root config. Build it with :func:`from_config`."""
 
@@ -319,21 +390,25 @@ class DeepSpeedTpuConfig(_Section):
     gradient_clipping: float = 0.0
     steps_per_print: int = 10
     seed: int = 42
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig)
+    wall_clock_breakdown: bool = False
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
               "zero_optimization": ZeroConfig, "mesh": MeshConfig,
-              "activation_checkpointing": ActivationCheckpointingConfig}
+              "activation_checkpointing": ActivationCheckpointingConfig,
+              "observability": ObservabilityConfig}
     UNPORTED = {
         **{k: _SECTION for k in (
-            "moe", "pipeline", "resilience", "observability", "offload",
+            "moe", "pipeline", "resilience", "offload",
             "comms_logger", "monitor_config", "tensorboard", "csv_monitor",
             "wandb", "flops_profiler", "data_types", "compression",
             "checkpoint", "sequence_parallel", "elasticity", "autotuning",
             "serving", "inference", "data_efficiency", "hybrid_engine",
             "progressive_layer_drop")},
         "sanity_checks": False, "sanity_check_batches": True,
-        "wall_clock_breakdown": False, "prescale_gradients": False,
+        "prescale_gradients": False,
         "gradient_predivide_factor": 1.0, "dump_state": False,
     }
 

@@ -39,8 +39,14 @@ reference's raises). The packed engine also carries the serving features:
 Promotions and resumes are uploaded into the pool by an in-place
 ``index_copy_`` ahead of the next step, on the same stream (the reference
 fuses them into its step's prologue). Host-side scheduling (slots, blocks,
-block tables, atom packing) mirrors the reference line for line; its
-event-bus spans and registry instruments are not ported.
+block tables, atom packing) mirrors the reference line for line, and so do
+its instruments: the event-bus spans and instants (``engine`` and
+``kv_tier`` categories), the prefix-cache and tier registry families, the
+opt-in ``inference/*`` stream of :meth:`InferenceEngineV2.enable_metrics`
+and the fault-injector sites of pause export and resume. The one
+difference: the port never fuses a promote into a step, so it emits no
+``promote_fence_fused`` instant and ``inference/decode_prologue_promotes``
+stays 0.
 
 Not ported yet (they raise): MoE serving and meshes / tensor parallelism.
 """
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -61,6 +68,7 @@ from deepspeed_tpu_torch.inference.quant import quantize_serving_params
 from deepspeed_tpu_torch.inference.ragged import (CapacityError, PrefixCache,
                                                   SequenceManager)
 from deepspeed_tpu_torch.models.transformer import TransformerLM, torch_dtype
+from deepspeed_tpu_torch.observability.events import get_bus
 from deepspeed_tpu_torch.ops.paged_attention import cache_append
 from deepspeed_tpu_torch.utils import resolve_device
 
@@ -107,8 +115,8 @@ class _PausedSeq:
     to restore and its committed-token history. Keys are negative, apart
     from the prefix cache's non-negative handles in a shared store."""
 
-    __slots__ = ("uid", "keys", "seen", "hist", "resuming", "durable",
-                 "manifest_path")
+    __slots__ = ("uid", "keys", "seen", "hist", "resuming", "adopted",
+                 "durable", "manifest_path")
 
     def __init__(self, uid: int, keys, seen: int, hist):
         self.uid = uid
@@ -116,8 +124,10 @@ class _PausedSeq:
         self.seen = int(seen)
         self.hist = hist
         self.resuming = False
-        # migration: the exported durable entries and the manifest,
+        # migration: an adopted record's tier reads fault through the
+        # migrate site; the exported durable entries and the manifest are
         # reclaimed when the record dies here
+        self.adopted = False
         self.durable = None
         self.manifest_path = None
 
@@ -137,11 +147,12 @@ class InferenceEngineV2:
                  moe_replica_slots: int = 0):
         if topology is not None or mesh is not None:
             raise _unported("a mesh / tensor parallelism (topology=, mesh=)",
-                            "item 5")
+                            '"Mesh, ZeRO and tensor parallelism"')
         if (moe_kernel, moe_a2a_bits, moe_a2a_slice) != (None, None, None) \
                 or moe_replica_slots:
             raise _unported("MoE serving (moe_kernel=, moe_a2a_bits=, "
-                            "moe_a2a_slice=, moe_replica_slots=)", "item 4")
+                            "moe_a2a_slice=, moe_replica_slots=)",
+                            '"MoE on one device"')
         if weight_dtype not in ("bf16", "int8", "int4"):
             raise ValueError(f"weight_dtype must be bf16|int8|int4, got "
                              f"{weight_dtype!r}")
@@ -174,6 +185,13 @@ class InferenceEngineV2:
             params = quantize_serving_params(
                 params, self.cfg, bits=4 if weight_dtype == "int4" else 8)
         self.params = params
+        # host split of the last put (ms): batch building, dispatch, device
+        # step + logits to host
+        self.timing: Dict[str, float] = {}
+        self._obs = None    # opt-in inference/* registry stream
+        # causal event bus, cached: configure_tracing mutates the singleton
+        # in place, so a disabled bus costs one attribute check a site
+        self._ebus = get_bus()
         self.block_size = block_size
         self.nb_max = -(-self.max_seq_len // block_size)
         if paged:
@@ -213,19 +231,71 @@ class InferenceEngineV2:
         # an NVMe tier (both set by a serving layer before the first pause)
         self.pause_store_mb = 64.0
         self.migration_nvme_path = ""
+        # promote latency per tier (tiers on), observed at the upload fence
+        self._promote_ms = None
         if self.prefix_cfg.enabled:
-            self.prefix_cache = PrefixCache(
-                self.state.allocator, max_blocks=self.prefix_cfg.max_blocks)
-            self.state.prefix_cache = self.prefix_cache
+            from deepspeed_tpu_torch.observability import get_registry
+
+            r = get_registry()
+            inst = {
+                "hits": r.counter("inference/prefix_cache_hits",
+                                  "requests that attached a cached prefix"),
+                "misses": r.counter("inference/prefix_cache_misses",
+                                    "prefix lookups that matched nothing"),
+                "hit_tokens": r.counter(
+                    "inference/prefix_cache_hit_tokens",
+                    "prompt tokens served from cached KV (prefill skipped)"),
+                "evictions": r.counter(
+                    "inference/prefix_cache_evictions",
+                    "cached blocks evicted (LRU, under pool pressure)"),
+                "blocks": r.gauge("inference/prefix_cache_blocks",
+                                  "blocks currently held by the prefix tree"),
+            }
             tiers = self.prefix_cfg.tiers
+            if tiers.enabled:
+                inst["tier_hits_hbm"] = r.counter(
+                    "inference/prefix_cache_tier_hits",
+                    "cached blocks served per tier on a radix match",
+                    labels={"tier": "hbm"})
+            self.prefix_cache = PrefixCache(
+                self.state.allocator, max_blocks=self.prefix_cfg.max_blocks,
+                instruments=inst)
+            self.state.prefix_cache = self.prefix_cache
             if tiers.enabled:
                 from deepspeed_tpu_torch.inference.kv_tier import KVTierStore
 
+                tier_inst = {}
+                for t in ("host", "nvme"):
+                    tier_inst[t] = {
+                        "hits": r.counter(
+                            "inference/prefix_cache_tier_hits",
+                            "cached blocks served per tier on a radix match",
+                            labels={"tier": t}),
+                        "misses": r.counter(
+                            "inference/prefix_cache_tier_misses",
+                            "tier entries lost or unreadable (recomputed)",
+                            labels={"tier": t}),
+                        "demotions": r.counter(
+                            "inference/prefix_cache_tier_demotions",
+                            "cache blocks demoted into the tier",
+                            labels={"tier": t}),
+                        "bytes": r.gauge(
+                            "inference/prefix_cache_tier_bytes",
+                            "KV bytes resident in the tier",
+                            labels={"tier": t}),
+                    }
+                self._promote_ms = {
+                    t: r.histogram(
+                        "inference/prefix_cache_tier_promote_ms",
+                        "demoted-block promote latency: tier fetch start "
+                        "to pool upload dispatched", labels={"tier": t})
+                    for t in ("host", "nvme")}
                 self._tier_store = KVTierStore(
                     host_mb=tiers.host_mb, nvme_path=tiers.nvme_path,
                     promote_depth=tiers.promote_depth,
                     nvme_max_mb=tiers.nvme_max_mb,
-                    nvme_ttl_s=tiers.nvme_ttl_s, pin=self._pin)
+                    nvme_ttl_s=tiers.nvme_ttl_s, instruments=tier_inst,
+                    pin=self._pin)
                 self.prefix_cache.attach_tier_store(self._tier_store,
                                                     self._extract_blocks)
         # per-uid committed-token history (keys prefix publication and
@@ -242,6 +312,45 @@ class InferenceEngineV2:
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def enable_metrics(self, registry=None) -> None:
+        """Opt-in ``inference/*`` registry stream of the packed put path and
+        ``decode_batch`` (host-build and device-step + fetch latency
+        histograms, token counters). Off by default: with it off the put
+        path pays one ``is None`` check. Every reading is a host clock
+        around work the call already waits on (the logits or tokens to
+        host): no synchronisation is added."""
+        from deepspeed_tpu_torch.observability import get_registry
+
+        r = registry if registry is not None else get_registry()
+        self._obs = {
+            "put_host_ms": r.histogram(
+                "inference/put_host_ms",
+                "put(): host batch building (ms)"),
+            "put_fetch_ms": r.histogram(
+                "inference/put_fetch_ms",
+                "put(): device step + logits D2H (ms)"),
+            "tokens": r.counter("inference/tokens",
+                                "tokens pushed through put()"),
+            "decode_dispatches": r.counter(
+                "inference/decode_dispatches",
+                "fused decode-scan device dispatches (decode_batch)"),
+            "decode_tokens": r.counter(
+                "inference/decode_tokens",
+                "tokens generated by decode_batch scans"),
+            "decode_fetch_ms": r.histogram(
+                "inference/decode_fetch_ms",
+                "decode_batch: device scan + token D2H (ms)"),
+            "decode_prologue_promotes": r.counter(
+                "inference/decode_prologue_promotes",
+                "tier promotions folded into a fused step prologue"),
+        }
+
+    def _observe_put(self, chunks) -> None:
+        if self._obs is not None:
+            self._obs["put_host_ms"].observe(self.timing["host_ms"])
+            self._obs["put_fetch_ms"].observe(self.timing["fetch_ms"])
+            self._obs["tokens"].inc(float(sum(len(c) for c in chunks)))
 
     # ---- scheduling surface ----------------------------------------------
     def query(self, uid: int, n_tokens: int) -> bool:
@@ -293,6 +402,17 @@ class InferenceEngineV2:
         self._pos[seq.slot] = n
         if self._hist is not None:
             self._hist[uid] = toks[:n].copy()
+        bus = self._ebus
+        if bus.enabled and (n or recs):
+            # the uid <-> KV-tier join point: a demoted prefix attaching
+            # here is the event that explains a cheap TTFT
+            bus.instant("engine", "prefix_attach",
+                        args={"uid": int(uid), "hit_tokens": int(n),
+                              "promotes": len(recs)})
+            if recs:
+                bus.instant("kv_tier", "promote_attach",
+                            args={"uid": int(uid), "blocks": len(recs),
+                                  "tiers": sorted({r.tier for r in recs})})
         return n
 
     def _commit(self, uid: int, fed) -> None:
@@ -387,6 +507,14 @@ class InferenceEngineV2:
         recs, self._promote_q = self._promote_q, []
         if not recs:
             return
+        bus = self._ebus
+        if not bus.enabled:
+            return self._flush_promotes_impl(recs)
+        with bus.span("engine", "promote_fence",
+                      args={"pending": len(recs)}):
+            return self._flush_promotes_impl(recs)
+
+    def _flush_promotes_impl(self, recs) -> None:
         built = self._build_promote_payloads(recs)
         if built is None:
             return
@@ -427,10 +555,16 @@ class InferenceEngineV2:
     def _finish_promotes(self, recs, failed) -> None:
         """After the upload: return the fetch loans, drop the store entries
         and publish the uploaded nodes; a zero-filled node leaves the tree
-        (it serves only its in-flight acquirer)."""
+        (it serves only its in-flight acquirer). Observes each uploaded
+        block's promote latency (a failed read counts as a tier miss, not a
+        promote)."""
+        now = time.perf_counter()
         for rec in recs:
             rec.fetch.release()
             self._tier_store.discard(rec.key)
+            if self._promote_ms is not None and rec not in failed:
+                self._promote_ms[rec.tier].observe(
+                    (now - rec.fetch.t_start) * 1e3)
         self.prefix_cache.mark_uploaded(recs)
         for rec in failed:
             self.prefix_cache.drop_failed_promote(rec.node)
@@ -495,6 +629,7 @@ class InferenceEngineV2:
         seen = int(seq.seen_tokens)
         if seen <= 0:
             return False
+        t0 = time.perf_counter()
         nb = -(-seen // self.block_size)
         store = self._ensure_pause_store()
         payloads = self._extract_blocks(seq.blocks[:nb])
@@ -515,6 +650,13 @@ class InferenceEngineV2:
         self.state.flush(uid)
         if self._hist is not None:
             self._hist.pop(uid, None)
+        bus = self._ebus
+        if bus.enabled:
+            bus.instant("kv_tier", "pause",
+                        args={"uid": int(uid), "blocks": nb,
+                              "seen_tokens": seen,
+                              "ms": round((time.perf_counter() - t0) * 1e3,
+                                          3)})
         return True
 
     def resume_request(self, uid: int) -> bool:
@@ -557,6 +699,11 @@ class InferenceEngineV2:
         if self._hist is not None and rec.hist is not None:
             self._hist[uid] = rec.hist
         self._pause_q.append((uid, rec, list(seq.blocks), fetches))
+        bus = self._ebus
+        if bus.enabled:
+            bus.instant("kv_tier", "resume_start",
+                        args={"uid": int(uid), "blocks": len(rec.keys),
+                              "seen_tokens": rec.seen})
         return True
 
     # ---- cross-engine migration: durable export / adopt ------------------
@@ -585,9 +732,17 @@ class InferenceEngineV2:
                 os.path.join(shared_path, "kv")):
             return None             # spills where other engines cannot see
         from deepspeed_tpu_torch.inference.kv_tier import write_manifest
+        from deepspeed_tpu_torch.resilience.faults import get_injector
 
+        inj = get_injector()
+        t0 = time.perf_counter()
         entries = store.export_durable(rec.keys, tag)
         try:
+            if inj:
+                # the window the manifest protocol closes: KV bytes durable,
+                # no manifest yet (orphaned files, never a manifest
+                # pointing at nothing)
+                inj.on_pause_export(str(tag))
             hist = rec.hist
             payload = {
                 "uid": str(tag),
@@ -600,9 +755,18 @@ class InferenceEngineV2:
         except BaseException:
             store.drop_durable(entries)
             raise
+        if inj:
+            inj.maybe_tear_manifest(path, str(tag))
         if keep:
             rec.durable = entries
             rec.manifest_path = path
+        bus = self._ebus
+        if bus.enabled:
+            bus.instant("kv_tier", "pause_export",
+                        args={"uid": int(uid), "tag": str(tag),
+                              "entries": len(entries), "keep": bool(keep),
+                              "ms": round((time.perf_counter() - t0) * 1e3,
+                                          3)})
         return path
 
     def adopt_paused(self, uid: int, payload: Dict,
@@ -632,8 +796,15 @@ class InferenceEngineV2:
         rec = _PausedSeq(uid, keys, seen,
                          None if hist is None
                          else np.asarray(hist, np.int32))
+        rec.adopted = True
         rec.manifest_path = manifest_path
         self._paused[uid] = rec
+        bus = self._ebus
+        if bus.enabled:
+            bus.instant("kv_tier", "adopt",
+                        args={"uid": int(uid),
+                              "tag": str(payload.get("uid")),
+                              "entries": len(keys), "seen_tokens": seen})
 
     def flush_resumes(self) -> list:
         """Upload pending resumes now; returns (and clears) the uids whose
@@ -656,12 +827,35 @@ class InferenceEngineV2:
         self._drop_paused(uid)
         self._resume_failed.append(uid)
 
+    def _fault_resume_reads(self, inj, rec) -> bool:
+        """The fault injector's tier-read site of a resume, once for each
+        parked key in order before its fetch is waited on: a migrate read
+        for an adopted record, a resume read otherwise. True when an
+        injected read failed."""
+        fire = inj.on_migrate_read if rec.adopted else inj.on_resume_read
+        for key in rec.keys:
+            try:
+                fire(self._tier_store.tier_of(key) or "host")
+            except OSError as e:
+                logger.warning(f"kv tier: resume read failed for uid "
+                               f"{rec.uid} key {key} ({e}); unwinding")
+                return True
+        return False
+
     def _flush_pause_promotes(self) -> None:
         """Upload every pending resume's parked pages into its new blocks.
         A failed read never zero-fills here (a resumed sequence would decode
         from zeros as its own past): the resume is unwound instead."""
         pending, self._pause_q = self._pause_q, []
+        if not pending:
+            return
+        from deepspeed_tpu_torch.resilience.faults import get_injector
+
+        inj = get_injector()
         for j, (uid, rec, blocks, fetches) in enumerate(pending):
+            if inj and self._fault_resume_reads(inj, rec):
+                self._unwind_resume(uid, fetches)
+                continue
             pages, bufs, failures = self._stage(fetches)
             if failures:
                 i, e = failures[0]
@@ -682,6 +876,10 @@ class InferenceEngineV2:
             for f in fetches:
                 f.release()
             self._drop_paused(uid)      # parked copies now redundant
+            bus = self._ebus
+            if bus.enabled:
+                bus.instant("kv_tier", "resume_upload",
+                            args={"uid": int(uid), "blocks": len(blocks)})
 
     def _drop_paused(self, uid: int) -> None:
         """Forget a pause record: release an in-flight resume's loans and
@@ -778,6 +976,9 @@ class InferenceEngineV2:
                        ) -> Dict[int, np.ndarray]:
         """Fresh whole prompts: flash-prefill every prompt in one step (T
         padded to a power of two >= 32, the batch to a power of two)."""
+        # this call's own host clock: the grouped recursion below runs
+        # earlier groups' steps to completion first
+        t_entry = time.perf_counter()
         if not self.state.can_schedule_batch(batch_uids,
                                              [len(c) for c in chunks]):
             raise CapacityError(batch_uids, [len(c) for c in chunks],
@@ -803,10 +1004,18 @@ class InferenceEngineV2:
             lengths[i] = len(c)
             slots[i] = d.slot
         self._fence()
+        t_host = time.perf_counter()
         logits = self._prefill_impl(self._t(ids), self._t(lengths),
                                     self._t(self._block_tables()),
                                     self._t(slots))
+        t_disp = time.perf_counter()
         out = logits.float().cpu().numpy()
+        self.timing = {
+            "host_ms": (t_host - t_entry) * 1e3,
+            "dispatch_ms": (t_disp - t_host) * 1e3,
+            "fetch_ms": (time.perf_counter() - t_disp) * 1e3,
+        }
+        self._observe_put(chunks)
         results = {}
         for i, (d, c) in enumerate(zip(descs, chunks)):
             results[d.uid] = out[i]
@@ -857,18 +1066,21 @@ class InferenceEngineV2:
         no_past = all(d.seen_tokens == 0 for _, d, c in big)
         return tok_ids, tok_slot, tok_pos, valid, starts, dr, tile, no_past
 
-    def _packed_step(self, descs, chunks, gather_idx) -> np.ndarray:
+    def _packed_step(self, descs, chunks, gather_idx):
         """One packed step over the scheduled chunks (after the promote
-        fence); fp32 numpy logits at ``gather_idx``."""
+        fence). Returns fp32 numpy logits at ``gather_idx`` and the host
+        clock after the fence and after the step's launches."""
         tok_ids, tok_slot, tok_pos, valid, starts, dr, tile, no_past = \
             self._pack_atoms(descs, chunks)
         self._fence()
+        t_host = time.perf_counter()
         logits, self.cache = self.module.forward_with_packed_cache(
             self.params, self._t(tok_ids), self.cache,
             self._t(self._block_tables()), self._t(tok_slot),
             self._t(tok_pos), self._t(valid), self._t(gather_idx(starts)),
             dr, tile, no_past)
-        return logits.float().cpu().numpy()
+        t_disp = time.perf_counter()
+        return logits.float().cpu().numpy(), t_host, t_disp
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray]) -> Dict[int, np.ndarray]:
@@ -877,8 +1089,24 @@ class InferenceEngineV2:
         prompts, single decode tokens, or anything between. With the prefix
         cache, a fresh multi-token chunk first attaches its cached
         full-block prefix and only the suffix is prefilled."""
+        bus = self._ebus
+        if not bus.enabled:
+            return self._put_impl(batch_uids, batch_tokens)
+        # the span carries the uid list: request tracks join the engine's
+        # steps by uid
+        with bus.span("engine", "put", args={
+                "uids": [int(u) for u in batch_uids],
+                "tokens": int(sum(np.atleast_1d(np.asarray(t)).size
+                                  for t in batch_tokens))}):
+            return self._put_impl(batch_uids, batch_tokens)
+
+    def _put_impl(self, batch_uids: Sequence[int],
+                  batch_tokens: Sequence[np.ndarray]
+                  ) -> Dict[int, np.ndarray]:
         if len(batch_uids) != len(batch_tokens):
             raise ValueError("one token chunk per uid")
+        t_put = time.perf_counter()
+        self.timing = {}        # never report a previous put's numbers
         chunks = [np.atleast_1d(np.asarray(t)) for t in batch_tokens]
         if not self.packed:
             return self._put_dense_tile(batch_uids, chunks)
@@ -916,6 +1144,8 @@ class InferenceEngineV2:
                    if len(c) > cap]
             self.put([u for u, _ in sel], [c for _, c in sel])
             chunks = [c[cap:] if len(c) > cap else c for c in chunks]
+            # rebase the host clock: the sub-puts ran their steps to the end
+            t_put = time.perf_counter()
         if not self.state.can_schedule_batch(batch_uids,
                                              [len(c) for c in chunks]):
             raise CapacityError(batch_uids, [len(c) for c in chunks])
@@ -928,7 +1158,16 @@ class InferenceEngineV2:
                 gather_idx[i] = starts[i] + len(c) - 1
             return gather_idx
 
-        out = self._packed_step(descs, chunks, chunk_ends)
+        out, t_host, t_disp = self._packed_step(descs, chunks, chunk_ends)
+        # host batch building vs the step's launches vs the device step and
+        # the logits to host (on the card the launches run ahead of the
+        # device, so dispatch_ms is the host's launch time)
+        self.timing = {
+            "host_ms": (t_host - t_put) * 1e3,
+            "dispatch_ms": (t_disp - t_host) * 1e3,
+            "fetch_ms": (time.perf_counter() - t_disp) * 1e3,
+        }
+        self._observe_put(chunks)
         results: Dict[int, np.ndarray] = {}
         for i, (d, c) in enumerate(zip(descs, chunks)):
             results[d.uid] = out[i]
@@ -1036,6 +1275,20 @@ class InferenceEngineV2:
         Sampling always takes the fused loop."""
         spec = (self.spec_cfg.enabled if speculative is None
                 else bool(speculative))
+        bus = self._ebus
+        if bus.enabled:
+            with bus.span("engine", "decode_batch",
+                          args={"uids": [int(u) for u in batch_uids],
+                                "steps": int(steps), "spec": spec}):
+                return self._decode_batch_dispatch(
+                    batch_uids, batch_tokens, steps, temperature, top_k,
+                    top_p, seed, spec)
+        return self._decode_batch_dispatch(batch_uids, batch_tokens, steps,
+                                           temperature, top_k, top_p, seed,
+                                           spec)
+
+    def _decode_batch_dispatch(self, batch_uids, batch_tokens, steps,
+                               temperature, top_k, top_p, seed, spec):
         if spec and temperature == 0.0 and self._hist is not None:
             return self._decode_batch_spec(batch_uids, batch_tokens, steps)
         return self._decode_batch_scan(batch_uids, batch_tokens, steps,
@@ -1066,12 +1319,18 @@ class InferenceEngineV2:
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._fence()
+        t_disp = time.perf_counter()
         out = self._multi_decode(self._t(self._block_tables()),
                                  self._t(slots), self._t(pos0),
                                  self._t(tok0), steps, self._t(valid),
                                  float(temperature), int(top_k),
                                  float(top_p), gen)
         toks = out.cpu().numpy()                        # [steps, bpad]
+        if self._obs is not None:
+            self._obs["decode_dispatches"].inc(1.0)
+            self._obs["decode_tokens"].inc(float(steps * B))
+            self._obs["decode_fetch_ms"].observe(
+                (time.perf_counter() - t_disp) * 1e3)
         for i, d in enumerate(descs):
             self._pos[d.slot] = d.seen_tokens + steps
             # fed tokens: the start token and all but the last output (the
@@ -1125,7 +1384,16 @@ class InferenceEngineV2:
         elif self._hist is None:
             raise ValueError("spec_decode_round needs speculative (or "
                              "prefix_cache) enabled on the engine")
-        return self._spec_verify_impl(batch_uids, batch_tokens, drafts)
+        return self._spec_verify(batch_uids, batch_tokens, drafts)
+
+    def _spec_verify(self, batch_uids, batch_tokens, drafts):
+        bus = self._ebus
+        if not bus.enabled:
+            return self._spec_verify_impl(batch_uids, batch_tokens, drafts)
+        with bus.span("engine", "spec_verify",
+                      args={"uids": [int(u) for u in batch_uids],
+                            "drafted": int(sum(len(d) for d in drafts))}):
+            return self._spec_verify_impl(batch_uids, batch_tokens, drafts)
 
     def _spec_verify_impl(self, batch_uids, batch_tokens, drafts):
         """Verify per-sequence chunks ``[t0, d1..dk]`` in one packed step
@@ -1152,7 +1420,8 @@ class InferenceEngineV2:
                 gidx[goff[i]:goff[i] + len(c)] = starts[i] + np.arange(len(c))
             return gidx
 
-        out = self._packed_step(descs, chunks, every_position)   # [gpad, V]
+        out, _, _ = self._packed_step(descs, chunks,
+                                      every_position)            # [gpad, V]
         results: Dict[int, np.ndarray] = {}
         info = {"drafted": int(G - len(descs)), "accepted": 0, "emitted": 0,
                 "nonfinite_uids": []}
@@ -1219,8 +1488,7 @@ class InferenceEngineV2:
                     remaining[u] -= n
                     cur[u] = toks[-1]
                 continue
-            res, _ = self._spec_verify_impl(live, [cur[u] for u in live],
-                                            drafts)
+            res, _ = self._spec_verify(live, [cur[u] for u in live], drafts)
             for u in live:
                 toks = [int(t) for t in res[u]]
                 out[u].extend(toks)

@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deepspeed_tpu_torch.observability.events import get_bus
 from deepspeed_tpu_torch.offload.swap import (AsyncTensorSwapper,
                                               PinnedBufferPool)
 
@@ -275,7 +276,7 @@ class KVFetch:
     ``wait()`` at the engine's fence instead of up front."""
 
     __slots__ = ("store", "entry", "tier", "t_start", "_ticket", "_lazy",
-                 "_batch", "_parts", "_released")
+                 "_batch", "_parts", "_released", "eid")
 
     def __init__(self, store: "KVTierStore", entry: _Entry, tier: str,
                  ticket=None, lazy: bool = False, batch=None):
@@ -288,6 +289,15 @@ class KVFetch:
         self._batch = batch         # _BatchRead this fetch rides, if any
         self._parts: Optional[Dict[str, np.ndarray]] = None
         self._released = False
+        # async event-track id: fetch_start -> release is the promote's
+        # in-flight window on the trace timeline
+        self.eid: Optional[int] = None
+        bus = store._ebus
+        if bus.enabled:
+            self.eid = bus.new_id()
+            bus.async_begin("kv_tier", "kv_fetch", self.eid,
+                            args={"key": entry.key, "tier": tier,
+                                  "bytes": entry.nbytes, "lazy": lazy})
 
     @property
     def submitted(self) -> bool:
@@ -327,6 +337,11 @@ class KVFetch:
             return
         self._released = True
         self._parts = None
+        bus = self.store._ebus
+        if self.eid is not None and bus.enabled:
+            bus.async_end("kv_tier", "kv_fetch", self.eid,
+                          args={"tier": self.tier})
+            self.eid = None
         if self.tier == TIER_NVME and self._batch is not None:
             self._batch.deref()     # shared ticket: last holder releases
             self._batch = None
@@ -397,6 +412,7 @@ class KVTierStore:
             self.swapper = None
         self.on_drop = on_drop
         self._inst = instruments or {}
+        self._ebus = get_bus()   # causal event bus (mutated in place)
         self._host: "OrderedDict[int, _Entry]" = OrderedDict()
         # insertion/touch order = LRU order for the cap enforcement
         self._nvme: "OrderedDict[int, _Entry]" = OrderedDict()
@@ -472,6 +488,10 @@ class KVTierStore:
         self._host[key] = entry
         self._host_used += off
         self._count(TIER_HOST, "demotions")
+        if self._ebus.enabled:
+            self._ebus.instant("kv_tier", "demote",
+                               args={"key": key, "bytes": off,
+                                     "tier": TIER_HOST})
         self._spill(protect=key)
         self._set_bytes()
         return True
@@ -512,6 +532,10 @@ class KVTierStore:
             self._nvme[key] = e
             self._nvme_used += e.nbytes
             self._count(TIER_NVME, "demotions")
+            if self._ebus.enabled:
+                self._ebus.instant("kv_tier", "spill",
+                                   args={"key": key, "bytes": e.nbytes,
+                                         "tier": TIER_NVME})
         self._enforce_nvme_bounds()
 
     def _evict_nvme(self, e: _Entry, reason: str) -> None:
@@ -556,6 +580,9 @@ class KVTierStore:
     def _drop_entry(self, e: _Entry, tier: str) -> None:
         self.counters["dropped"] += 1
         self._count(tier, "misses")
+        if self._ebus.enabled:
+            self._ebus.instant("kv_tier", "drop",
+                               args={"key": e.key, "tier": tier})
         if e.buf is not None:
             self.pool.put(e.buf)
             e.buf = None
@@ -800,6 +827,9 @@ class KVTierStore:
             self.drop_durable(out)
             raise
         self.counters["durable_exports"] += len(out)
+        if self._ebus.enabled:
+            self._ebus.instant("kv_tier", "durable_export",
+                               args={"tag": tag, "entries": len(out)})
         return out
 
     def adopt_durable(self, entries: Sequence[Dict],
@@ -840,6 +870,9 @@ class KVTierStore:
             raise
         self.counters["durable_adopts"] += len(done)
         self._set_bytes()
+        if self._ebus.enabled:
+            self._ebus.instant("kv_tier", "durable_adopt",
+                               args={"entries": len(done)})
 
     def drop_durable(self, entries: Sequence[Dict]) -> None:
         """Best-effort removal of durable files this store exported (the

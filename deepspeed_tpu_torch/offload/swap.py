@@ -14,7 +14,11 @@ build raises, there is no pure-Python stand-in):
   individually (``ds_aio_wait_op``); :meth:`AsyncTensorSwapper.wait` is the
   barrier over everything;
 * arrays larger than ``chunk_bytes`` split into chunk-sized ops at file
-  offsets, spread over the threadpool.
+  offsets, spread over the threadpool;
+* every ticket is an async ``aio/swap_op`` track on the event bus (submit
+  to reap), feeds the ``offload/*`` registry families (latency, bytes,
+  errors) when it completes, and its submission is a fault-injector site
+  (``swap_read`` / ``swap_write``).
 
 The reference's ``autotune=`` sweep (``ops/aio_bench.py``) is not ported:
 asking for it raises.
@@ -30,6 +34,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.observability.events import get_bus
 
 __all__ = ["AsyncTensorSwapper", "PinnedBuffer", "PinnedBufferPool",
            "SwapTicket"]
@@ -132,7 +138,7 @@ class SwapTicket:
 
     __slots__ = ("swapper", "tid", "kind", "name", "op_ids", "buf", "nbytes",
                  "shape", "dtype", "t_submit", "_done", "_released", "_view",
-                 "_failed")
+                 "_failed", "_eid")
 
     def __init__(self, swapper: "AsyncTensorSwapper", tid: int, kind: str,
                  name: str, op_ids: List[int], buf: PinnedBuffer, nbytes: int,
@@ -151,6 +157,27 @@ class SwapTicket:
         self._released = False
         self._failed = False   # a reaped chunk errored (sticky across polls)
         self._view: Optional[np.ndarray] = None
+        # async event-track id (observability.tracing): submit -> reap is
+        # the op's in-flight window on the trace timeline
+        self._eid: Optional[int] = None
+        bus = get_bus()
+        if bus.enabled:
+            self._eid = bus.new_id()
+            bus.async_begin("aio", "swap_op", self._eid,
+                            args={"kind": kind, "name": name,
+                                  "bytes": nbytes,
+                                  "chunks": len(op_ids)})
+
+    def _emit_end(self, error: bool, barrier: bool = False) -> None:
+        """Close the ticket's async event track exactly once."""
+        if self._eid is None:
+            return
+        bus = get_bus()
+        if bus.enabled:
+            bus.async_end("aio", "swap_op", self._eid,
+                          args={"kind": self.kind, "error": error,
+                                "barrier": barrier})
+        self._eid = None
 
     @property
     def done(self) -> bool:
@@ -191,11 +218,15 @@ class SwapTicket:
         self._done = True
         sw = self.swapper
         sw._inflight.pop(self.tid, None)
+        elapsed_ms = (time.perf_counter() - self.t_submit) * 1e3
+        self._emit_end(failed)
         if failed:
             self._release_buf()
+            sw._record_io(self.kind, self.nbytes, elapsed_ms, error=True)
             raise IOError(
                 f"async {'read' if self.kind == 'r' else 'write'} of "
                 f"{self.name!r} failed in {sw.swap_dir}")
+        sw._record_io(self.kind, self.nbytes, elapsed_ms, error=False)
         if self.kind == "r":
             self._view = (self.buf.data[:self.nbytes].view(self.dtype)
                           .reshape(self.shape))
@@ -234,7 +265,7 @@ class AsyncTensorSwapper:
         if autotune:
             raise NotImplementedError(
                 "AsyncTensorSwapper(autotune=True) is not ported yet (it "
-                "needs ops/aio_bench.py, ROADMAP section 1, item 6); pass "
+                "needs ops/aio_bench.py, ROADMAP section 1, \"Offload\"); pass "
                 "num_threads / chunk_mb")
         from deepspeed_tpu_torch.ops import get_op_builder
 
@@ -256,11 +287,53 @@ class AsyncTensorSwapper:
         # completed read tickets whose buffer is loaned until release()
         self._loans: Dict[int, SwapTicket] = {}
         self._next_tid = 0
+        self._metrics = None  # lazy: offload/* instruments
 
     # ------------------------------------------------------------------
     def _path(self, name: str) -> bytes:
         return os.path.join(self.swap_dir,
                             name.replace("/", "_") + ".swp").encode()
+
+    def _instruments(self):
+        if self._metrics is None:
+            from deepspeed_tpu_torch.observability.registry import (
+                exponential_bounds, get_registry)
+
+            reg = get_registry()
+            ms_bounds = [b / 16 for b in exponential_bounds()]  # 16µs..~2s
+            self._metrics = {
+                "r_ms": reg.histogram("offload/swap_in_ms",
+                                      "swap read submit→complete latency",
+                                      bounds=ms_bounds),
+                "w_ms": reg.histogram("offload/swap_out_ms",
+                                      "swap write submit→complete latency",
+                                      bounds=ms_bounds),
+                "r_bytes": reg.counter("offload/bytes_read",
+                                       "bytes read from swap files"),
+                "w_bytes": reg.counter("offload/bytes_written",
+                                       "bytes written to swap files"),
+                "errors": reg.counter("offload/io_errors",
+                                      "failed swap IO tickets"),
+            }
+        return self._metrics
+
+    def _record_io(self, kind: str, nbytes: int, elapsed_ms: float,
+                   error: bool) -> None:
+        m = self._instruments()
+        if error:
+            m["errors"].inc()
+            return
+        if kind == "r":
+            m["r_ms"].observe(elapsed_ms)
+            m["r_bytes"].inc(nbytes)
+        else:
+            m["w_ms"].observe(elapsed_ms)
+            m["w_bytes"].inc(nbytes)
+
+    def _fire_fault(self, site: str) -> None:
+        from deepspeed_tpu_torch.resilience.faults import get_injector
+
+        get_injector().on_swap_io(site)
 
     def _submit_chunks(self, kind: str, path: bytes, buf: PinnedBuffer,
                        nbytes: int, ids: List[int],
@@ -327,6 +400,7 @@ class AsyncTensorSwapper:
     def swap_out(self, name: str, array: np.ndarray) -> SwapTicket:
         """Copy ``array`` into a pooled buffer and submit an async (chunked)
         write; the caller's array is free for reuse at once."""
+        self._fire_fault("swap_write")
         arr = np.ascontiguousarray(array)
         self._meta[name] = (tuple(arr.shape), arr.dtype)
         nbytes = arr.nbytes
@@ -346,6 +420,7 @@ class AsyncTensorSwapper:
     def swap_in_start(self, name: str) -> SwapTicket:
         """Submit an async (chunked) read into a pooled buffer; ``wait()``
         yields the array (call ``release()`` once consumed)."""
+        self._fire_fault("swap_read")
         shape, dtype = self._meta[name]
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
         io_bytes = _padded(nbytes) if self.o_direct else nbytes
@@ -364,6 +439,7 @@ class AsyncTensorSwapper:
         aligned segment offsets. Returns ``(ticket, segments)`` with
         ``segments[name] = (buffer_offset, nbytes)`` into the flat uint8
         view ``ticket.wait()`` yields."""
+        self._fire_fault("swap_read")
         segments: Dict[str, tuple] = {}
         total = 0
         for name in names:
@@ -413,22 +489,33 @@ class AsyncTensorSwapper:
         if not getattr(self, "handle", None):
             return
         errors = int(self.lib.ds_aio_wait(self.handle))
+        now = time.perf_counter()
         sticky = 0
         for t in list(self._inflight.values()):
             t.op_ids = []
             t._done = True
+            t._emit_end(bool(errors or t._failed), barrier=True)
             if errors or t._failed:
-                sticky += int(t._failed)
+                if t._failed:
+                    sticky += 1
+                    self._record_io(t.kind, t.nbytes,
+                                    (now - t.t_submit) * 1e3, error=True)
                 t._view = None
                 t._release_buf()
             elif t.kind == "w":
+                self._record_io("w", t.nbytes, (now - t.t_submit) * 1e3,
+                                error=False)
                 t._release_buf()
             else:
+                self._record_io("r", t.nbytes, (now - t.t_submit) * 1e3,
+                                error=False)
                 t._view = (t.buf.data[:t.nbytes].view(t.dtype)
                            .reshape(t.shape))
                 self._loans[t.tid] = t
         self._inflight.clear()
         if errors or sticky:
+            if errors:
+                self._instruments()["errors"].inc(errors)
             raise IOError(f"{errors + sticky} async IO operations failed "
                           f"in {self.swap_dir}")
 
@@ -443,6 +530,7 @@ class AsyncTensorSwapper:
         for t in list(self._inflight.values()) + list(self._loans.values()):
             t.op_ids = []
             t._done = True
+            t._emit_end(True, barrier=True)
             t._view = None
             t._release_buf()
         self._inflight.clear()

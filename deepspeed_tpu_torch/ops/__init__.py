@@ -143,12 +143,12 @@ class _Unported(OpBuilder):
 
 class QuantizerBuilder(_Unported):
     NAME = "quantizer"
-    ROADMAP = "item 10: the non-Pallas ops, ops/quantization.py"
+    ROADMAP = '"Remainder": the non-Pallas ops, ops/quantization.py'
 
 
 class RingAttentionBuilder(_Unported):
     NAME = "ring_attention"
-    ROADMAP = "item 9: long context, ops/ring_attention.py"
+    ROADMAP = '"Long context": ops/ring_attention.py'
 
 
 ALL_OPS: Dict[str, Type[OpBuilder]] = {

@@ -17,10 +17,21 @@ The reference's imperative UX with its semantics:
 * ``fused_train_step`` takes ``ga * micro`` examples at once and returns the
   mean loss, with the same semantics (``runtime/onebit.py`` ``ga_grads``).
 
+* Observability (the reference's ``_configure_observability`` and
+  ``_emit_train_metrics``): with ``observability.enabled`` (the default)
+  each committed step sets the ``train/*`` gauges of the process registry
+  from host values (step wall clock, steps, samples, skipped steps, the
+  optimizer's and, with ``train_breakdown``, the forward's and backward's
+  host times, and the comms logger's eager collective time, 0 on one
+  device; loss and lr at ``steps_per_print``), emits a ``train/step``
+  instant on the event bus when tracing is on, checks the profile trigger,
+  and can serve ``/metrics``.
+
 One device: params, grads and optimizer state stay whole on it, so ZeRO
 stages 0-3 compute the same step, as they do in the reference on a
-one-device mesh. Monitor, observability, resilience, offload, 1-bit
-optimizers, ZeRO++ and checkpoints are not in this slice.
+one-device mesh. Monitor (and so the registry-to-monitor bridge),
+resilience, offload, 1-bit optimizers, ZeRO++ and checkpoints are not in
+this slice.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -40,6 +52,7 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedulerShim,
                                                       build_schedule)
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer, global_norm
 from deepspeed_tpu_torch.utils import resolve_device
+from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -117,6 +130,12 @@ class DeepSpeedTpuEngine:
         self._last_loss = None
         self._last_gnorm = None
         self._world_params = sum(t.numel() for t in self._leaves)
+        self.tput_timer = ThroughputTimer(
+            batch_size=int(self.config.train_batch_size),
+            steps_per_output=config.steps_per_print,
+            monitor_memory=config.observability.monitor_memory,
+            device=self.device)
+        self._configure_observability(config)
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data,
@@ -171,9 +190,16 @@ class DeepSpeedTpuEngine:
     # ---- train loop UX --------------------------------------------------
     def forward(self, batch, *args, **kwargs) -> torch.Tensor:
         """The micro-batch loss, with its graph (reference :681)."""
+        self.tput_timer.start()
+        if self._breakdown:
+            self.wall_timers("fwd").start(synchronize=False)
         loss = self.module.loss_fn(self.params, self._put_batch(batch))
         self._pending = loss
         self._last_loss = loss.detach()
+        if self._breakdown:
+            # record=False: the per-micro-step records list is unbounded;
+            # the gauge only needs elapsed(reset=True) at the boundary
+            self.wall_timers("fwd").stop(record=False, synchronize=False)
         return loss
 
     __call__ = forward
@@ -184,10 +210,14 @@ class DeepSpeedTpuEngine:
         if self._pending is None:
             raise RuntimeError("backward() called before forward()")
         loss = self._pending if loss is None else loss
+        if self._breakdown:
+            self.wall_timers("bwd").start(synchronize=False)
         (loss * self.scaler_state["scale"]).backward()
         self._pending = None
         self._grad_acc_count += 1
         self.micro_steps += 1
+        if self._breakdown:
+            self.wall_timers("bwd").stop(record=False, synchronize=False)
         return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -218,11 +248,16 @@ class DeepSpeedTpuEngine:
         """Optimizer step at the GA boundary (reference :778)."""
         if not self.is_gradient_accumulation_boundary():
             return
+        t0 = time.perf_counter()
         gnorm, skipped = self._apply(
             float(self.config.gradient_accumulation_steps))
         self._grad_acc_count = 0
         self._last_gnorm = gnorm
+        # the imperative path only: the fused step buries the update in
+        # one call, where only train/step_ms means something
+        self._opt_ms = (time.perf_counter() - t0) * 1e3
         self._commit_step(skipped)
+        self.tput_timer.stop(global_step=True, report_speed=True)
 
     def _commit_step(self, skipped: bool) -> None:
         if skipped:
@@ -235,6 +270,8 @@ class DeepSpeedTpuEngine:
         if self.global_steps and \
                 self.global_steps % self.config.steps_per_print == 0:
             self._report_progress()
+        if self._obs is not None:
+            self._emit_train_metrics()
 
     def train_batch(self, data_iter: Optional[Iterable] = None) -> float:
         """One global batch: GA micro-steps, then the optimizer step; returns
@@ -303,6 +340,134 @@ class DeepSpeedTpuEngine:
 
     def zero_optimization_stage(self) -> int:
         return self.zero_stage
+
+    # ---- observability surface (the reference's :1165-1330) -------------
+    def _configure_observability(self, config) -> None:
+        """Registry gauges for the per-step breakdown, the optional
+        ``/metrics`` server and the profile trigger. With
+        ``observability.enabled`` a step costs a handful of host float ops;
+        the breakdown timers are opt-in and never synchronise the device
+        (host timestamps bound the launches; the loss read that
+        ``train_batch`` already makes stays the only sync)."""
+        from deepspeed_tpu_torch.comm.logger import comms_logger
+        from deepspeed_tpu_torch.observability.events import get_bus
+        from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+
+        ocfg = config.observability
+        self.wall_timers = SynchronizedWallClockTimer(self.device)
+        self._ebus = get_bus()
+        self._obs = None
+        self._obs_server = None
+        self._profile_trigger = None
+        self._breakdown = bool(ocfg.enabled and (
+            ocfg.train_breakdown or config.wall_clock_breakdown))
+        self._opt_ms: Optional[float] = None
+        self._last_commit_t: Optional[float] = None
+        # baseline now, not 0: the comms logger is a process singleton, and
+        # latency recorded before this engine existed must not land in the
+        # first step's delta
+        self._comm_lat_base = comms_logger.total_latency_s()
+        if ocfg.tracing.enabled:
+            # causal event tracing + flight recorder, applied to the process
+            # bus in place, so every seam built before starts emitting
+            from deepspeed_tpu_torch.observability import configure_tracing
+
+            configure_tracing(ocfg.tracing)
+        if not ocfg.enabled:
+            return
+        from deepspeed_tpu_torch.observability import (ObservabilityServer,
+                                                       ProfileTrigger,
+                                                       get_registry)
+        from deepspeed_tpu_torch.utils.logging import _process_index
+
+        g = get_registry().gauge
+        self._obs = {
+            "step_ms": g("train/step_ms", "wall clock between step commits"),
+            "fwd_ms": g("train/fwd_ms", "forward (breakdown mode)"),
+            "bwd_ms": g("train/bwd_ms", "backward (breakdown mode)"),
+            "optimizer_ms": g("train/optimizer_ms", "optimizer apply"),
+            "comm_ms": g("train/comm_ms",
+                         "eager host-collective time this step"),
+            "checkpoint_ms": g("train/checkpoint_ms",
+                               "last checkpoint save wall clock"),
+            "loss": g("train/loss", "last reported loss"),
+            "lr": g("train/lr", "current learning rate"),
+            "steps": g("train/steps", "global optimizer steps"),
+            "samples": g("train/samples", "global samples consumed"),
+            "skipped_steps": g("train/skipped_steps",
+                               "overflow/guard-skipped steps"),
+        }
+        if ocfg.profile.enabled:
+            self._profile_trigger = ProfileTrigger.from_config(ocfg.profile)
+            if ocfg.profile.signal_enabled:
+                self._profile_trigger.install_signal_handler()
+        if ocfg.http_server and _process_index() == 0:
+            self._obs_server = ObservabilityServer(
+                get_registry(), host=ocfg.http_host,
+                port=ocfg.http_port).start()
+
+    def _emit_train_metrics(self) -> None:
+        """Per-commit registry update from host values; the one device read,
+        ``float(loss)``, happens at ``steps_per_print`` where
+        ``_report_progress`` already pays it."""
+        from deepspeed_tpu_torch.comm.logger import comms_logger
+
+        o = self._obs
+        now = time.perf_counter()
+        if self._last_commit_t is not None:
+            o["step_ms"].set((now - self._last_commit_t) * 1e3)
+        self._last_commit_t = now
+        o["steps"].set(float(self.global_steps))
+        o["samples"].set(float(self.global_samples))
+        o["skipped_steps"].set(float(self.skipped_steps))
+        if self._ebus.enabled:
+            # one instant per committed step: the training heartbeat the
+            # flight recorder shows around an abort (host clock only)
+            self._ebus.instant("train", "step",
+                               args={"step": int(self.global_steps)})
+        if self._opt_ms is not None:
+            o["optimizer_ms"].set(self._opt_ms)
+            self._opt_ms = None
+        if self._breakdown:
+            for timer, key in (("fwd", "fwd_ms"), ("bwd", "bwd_ms")):
+                if self.wall_timers.has(timer):
+                    o[key].set(self.wall_timers(timer).elapsed(reset=True)
+                               * 1e3)
+        lat = comms_logger.total_latency_s()
+        # a comms_logger.reset() mid-run rewinds the total below the base;
+        # rebase instead of reporting a negative step delta
+        o["comm_ms"].set(max(0.0, lat - self._comm_lat_base) * 1e3)
+        self._comm_lat_base = lat
+        if self.global_steps and \
+                self.global_steps % self.config.steps_per_print == 0:
+            if self._last_loss is not None:
+                o["loss"].set(float(self._last_loss))
+            o["lr"].set(float(self.get_lr()[0]))
+        if self._profile_trigger is not None:
+            self._profile_trigger.check(self.global_steps)
+
+    def observability_report(self) -> Dict[str, Any]:
+        """One-call snapshot of the observability surface itself."""
+        from deepspeed_tpu_torch.observability import get_registry
+
+        return {
+            "enabled": self._obs is not None,
+            "breakdown": self._breakdown,
+            "metrics_url": (self._obs_server.url
+                            if self._obs_server is not None else None),
+            "profile": (self._profile_trigger.report()
+                        if self._profile_trigger is not None else None),
+            "families": sorted(f.name for f in get_registry().collect()),
+        }
+
+    def shutdown(self) -> None:
+        """Stop an in-flight profile capture and the ``/metrics`` server.
+        Idempotent."""
+        if self._profile_trigger is not None:
+            self._profile_trigger.close()
+        if self._obs_server is not None:
+            self._obs_server.close()
+            self._obs_server = None
 
     def _report_progress(self) -> None:
         loss = None if self._last_loss is None else float(self._last_loss)

@@ -1,8 +1,14 @@
-"""Small helpers shared across the port."""
+"""Small helpers shared across the port (counterpart of
+``deepspeed_tpu/utils``): device resolution, rank-aware logging and the
+wall-clock / throughput timers."""
 
 from __future__ import annotations
 
 import torch
+
+from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
+from deepspeed_tpu_torch.utils.timer import (  # noqa: F401
+    SynchronizedWallClockTimer, ThroughputTimer)
 
 
 def resolve_device(device) -> torch.device:

@@ -174,8 +174,9 @@ def test_capacity_and_unported_options():
     # ported (tests/test_torch_engine_features.py and the prefix-cache and
     # KV-tier tests); MoE serving and meshes still raise, naming their
     # ROADMAP items
-    for kw, item in ((dict(mesh={"tp": 2}), "item 5"),
-                     (dict(moe_kernel="ragged"), "item 4")):
+    for kw, item in ((dict(mesh={"tp": 2}),
+                      '"Mesh, ZeRO and tensor parallelism"'),
+                     (dict(moe_kernel="ragged"), '"MoE on one device"')):
         with pytest.raises(NotImplementedError, match=item):
             InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
     eng.put([0], [np.arange(1, 5, dtype=np.int32)])

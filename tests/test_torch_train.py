@@ -318,7 +318,8 @@ def test_misspelled_key_names_the_field(raw, where):
     ({"moe": {"enabled": True}}, "moe"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"resilience": {"enabled": False}}, "resilience"),
-    ({"observability": {"enabled": True}}, "observability"),
+    ({"monitor_config": {"csv_monitor": {"enabled": True}}},
+     "monitor_config"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}},
      "dots_saveable"),
 ])
