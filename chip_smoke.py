@@ -200,7 +200,8 @@ Phases, in order (any failure raises and the script exits non-zero):
               prefix hits, ``decode_tokens`` = 4 x 16, 1024 hit tokens
               per warm request); device launches of a 4-sequence decode
               ``put`` (the profiler's count, :func:`device_launches`) are
-              equal with the hooks on and off; a ``ProfileTrigger`` armed
+              equal with the hooks on and off (the medians of three
+              traces each, taken in turn); a ``ProfileTrigger`` armed
               by its trigger file (warm-up 1, 2 capture steps, ``check``
               after each ``decode_batch``) writes a ``torch.profiler``
               trace naming kernel A (``paged_decode_kernel``); a
@@ -216,6 +217,46 @@ Phases, in order (any failure raises and the script exits non-zero):
               p50 and p90 of ``inference/put_host_ms``, ``put_fetch_ms``
               and ``decode_fetch_ms`` and of the puts' ``dispatch_ms``,
               beside the card's name and power limit.
+
+11. serving -- the serving stack above the engine on phase 9's model and
+              tree (no new tree, no copy): two ``InferenceEngineV2``
+              replicas (max_seq_len 2048, 8 slots, block 128), each under a
+              ``ContinuousBatcher`` (prefill_chunk 256) on its own
+              ``Replica`` thread, behind one ``ReplicaRouter`` and one
+              ``ServingFrontend`` on 127.0.0.1 (an ephemeral port); every
+              request through ``GenerateClient`` over real sockets,
+              prompts of 300-1100 tokens (numpy seeds 11-14). (a) one unary
+              request alone (its first chunk takes D), then 5 unary
+              requests and 2 SSE streams at once (prompt chunks beside
+              decode atoms: B, C and A), 16 new tokens each: all complete,
+              each stream's tokens equal its end record's; (b) four
+              batch-tier streams (32 tokens), two on each replica, held
+              mid-decode (each replica's worker freezes at the step where
+              both its requests decode), then a latency-tier request and a
+              ``preempt_storm`` of two firings (the reference's slo-storm
+              lever: admission never lets block pressure pass the
+              watermark): at least one batch request paused (KV demoted
+              to the host tier), resumed and completed, the latency
+              request completed; (c) max_queue_depth 2: with the workers
+              frozen, the request over the queues gets 429 with a
+              Retry-After header, and one with a past-due deadline 504;
+              (d) with migration on a temporary shared directory, four
+              streams of 32 tokens held mid-decode as in (b) and four of
+              16 queued behind them, then SIGTERM through the router's
+              handler drains r0, as the reference's drain does: its two
+              in-flight requests complete on r0, its queued ones move to
+              r1 (one ``migrated`` event each, no failure) and complete
+              there, r0 ends drained and the injector holds no fault.
+              After each part: the socket refuses connections,
+              every thread the part started has ended (joins have time
+              limits), both pools are whole with nothing live or paused,
+              the shared namespace is empty. A, B, C and D must launch;
+              the first launch of each is replayed through its plain
+              version; every served token lies within ``SPEC_GAP_SD`` of
+              the teacher-forced argmax (the prompts put eight at a time,
+              then the served tokens fed one step at a time). Prints the
+              p50 and p90 of ``serving/ttft_ms`` and ``serving/tpot_ms``
+              from the registry, beside the card's name and power limit.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
@@ -3095,19 +3136,23 @@ def observability(torch, KERNELS, reset_counts, model, tree, greedy,
             cur.update({u: int(np.argmax(res[u])) for u in uids})
 
         if device == "cuda":
-            # the most of two traces each: a record the profiler drops can
-            # only lower a count
-            on = step_launches(torch, step)
-            obs_on = eng._obs
-            configure_tracing(enabled=False)
-            eng._obs = None
-            off = step_launches(torch, step)
-            configure_tracing(enabled=True, dump_dir=dumps)
-            eng._obs = obs_on
+            # three traces each, on and off in turn, read by their medians:
+            # the profiler has both dropped a record and added ten in one
+            # trace of a run (with the hooks on and with them off), which
+            # moves one count; a launch the hooks add moves every count of
+            # theirs
+            obs_on, on, off = eng._obs, [], []
+            for _ in range(3):
+                on += step_launches(torch, step, traces=1)
+                configure_tracing(enabled=False)
+                eng._obs = None
+                off += step_launches(torch, step, traces=1)
+                configure_tracing(enabled=True, dump_dir=dumps)
+                eng._obs = obs_on
             log(f"observability: device launches per decode step (4 "
                 f"sequences, put; profiler, as serve_profile counts) hooks "
                 f"on {on}, off {off}")
-            if max(on) != max(off) or not max(on):
+            if sorted(on)[1] != sorted(off)[1] or not min(on):
                 raise AssertionError(f"observability: launches differ with "
                                      f"the hooks ({on} vs {off})")
         else:
@@ -3231,6 +3276,551 @@ def observability(torch, KERNELS, reset_counts, model, tree, greedy,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving -- the serving stack above the engine on llama3-8b
+# ---------------------------------------------------------------------------
+
+SERVING_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
+SERVING_MAX_SEQ = 2048         # max_seq_len of both replicas' engines
+SERVING_CHUNK = 256            # the batchers' prefill_chunk
+SERVING_PROMPTS = (300, 1100)  # prompt lengths are drawn from this range
+SERVING_NEW = 16               # new tokens of a request that is not held
+SERVING_HELD_NEW = 32          # (b)'s and (d)'s held requests: still
+                               # decoding when their replica freezes
+SERVING_JOIN_S = 300.0         # time limit of every join and wait
+SERVING_PAUSE_MB = 512.0       # pause store host budget: (b)'s KV to host
+
+
+class ServingReplay(FeatureReplay):
+    """Phase 11's :class:`Replay`: the first launch of A, B, C and D in the
+    replica threads' engine steps (stage ``serving``)."""
+
+    REQUIRED = {(k, "serving") for k in SERVING_KERNELS}
+
+
+def serving_prompts(V, n: int, seed: int) -> list:
+    """``n`` prompts (numpy seed ``seed``) of lengths in SERVING_PROMPTS."""
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVING_PROMPTS
+    return [rng.integers(1, V, int(t)).astype(np.int32)
+            for t in rng.integers(lo, hi + 1, n)]
+
+
+def wait_until(cond, what: str, timeout: float = None) -> None:
+    deadline = time.monotonic() + (SERVING_JOIN_S if timeout is None
+                                   else timeout)
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"serving: timed out waiting for {what}")
+
+
+def join_all(threads, what: str) -> None:
+    for t in threads:
+        t.join(timeout=SERVING_JOIN_S)
+    hung = [t.name for t in threads if t.is_alive()]
+    if hung:
+        raise AssertionError(f"serving: {what}: threads hung {hung}")
+
+
+def freeze_when_decoding(rep, n: int) -> None:
+    """Freeze ``rep``'s worker (its commands still run) right after the
+    engine step at which it holds ``n`` requests that all decode, so that
+    a part's next move finds them mid-decode whatever the timing."""
+    from deepspeed_tpu_torch.serving.request import DECODING
+
+    b = rep.batcher
+    step = b.step
+
+    def stepped():
+        ran = step()
+        live = list(b.manager.active.values())
+        if len(live) == n and all(r.state == DECODING for r in live):
+            rep.paused = True
+            del b.step
+        return ran
+
+    b.step = stepped
+
+
+def hold_decoding(reps, sse, prompts, keys, **kw) -> list:
+    """SSE streams ``keys`` (SERVING_HELD_NEW tokens each) started with the
+    replicas frozen, one at a time so that the router spreads them evenly;
+    then each replica steps until all its requests decode and freezes
+    again. Returns the requests each replica holds."""
+    for r in reps:
+        r.paused = True
+    queued = sum(r.stats["queue_depth"] for r in reps)
+    for i, (k, p) in enumerate(zip(keys, prompts)):
+        sse.start(k, p, max_new_tokens=SERVING_HELD_NEW, **kw)
+        wait_until(lambda: sum(r.stats["queue_depth"] for r in reps)
+                   == queued + i + 1, f"{k} to be routed")
+    for r in reps:
+        freeze_when_decoding(r, len(keys) // len(reps))
+        r.paused = False
+    wait_until(lambda: all(r.paused for r in reps),
+               f"{keys} to decode and their replicas to freeze")
+    return [r.report()["active_requests"] for r in reps]
+
+
+def serving_stack(engines, registry, **serving):
+    """Two replicas (one batcher each, over ``engines``) behind one router
+    and one front-end on 127.0.0.1 (an ephemeral port)."""
+    from deepspeed_tpu_torch.config import (FrontendConfig, RouterConfig,
+                                            ServingConfig)
+    from deepspeed_tpu_torch.serving import (ContinuousBatcher, Replica,
+                                             ReplicaRouter, ServingFrontend)
+
+    cfg = ServingConfig(**{"prefill_chunk": SERVING_CHUNK,
+                           "default_max_new_tokens": SERVING_NEW,
+                           **serving})
+    reps = [Replica(f"r{i}", ContinuousBatcher(e, cfg, registry=registry))
+            for i, e in enumerate(engines)]
+    router = ReplicaRouter(reps, RouterConfig()).start()
+    fe = ServingFrontend(router, FrontendConfig(), registry=registry).start()
+    return reps, router, fe
+
+
+def close_stack(tag, engines, reps, router, fe, threads_before,
+                shared=None) -> None:
+    """Tear a part's stack down and check it left nothing: the socket
+    refuses connections, every thread the part started has ended, each
+    pool is whole with no live or paused sequence, and the shared
+    migration namespace (if any) is empty."""
+    import socket
+    import threading
+
+    host, port = fe.server.host, fe.server.port
+    fe.close()
+    router.close()
+    for r in reps:
+        if r.alive:
+            raise AssertionError(f"serving ({tag}): replica {r.name}'s "
+                                 f"worker did not join")
+    wait_until(lambda: not [t for t in threading.enumerate()
+                            if t not in threads_before and t.is_alive()],
+               f"({tag}) the part's threads to end", timeout=30.0)
+    try:
+        socket.create_connection((host, port), timeout=5).close()
+        raise AssertionError(f"serving ({tag}): {host}:{port} still "
+                             f"accepts connections")
+    except OSError:
+        pass
+    for i, eng in enumerate(engines):
+        alloc = eng.state.allocator
+        if alloc.free_blocks != alloc.num_blocks or eng.state.sequences \
+                or eng._paused:
+            raise AssertionError(
+                f"serving ({tag}): engine {i} leaked: {alloc.free_blocks} "
+                f"of {alloc.num_blocks} blocks free, live "
+                f"{sorted(eng.state.sequences)}, paused "
+                f"{sorted(eng._paused)}")
+        eng.close()          # tier stores: the next part makes its own
+    if shared is not None:
+        left = [f for _, _, fs in os.walk(shared) for f in fs]
+        if left:
+            raise AssertionError(f"serving ({tag}): shared namespace "
+                                 f"holds {left}")
+    log(f"serving ({tag}): torn down; socket closed, threads joined, "
+        f"pools whole on both engines")
+
+
+class StreamCollector:
+    """SSE streams on client threads; each stream's events land in
+    ``events[i]`` as they arrive."""
+
+    def __init__(self, url):
+        self.url = url
+        self.events = {}
+        self.errors = {}
+        self.threads = []
+
+    def start(self, i, prompt, **kw):
+        import threading
+
+        from deepspeed_tpu_torch.serving import FrontendError, GenerateClient
+
+        self.events[i] = []
+
+        def run():
+            try:
+                for ev in GenerateClient(self.url,
+                                         timeout_s=SERVING_JOIN_S).stream(
+                        [int(t) for t in prompt], **kw):
+                    self.events[i].append(ev)
+            except FrontendError as e:
+                self.errors[i] = e
+
+        t = threading.Thread(target=run, name=f"sse-{i}", daemon=True)
+        t.start()
+        self.threads.append(t)
+
+    def tokens(self, i) -> list:
+        return [e["data"]["token"] for e in self.events[i]
+                if e["event"] == "token"]
+
+    def end(self, i) -> dict:
+        ends = [e["data"] for e in self.events[i] if e["event"] == "end"]
+        if len(ends) != 1:
+            raise AssertionError(f"serving: stream {i} has {len(ends)} end "
+                                 f"records")
+        return ends[0]
+
+
+def unary_all(url, jobs, results, errors):
+    """Unary requests on client threads: ``jobs`` = {key: (prompt, kw)}."""
+    import threading
+
+    from deepspeed_tpu_torch.serving import FrontendError, GenerateClient
+
+    def run(key, prompt, kw):
+        try:
+            results[key] = GenerateClient(url, timeout_s=SERVING_JOIN_S
+                                          ).generate([int(t) for t in prompt],
+                                                     **kw)
+        except FrontendError as e:
+            errors[key] = e
+
+    threads = [threading.Thread(target=run, args=(k, p, kw), daemon=True,
+                                name=f"unary-{k}")
+               for k, (p, kw) in jobs.items()]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def teacher_forced_gaps(eng, served) -> dict:
+    """For each served (prompt, tokens): how far each token lies below the
+    argmax of the teacher-forced logits before it (:func:`sd_gap`), the
+    prompts put eight at a time and then their served tokens one step at a
+    time. Returns the largest gap per key."""
+    keys = list(served)
+    worst = {}
+    for lo in range(0, len(keys), 8):
+        group = keys[lo:lo + 8]
+        uids = list(range(700, 700 + len(group)))
+        out = eng.put(uids, [served[k][0] for k in group])
+        toks = [served[k][1] for k in group]
+        gaps = {k: [sd_gap(out[u], t[0])] for k, u, t in zip(group, uids,
+                                                             toks)}
+        for step in range(1, max(len(t) for t in toks)):
+            live = [(k, u, t) for k, u, t in zip(group, uids, toks)
+                    if step < len(t)]
+            out = eng.put([u for _, u, _ in live],
+                          [np.asarray([t[step - 1]], np.int32)
+                           for _, _, t in live])
+            for k, u, t in live:
+                gaps[k].append(sd_gap(out[u], t[step]))
+        eng.flush(uids)
+        worst.update({k: max(g) for k, g in gaps.items()})
+    return worst
+
+
+def serving(torch, pa, fa, KERNELS, reset_counts, model, tree,
+            device="cuda"):
+    """Phase 11 on phase 9's model and tree (no new tree, no copy): two
+    ``InferenceEngineV2`` replicas (max_seq_len 2048, 8 slots, block 128,
+    each batcher's prefill_chunk 256) behind one ``ReplicaRouter`` and one
+    ``ServingFrontend``; traffic through ``GenerateClient`` over real
+    sockets. (a) tokens over HTTP, (b) SLO preemption, (c) overload, (d) a
+    SIGTERM drain whose in-flight requests finish on the draining replica
+    and whose queued ones move to the other; after each part, no leaked
+    block, thread or socket. Gates: see the module docstring.
+    Returns the phase's launches per kernel."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import (MetricsRegistry,
+                                                   ServingMetrics)
+    from deepspeed_tpu_torch.resilience import (FaultInjector, get_injector,
+                                                set_injector)
+    from deepspeed_tpu_torch.serving import FrontendError, GenerateClient
+
+    V = model.cfg.vocab_size
+    card = card_line() if device == "cuda" else device
+    tmp = tempfile.mkdtemp(prefix="dstpu_serving_")
+    reg = MetricsRegistry()
+    spans = ServingMetrics(reg)  # the batchers' ttft / tpot histograms
+    served = {}                  # key -> (prompt, served tokens)
+
+    def engine(tag):
+        eng = InferenceEngineV2(model, tree, max_sequences=8,
+                                max_seq_len=SERVING_MAX_SEQ, block_size=128,
+                                device=device)
+        owns_no_copy(tree, eng.params, tag)
+        return eng
+
+    def latency_line():
+        return "; ".join(
+            f"{n}_ms p50 {h.percentile(50):.3f} p90 {h.percentile(90):.3f} "
+            f"({h.count} samples)"
+            for n, h in (("ttft", spans.ttft_ms), ("tpot", spans.tpot_ms)))
+
+    try:
+        free_card(torch, device)
+        engines = [engine("r0"), engine("r1")]
+        reset_counts()
+        replay = ServingReplay(torch, pa, fa)
+        with replay:
+            replay.stage = "serving"
+            # ---- (a) tokens over HTTP: one request alone, then a wave
+            before = set(threading.enumerate())
+            reps, router, fe = serving_stack(engines, reg)
+            prompts = serving_prompts(V, 8, seed=11)
+            d0 = KERNELS["flash_fwd"].launches
+            cli = GenerateClient(fe.url, timeout_s=SERVING_JOIN_S)
+            out = cli.generate([int(t) for t in prompts[0]],
+                               max_new_tokens=SERVING_NEW)
+            d_alone = KERNELS["flash_fwd"].launches - d0
+            if out["state"] != "completed" \
+                    or len(out["tokens"]) != SERVING_NEW:
+                raise AssertionError(f"serving (a): lone request {out}")
+            served["a0"] = (prompts[0], out["tokens"])
+            log(f"serving (a): a lone {len(prompts[0])}-token prompt "
+                f"served {SERVING_NEW} tokens over HTTP (kernel D launches "
+                f"{d_alone}, ttft {out['span']['ttft_ms']} ms)")
+            if device == "cuda" and d_alone == 0:
+                raise AssertionError("serving (a): the lone request's first "
+                                     "chunk did not take kernel D")
+            results, errors = {}, {}
+            sse = StreamCollector(fe.url)
+            threads = unary_all(fe.url, {
+                f"a{i}": (prompts[i], dict(max_new_tokens=SERVING_NEW))
+                for i in range(1, 6)}, results, errors)
+            for i in (6, 7):
+                sse.start(f"a{i}", prompts[i], max_new_tokens=SERVING_NEW)
+            join_all(threads + sse.threads, "(a)'s clients")
+            if errors or sse.errors:
+                raise AssertionError(f"serving (a): refused {errors} "
+                                     f"{sse.errors}")
+            for k, r in results.items():
+                if r["state"] != "completed" \
+                        or len(r["tokens"]) != SERVING_NEW:
+                    raise AssertionError(f"serving (a): {k} {r}")
+                served[k] = (prompts[int(k[1:])], r["tokens"])
+            for k in ("a6", "a7"):
+                end = sse.end(k)
+                if end["state"] != "completed" \
+                        or end["tokens"] != sse.tokens(k) \
+                        or len(end["tokens"]) != SERVING_NEW:
+                    raise AssertionError(f"serving (a): stream {k}: tokens "
+                                         f"{sse.tokens(k)} end {end}")
+                served[k] = (prompts[int(k[1:])], end["tokens"])
+            log(f"serving (a): 5 unary requests and 2 SSE streams at once, "
+                f"all completed with {SERVING_NEW} tokens; SSE tokens equal "
+                f"their end records'; router {router.counters['routed']} "
+                f"routed")
+            log(f"serving (a) latency [{card}]: {latency_line()}")
+            close_stack("a", engines, reps, router, fe, before)
+
+            # ---- (b) SLO preemption: batch-tier work, a latency request
+            before = set(threading.enumerate())
+            reps, router, fe = serving_stack(
+                engines, reg, slo={"enabled": True, "preempt": True,
+                                   "pause_host_mb": SERVING_PAUSE_MB})
+            prompts = serving_prompts(V, 5, seed=12)
+            sse = StreamCollector(fe.url)
+            # batch work decoding on both replicas; then, with the workers
+            # frozen (commands still run), a latency-tier request and a
+            # preempt_storm of one firing per replica, as the reference's
+            # slo-storm drill does: admission keeps live blocks under the
+            # watermark, so block pressure alone never pauses anyone. A
+            # replica's next step pauses a victim (batch before latency),
+            # which must resume and complete
+            held = hold_decoding(reps, sse, prompts,
+                                 [f"b{i}" for i in range(4)], tier="batch")
+            if held != [2, 2]:
+                raise AssertionError(f"serving (b): batch requests per "
+                                     f"replica {held} (want 2 each, "
+                                     f"decoding)")
+            results, errors = {}, {}
+            threads = unary_all(fe.url, {"b4": (prompts[4], dict(
+                max_new_tokens=SERVING_NEW, tier="latency"))}, results,
+                errors)
+            wait_until(lambda: sum(r.stats["queue_depth"] for r in reps)
+                       >= 1, "(b)'s latency request to queue")
+            set_injector(FaultInjector([{"kind": "preempt_storm",
+                                         "times": 2}]))
+            for r in reps:
+                r.paused = False
+            join_all(threads + sse.threads, "(b)'s clients")
+            fired = list(get_injector().fired)
+            set_injector(None)
+            counters = [r.report()["counters"] for r in reps]
+            paused = sum(c["paused"] for c in counters)
+            resumed = sum(c["resumed"] for c in counters)
+            host = sum((e.tier_report() or {}).get("host_demotions", 0)
+                       for e in engines)
+            if errors or sse.errors or "b4" not in results \
+                    or results["b4"]["state"] != "completed":
+                raise AssertionError(f"serving (b): latency request "
+                                     f"{results} {errors} {sse.errors}")
+            victims = []
+            for i in range(4):
+                end = sse.end(f"b{i}")
+                if end["state"] != "completed" \
+                        or len(end["tokens"]) != SERVING_HELD_NEW \
+                        or end["tokens"] != sse.tokens(f"b{i}"):
+                    raise AssertionError(f"serving (b): b{i} {end}")
+                if end["span"]["pauses"]:
+                    victims.append(f"b{i}")
+                served[f"b{i}"] = (prompts[i], end["tokens"])
+            served["b4"] = (prompts[4], results["b4"]["tokens"])
+            log(f"serving (b): preempt storm fired {fired}; paused "
+                f"{paused}, resumed {resumed} (victims {victims}, "
+                f"{host} blocks demoted to host); the latency request "
+                f"completed with {len(results['b4']['tokens'])} tokens")
+            if not (paused >= 1 and resumed == paused and victims
+                    and host >= 1):
+                raise AssertionError(f"serving (b): no pause -> resume -> "
+                                     f"complete ({counters})")
+            close_stack("b", engines, reps, router, fe, before)
+
+            # ---- (c) overload: 429 with Retry-After, and 504
+            before = set(threading.enumerate())
+            reps, router, fe = serving_stack(engines, reg, max_queue_depth=2)
+            prompts = serving_prompts(V, 6, seed=13)
+            for r in reps:
+                r.paused = True
+            results, errors = {}, {}
+            threads = unary_all(fe.url, {
+                f"c{i}": (prompts[i], dict(max_new_tokens=2))
+                for i in range(4)}, results, errors)
+            wait_until(lambda: sum(r.stats["queue_depth"] for r in reps) >= 4,
+                       "(c)'s queues to fill")
+            try:
+                GenerateClient(fe.url, timeout_s=SERVING_JOIN_S).generate(
+                    [int(t) for t in prompts[4]], max_new_tokens=2)
+                raise AssertionError("serving (c): a request over the "
+                                     "queues' depth was admitted")
+            except FrontendError as e:
+                over = e
+            for r in reps:
+                r.paused = False
+            join_all(threads, "(c)'s queued clients")
+            try:
+                GenerateClient(fe.url, timeout_s=SERVING_JOIN_S).generate(
+                    [int(t) for t in prompts[5]], max_new_tokens=2,
+                    deadline_s=0.001)
+                raise AssertionError("serving (c): a past-due request "
+                                     "was served")
+            except FrontendError as e:
+                late = e
+            log(f"serving (c): over the queues' depth HTTP {over.status} "
+                f"Retry-After {over.retry_after_s} s "
+                f"({over.body['error']['reason']}); past-due deadline HTTP "
+                f"{late.status}; the {len(results)} queued requests "
+                f"completed")
+            if over.status != 429 or over.retry_after_s is None \
+                    or late.status != 504 or errors \
+                    or any(r["state"] != "completed"
+                           for r in results.values()):
+                raise AssertionError("serving (c): overload mapping")
+            close_stack("c", engines, reps, router, fe, before)
+
+            # ---- (d) SIGTERM drain of r0 holding requests mid-decode and
+            # queued ones: the in-flight finish on r0, the queued move to
+            # r1 (the reference's drain), and with migration on nothing is
+            # exported to the shared namespace
+            before = set(threading.enumerate())
+            shared = os.path.join(tmp, "shared")
+            reps, router, fe = serving_stack(
+                engines, reg,
+                migration={"enabled": True, "shared_nvme_path": shared})
+            prompts = serving_prompts(V, 8, seed=14)
+            sse = StreamCollector(fe.url)
+            held = hold_decoding(reps, sse, prompts[:4],
+                                 [f"d{i}" for i in range(4)])
+            if held != [2, 2]:
+                raise AssertionError(f"serving (d): requests decoding per "
+                                     f"replica {held} (want 2 each)")
+            for i in range(4, 8):   # queued behind them, two per replica
+                sse.start(f"d{i}", prompts[i], max_new_tokens=SERVING_NEW)
+                wait_until(lambda: sum(r.stats["queue_depth"] for r in reps)
+                           == i - 3, f"(d)'s request d{i} to queue")
+            queued_r0 = reps[0].stats["queue_depth"]
+            router.install_signal_handlers(drain="r0")
+            try:
+                os.kill(os.getpid(), signal.SIGTERM)
+                wait_until(lambda: router.counters["migrated"]
+                           + router.counters["migration_failed"]
+                           >= queued_r0, "(d)'s drain to re-home r0's queue")
+            finally:
+                router.restore_signal_handlers()
+            for r in reps:
+                r.paused = False
+            join_all(sse.threads, "(d)'s streams")
+            wait_until(lambda: reps[0].stats["drained"], "r0 to drain")
+            inj = get_injector()
+            where = {}
+            for i in range(8):
+                k = f"d{i}"
+                end = sse.end(k)
+                want = SERVING_HELD_NEW if i < 4 else SERVING_NEW
+                if end["state"] != "completed" \
+                        or len(end["tokens"]) != want \
+                        or end["tokens"] != sse.tokens(k):
+                    raise AssertionError(f"serving (d): {k} {end}")
+                moves = [(e["data"]["from"], e["data"]["to"])
+                         for e in sse.events[k] if e["event"] == "migrated"]
+                on = {e["data"]["replica"] for e in sse.events[k]
+                      if e["event"] == "token"}
+                where[k] = ("".join(sorted(on)), moves)
+                served[k] = (prompts[i], end["tokens"])
+            inflight_r0 = [f"d{i}" for i in range(4)
+                           if where[f"d{i}"] == ("r0", [])]
+            moved = [f"d{i}" for i in range(4, 8)
+                     if where[f"d{i}"] == ("r1", [("r0", "r1")])]
+            rc = dict(router.counters)
+            log(f"serving (d): SIGTERM drained r0 holding {inflight_r0} "
+                f"mid-decode and {queued_r0} queued; the in-flight "
+                f"completed on r0, {moved} moved to r1 and completed; "
+                f"router migrated {rc['migrated']}, failed "
+                f"{rc['migration_failed']}; injector faults "
+                f"{len(inj.faults)}, fired {inj.fired}")
+            stayed = [k for k, (on, mv) in where.items()
+                      if len(on) == 2 and not mv]
+            if len(inflight_r0) != 2 or queued_r0 < 1 \
+                    or len(moved) != queued_r0 \
+                    or len(stayed) != 8 - queued_r0 \
+                    or rc["migrated"] != queued_r0 \
+                    or rc["migration_failed"] or inj.faults or inj.fired:
+                raise AssertionError(f"serving (d): drain {where} {rc}")
+            close_stack("d", engines, reps, router, fe, before, shared)
+            replay.stage = None
+        counts = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        missing = [k for k in SERVING_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"serving: kernels never launched {missing}"
+                                 f" (counts {counts})")
+        errs = replay.check()
+        log(f"serving: launches {counts}; captured launches replayed vs "
+            f"plain, max abs err {errs}")
+        log(f"serving latency, all parts [{card}]: {latency_line()}")
+        gaps = teacher_forced_gaps(engines[0], served)
+        w = max(gaps, key=gaps.get)
+        log(f"serving: {sum(len(t) for _, t in served.values())} served "
+            f"tokens of {len(served)} requests against teacher-forced "
+            f"logits: largest gap below the argmax {gaps[w]:.3e} sd ({w}; "
+            f"gate {SPEC_GAP_SD})")
+        if gaps[w] > SPEC_GAP_SD:
+            raise AssertionError(f"serving: served tokens off the "
+                                 f"teacher-forced argmax {gaps}")
+        for eng in engines:
+            eng.close()
+        del engines
+    finally:
+        set_injector(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch, device)
+    log(f"serving [{card}]: done")
+    return counts
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3287,6 +3877,8 @@ def main() -> int:
     feat, kept = serve_features(torch, pa, fa, _build.KERNELS,
                                 _build.reset_counts, fingerprint=served_tree)
     obs = observability(torch, _build.KERNELS, _build.reset_counts, **kept)
+    srv = serving(torch, pa, fa, _build.KERNELS, _build.reset_counts,
+                  kept["model"], kept["tree"])
     del kept
 
     def entry(r):
@@ -3324,7 +3916,8 @@ def main() -> int:
                                              ("serve_dense", dense),
                                              ("head_dims", head),
                                              ("serve_features", feat),
-                                             ("observability", obs))
+                                             ("observability", obs),
+                                             ("serving", srv))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

@@ -2,5 +2,6 @@
 (counterpart of ``deepspeed_tpu/config``)."""
 
 from deepspeed_tpu_torch.config.config import (  # noqa: F401
-    DeepSpeedTpuConfig, KVTierConfig, ObservabilityConfig, PrefixCacheConfig,
-    ProfileTriggerConfig, SpeculativeConfig, TracingConfig, from_config)
+    DeepSpeedTpuConfig, FrontendConfig, KVTierConfig, MigrationConfig,
+    ObservabilityConfig, PrefixCacheConfig, ProfileTriggerConfig, RouterConfig,
+    ServingConfig, SLOConfig, SpeculativeConfig, TracingConfig, from_config)

@@ -6,8 +6,9 @@ single-device training engine reads are ported: the batch triple,
 ``optimizer``, ``scheduler``, ``fp16`` / ``bf16``, ``gradient_clipping``,
 ``steps_per_print``, ``seed``, ``zero_optimization.stage`` (0-3 compute the
 same thing on one device, as the reference does on a one-device mesh),
-``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``
-and ``wall_clock_breakdown``. Keys are checked:
+``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
+``wall_clock_breakdown`` and the serving layer's ``serving`` (less its
+``fleet``). Keys are checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
 the reference that this port does not implement raises
 ``NotImplementedError`` naming it -- nothing is silently ignored.
@@ -47,6 +48,16 @@ def _check_type(path: str, default, value) -> None:
                          f"{value!r}")
 
 
+def _asks_nothing(val, ref_default) -> bool:
+    """True when an unported key's value equals the reference's default."""
+    if ref_default is _SECTION:
+        return False
+    if isinstance(ref_default, dict) and isinstance(val, dict):
+        return all(k in ref_default and v == ref_default[k]
+                   for k, v in val.items())
+    return val == ref_default
+
+
 class _Section:
     """Base of the config sections: :meth:`build` checks every key."""
 
@@ -54,8 +65,11 @@ class _Section:
     NESTED: Dict[str, type] = {}
     #: keys of the reference this port does not implement: key -> the
     #: reference's default (a value equal to it asks for nothing and passes;
-    #: ``_SECTION`` raises on any value)
+    #: ``_SECTION`` raises on any value; a dict of defaults passes a dict
+    #: whose every key holds its default)
     UNPORTED: Dict[str, Any] = {}
+    #: unported key -> the title of the ROADMAP section 1 item that ports it
+    UNPORTED_ITEM: Dict[str, str] = {}
 
     @classmethod
     def build(cls, values, path: str):
@@ -69,11 +83,13 @@ class _Section:
         for key, val in values.items():
             where = f"{path}.{key}" if path else key
             if key in cls.UNPORTED:
-                ref_default = cls.UNPORTED[key]
-                if ref_default is _SECTION or val != ref_default:
+                if not _asks_nothing(val, cls.UNPORTED[key]):
+                    item = cls.UNPORTED_ITEM.get(key)
                     raise NotImplementedError(
                         f"config {where!r} is not ported to the PyTorch "
-                        "engine yet (single device, training slice)")
+                        "engine yet " + (f'(ROADMAP section 1, "{item}")'
+                                         if item else
+                                         "(single device, training slice)"))
                 continue
             if key not in fields:
                 raise _unknown(path or "config", key,
@@ -372,6 +388,209 @@ class ObservabilityConfig(_Section):
     NESTED = {"profile": ProfileTriggerConfig, "tracing": TracingConfig}
 
 
+#: the reference's ``serving.fleet`` defaults (its :707): a fleet section
+#: that asks for nothing else passes; the elastic fleet is not ported
+_FLEET_DEFAULTS = {
+    "enabled": False, "min_replicas": 1, "max_replicas": 4,
+    "heartbeat_timeout_s": 10.0, "probe_timeout_s": 120.0,
+    "probe_max_new_tokens": 2, "respawn_backoff_s": 0.5, "max_respawns": 3,
+    "scale_up_queue_per_replica": 4.0, "scale_up_retry_after_s": 2.0,
+    "scale_up_polls": 2, "scale_down_idle_polls": 6, "min_ready_floor": 1,
+}
+
+_SLO_TIERS = ("latency", "throughput", "batch")
+
+
+@dataclasses.dataclass
+class FrontendConfig(_Checked):
+    """``serving.frontend`` (the reference's :632): the stdlib-HTTP
+    front-end -- ``POST /v1/generate`` (JSON, or SSE when streaming) on the
+    same mux as ``/metrics`` / ``/healthz`` / ``/readyz``. Retryable sheds
+    map to 429 + ``Retry-After``, terminal refusals to 413, deadline expiry
+    to 504."""
+
+    enabled: bool = False
+    host: str = "127.0.0.1"
+    port: int = 0                     # 0 = ephemeral
+    # x-api-key header value -> admission priority (higher = shed later)
+    api_keys: Dict[str, int] = dataclasses.field(default_factory=dict)
+    require_api_key: bool = False     # 401 requests without a known key
+    allow_priority_header: bool = True  # honor x-priority / body "priority"
+    # bounds of the x-priority / body override: it never outranks the
+    # api_keys tenants, nor mints unbounded per-priority metric labels
+    max_header_priority: int = 0
+    min_header_priority: int = -1
+    default_priority: int = 0
+    max_prompt_tokens: int = 8192     # 413 above this, before the queue
+    request_timeout_s: float = 120.0  # unary wait cap when no deadline given
+    max_body_bytes: int = 8 << 20
+
+    def validate(self, path: str) -> None:
+        if self.min_header_priority > self.max_header_priority:
+            raise ValueError("serving.frontend: min_header_priority must "
+                             "be <= max_header_priority")
+        if self.max_prompt_tokens < 1 or self.max_body_bytes < 1 \
+                or self.request_timeout_s <= 0:
+            raise ValueError("serving.frontend: max_prompt_tokens, "
+                             "max_body_bytes, request_timeout_s must be "
+                             "positive")
+
+
+@dataclasses.dataclass
+class RouterConfig(_Checked):
+    """``serving.router`` (the reference's :674): least-loaded routing over
+    replicas, retryable sheds failed over to siblings before a 429,
+    DRAINING replicas routed away, and drain-time migration."""
+
+    enabled: bool = False
+    failover_attempts: int = 0        # replicas tried per submit (0 = all)
+    migrate_on_drain: bool = True
+    idle_sleep_s: float = 0.002       # replica worker park time when idle
+    submit_timeout_s: float = 30.0    # cross-thread submit handshake cap
+    max_route_history: int = 65536    # terminal routes kept for resolve()
+
+    def validate(self, path: str) -> None:
+        if self.failover_attempts < 0:
+            raise ValueError("serving.router.failover_attempts must be >= 0")
+        if self.idle_sleep_s <= 0 or self.submit_timeout_s <= 0:
+            raise ValueError("serving.router: idle_sleep_s and "
+                             "submit_timeout_s must be > 0")
+        if self.max_route_history < 1:
+            raise ValueError("serving.router.max_route_history must be "
+                             ">= 1")
+
+
+@dataclasses.dataclass
+class SLOConfig(_Checked):
+    """``serving.slo`` (the reference's :770): SLO tiers (``latency``,
+    ``throughput``, ``batch``) with per-tier admission budgets (a tier over
+    budget waits, never sheds) and preemption: under KV pressure victims
+    are paused -- their KV demoted through the tier store -- and resume
+    later with the same greedy tokens. Victims: batch first, deadline-free
+    first, most remaining work first; never paused twice before they
+    advance."""
+
+    enabled: bool = False
+    default_tier: str = "throughput"
+    # fractions of the batcher's KV admission budget per tier
+    budgets: Dict[str, float] = dataclasses.field(default_factory=lambda: {
+        "latency": 1.0, "throughput": 1.0, "batch": 1.0})
+    preempt: bool = True              # pause victims instead of shedding
+    max_pauses: int = 4               # pause cycles before a shed
+    resume_max_per_step: int = 1
+    pause_host_mb: float = 64.0       # host budget of the pause store
+    # Retry-After multiplier per tier (batch backs off hardest)
+    retry_after_factor: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"latency": 1.0, "throughput": 1.0,
+                                 "batch": 4.0})
+
+    def validate(self, path: str) -> None:
+        if self.default_tier not in _SLO_TIERS:
+            raise ValueError(f"serving.slo.default_tier must be one of "
+                             f"{list(_SLO_TIERS)}")
+        for name, table in (("budgets", self.budgets),
+                            ("retry_after_factor", self.retry_after_factor)):
+            unknown = set(table) - set(_SLO_TIERS)
+            if unknown:
+                raise ValueError(f"serving.slo.{name}: unknown tiers "
+                                 f"{sorted(unknown)}")
+        if any(not (0.0 < v <= 1.0) for v in self.budgets.values()):
+            raise ValueError("serving.slo.budgets values must be in (0, 1]")
+        if any(v <= 0 for v in self.retry_after_factor.values()):
+            raise ValueError(
+                "serving.slo.retry_after_factor values must be > 0")
+        if self.max_pauses < 0 or self.resume_max_per_step < 1:
+            raise ValueError("serving.slo: max_pauses must be >= 0 and "
+                             "resume_max_per_step >= 1")
+        if self.pause_host_mb <= 0:
+            raise ValueError("serving.slo.pause_host_mb must be > 0")
+
+
+@dataclasses.dataclass
+class MigrationConfig(_Checked):
+    """``serving.migration`` (the reference's :834): every pause also
+    exports a durable copy of the victim's KV onto a shared NVMe namespace
+    (``<shared_nvme_path>/kv``) with an atomic resume manifest
+    (``<shared_nvme_path>/manifests``), so a sibling replica can adopt it
+    after a crash, a drain or a rebalance. The ladder is resume, then
+    re-prefill from token history, then a retryable shed; adopted KV is
+    never zero-filled."""
+
+    enabled: bool = False
+    shared_nvme_path: str = ""        # REQUIRED when enabled
+    manifest_ttl_s: float = 0.0       # 0 = never expire
+
+    def validate(self, path: str) -> None:
+        if self.enabled and not self.shared_nvme_path:
+            raise ValueError("serving.migration.enabled requires "
+                             "shared_nvme_path (a directory every replica "
+                             "can reach)")
+        if self.manifest_ttl_s < 0:
+            raise ValueError("serving.migration.manifest_ttl_s must be "
+                             ">= 0 (0 = never expire)")
+
+
+@dataclasses.dataclass
+class ServingConfig(_Checked):
+    """``serving`` (the reference's :870): the request-lifecycle layer above
+    ``InferenceEngineV2`` -- bounded admission on projected worst-case KV
+    demand (prompt + max_new_tokens) under ``kv_high_watermark``,
+    deadlines, watermark shedding down to ``kv_low_watermark``, DEGRADED
+    capacity (``degraded_capacity_factor``) and SIGTERM drain. The elastic
+    ``fleet`` section is not ported: a fleet section asking for anything
+    but its defaults raises."""
+
+    enabled: bool = False
+    max_queue_depth: int = 64
+    # queued requests above this are shed (None = max_queue_depth)
+    queue_high_watermark: Optional[int] = None
+    max_active_requests: Optional[int] = None  # None = engine max_sequences
+    default_max_new_tokens: int = 128
+    default_deadline_s: Optional[float] = None   # None = no deadline
+    retry_after_s: float = 1.0        # backoff hint carried by ShedError
+    prefill_chunk: int = 256          # prompt tokens fed per serving step
+    eos_token_id: Optional[int] = None
+    kv_high_watermark: float = 0.90
+    kv_low_watermark: float = 0.75
+    failure_window: int = 32          # sliding step-outcome window length
+    degrade_failure_ratio: float = 0.25   # enter DEGRADED at this ratio
+    degraded_capacity_factor: float = 0.5
+    drain_timeout_s: float = 30.0
+    monitor_interval: int = 10        # serving steps between monitor writes
+    # per-request spans -> serving/ttft_ms, tpot_ms, queue_wait_ms, e2e_ms
+    # (lifecycle counters record either way)
+    trace_requests: bool = True
+    max_done_history: int = 65536     # terminal ledger bound
+    frontend: FrontendConfig = dataclasses.field(
+        default_factory=FrontendConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    migration: MigrationConfig = dataclasses.field(
+        default_factory=MigrationConfig)
+
+    NESTED = {"frontend": FrontendConfig, "router": RouterConfig,
+              "slo": SLOConfig, "migration": MigrationConfig}
+    UNPORTED = {"fleet": _FLEET_DEFAULTS}
+    UNPORTED_ITEM = {"fleet": "The serving layer above the engine"}
+
+    def validate(self, path: str) -> None:
+        if not (0.0 < self.kv_low_watermark <= self.kv_high_watermark
+                <= 1.0):
+            raise ValueError("serving: need 0 < kv_low_watermark <= "
+                             "kv_high_watermark <= 1")
+        if not (0.0 < self.degraded_capacity_factor <= 1.0):
+            raise ValueError("serving.degraded_capacity_factor must be in "
+                             "(0, 1]")
+        if not (0.0 < self.degrade_failure_ratio <= 1.0):
+            raise ValueError("serving.degrade_failure_ratio must be in "
+                             "(0, 1]")
+        if self.prefill_chunk < 1 or self.max_queue_depth < 1:
+            raise ValueError("serving: prefill_chunk and max_queue_depth "
+                             "must be >= 1")
+        if self.max_done_history < 1:
+            raise ValueError("serving.max_done_history must be >= 1")
+
+
 @dataclasses.dataclass
 class DeepSpeedTpuConfig(_Section):
     """The root config. Build it with :func:`from_config`."""
@@ -393,19 +612,21 @@ class DeepSpeedTpuConfig(_Section):
     observability: ObservabilityConfig = dataclasses.field(
         default_factory=ObservabilityConfig)
     wall_clock_breakdown: bool = False
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
               "zero_optimization": ZeroConfig, "mesh": MeshConfig,
               "activation_checkpointing": ActivationCheckpointingConfig,
-              "observability": ObservabilityConfig}
+              "observability": ObservabilityConfig,
+              "serving": ServingConfig}
     UNPORTED = {
         **{k: _SECTION for k in (
             "moe", "pipeline", "resilience", "offload",
             "comms_logger", "monitor_config", "tensorboard", "csv_monitor",
             "wandb", "flops_profiler", "data_types", "compression",
             "checkpoint", "sequence_parallel", "elasticity", "autotuning",
-            "serving", "inference", "data_efficiency", "hybrid_engine",
+            "inference", "data_efficiency", "hybrid_engine",
             "progressive_layer_drop")},
         "sanity_checks": False, "sanity_check_batches": True,
         "prescale_gradients": False,

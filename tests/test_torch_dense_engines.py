@@ -32,6 +32,7 @@ from deepspeed_tpu.models import get_preset as jax_preset
 from deepspeed_tpu_torch.bridge import params_from_numpy
 from deepspeed_tpu_torch.inference import InferenceEngineV2
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 ENGINE_KW = dict(max_sequences=4, max_seq_len=64, block_size=8)

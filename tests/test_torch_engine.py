@@ -27,6 +27,7 @@ from deepspeed_tpu.models import get_preset as jax_preset
 from deepspeed_tpu_torch.bridge import params_from_numpy
 from deepspeed_tpu_torch.inference import CapacityError, InferenceEngineV2
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 MARGIN = 1e-3

@@ -38,19 +38,10 @@ from deepspeed_tpu_torch.inference.engine import sample_token
 from deepspeed_tpu_torch.inference.kv_tier import (claim_manifest,
                                                    load_manifest)
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(max_sequences=8, max_seq_len=128, block_size=16)
 TIERS = {"enabled": True, "tiers": {"enabled": True, "host_mb": 8.0}}
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """The suite runs in several worker processes on one CPU: two torch
-    threads a test keep them from oversubscribing its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +359,30 @@ def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f'ROADMAP section 1, '
                                                   f'"{item}"'):
         InferenceEngineV2(tm, device="cpu", **KW, **kw)
+
+
+def _refuse_fleet():
+    from deepspeed_tpu_torch.config import from_config
+
+    from_config({"serving": {"enabled": True, "fleet": {"enabled": True}}})
+
+
+def _refuse_moe_storm():
+    from deepspeed_tpu_torch.tools.serve_drill import run_scenario
+
+    run_scenario("moe-storm", device="cpu")
+
+
+@pytest.mark.parametrize("refuse,item", [
+    (_refuse_fleet, "The serving layer above the engine"),
+    (_refuse_moe_storm, MOE)], ids=["serving.fleet", "moe-storm"])
+def test_unported_serving_parts_name_their_roadmap_item(refuse, item):
+    """The serving layer's refusals -- the elastic ``fleet`` section and
+    the ``moe-storm`` drill -- name their ROADMAP section 1 item too."""
+    assert f"**{item}" in _roadmap_section_1()
+    with pytest.raises(NotImplementedError, match=f'ROADMAP section 1, '
+                                                  f'"{item}"'):
+        refuse()
 
 
 def _roadmap_section_1() -> str:

@@ -44,6 +44,7 @@ from deepspeed_tpu_torch.inference import InferenceEngineV2
 from deepspeed_tpu_torch.inference.kv_tier import (claim_manifest,
                                                    load_manifest)
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = dict(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
              intermediate_size=128, vocab_size=512, dtype="float32",
@@ -57,14 +58,6 @@ HOST_MB = 2 * BLOCK_BYTES / 2**20
 # prologue (decode_kernel='pallas'), the port fences before each step
 FUSED_ONLY_EVENTS = {("engine", "promote_fence_fused", "i")}
 FUSED_ONLY_FAMILIES = {"inference/decode_prologue_promotes"}
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

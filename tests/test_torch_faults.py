@@ -16,6 +16,7 @@ import torch
 import deepspeed_tpu.resilience.faults as ref
 import deepspeed_tpu_torch.resilience as port_pkg
 import deepspeed_tpu_torch.resilience.faults as port
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MODS = {"ref": ref, "port": port}
 

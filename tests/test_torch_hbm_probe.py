@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.tools import hbm_bandwidth as hb
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _probe_array():

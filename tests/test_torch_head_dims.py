@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops._build import KERNELS
 from tests.test_torch_flash_backward import _jax_bwd
 from tests.test_torch_kernels_cuda import PRESET_SHAPED
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_model import perturbed_params
 from tests.test_torch_quant_engine import _flat, _script
 
@@ -61,7 +62,7 @@ TOL = dict(atol=1e-5, rtol=1e-5)            # fp32, sums in another order
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)      # engines (test_torch_engine.py)
 TOL_INT8_KV = 1e-2                          # x the row's max |logit|
 ENGINE_KW = dict(max_sequences=4, max_seq_len=64, block_size=8)
-STEPS = 6
+STEPS = 4
 
 
 def _models(preset, **extra):
@@ -112,7 +113,7 @@ def test_engine_matches_jax(preset, kv):
                              device="cpu", kv_dtype=kv, **ENGINE_KW)
     rng = np.random.default_rng(34)
     prompts = [rng.integers(1, 512, n).astype(np.int32) for n in (5, 11, 16)]
-    long_prompt = rng.integers(1, 512, 40).astype(np.int32)
+    long_prompt = rng.integers(1, 512, 24).astype(np.int32)
     out = {}
     for name, eng in (("jax", jeng), ("torch", teng)):
         rec, starts = _script(eng, prompts, long_prompt)

@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.bridge import params_from_numpy
 from deepspeed_tpu_torch.inference.engine import sample_token
 from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
 from deepspeed_tpu_torch.models.transformer import QuantizedWeight
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,

@@ -29,7 +29,6 @@ import threading
 import jax
 import numpy as np
 import pytest
-import torch
 
 from deepspeed_tpu.inference import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.inference import kv_tier as jk
@@ -42,18 +41,9 @@ from deepspeed_tpu_torch.inference import kv_tier as tk
 from deepspeed_tpu_torch.inference import ragged as tr
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
 from deepspeed_tpu_torch.ops import get_op_builder
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 PKG = {"torch": (tk, tr), "jax": (jk, jr)}
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """The suite runs in several worker processes on one CPU: two torch
-    threads a test keep them from oversubscribing its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _payload(v, shape=(2, 4)):

@@ -19,6 +19,7 @@ from deepspeed_tpu.models import transformer as jtf
 from deepspeed_tpu_torch.bridge import params_from_numpy
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
 from deepspeed_tpu_torch.models import transformer as ttf
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -59,6 +59,15 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.tools.qmm_sweep\n"
         "import deepspeed_tpu_torch.tools.flash_bwd_time\n"
         "import deepspeed_tpu_torch.tools.launch_count\n"
+        "import deepspeed_tpu_torch.serving\n"
+        "import deepspeed_tpu_torch.serving.request\n"
+        "import deepspeed_tpu_torch.serving.manager\n"
+        "import deepspeed_tpu_torch.serving.batcher\n"
+        "import deepspeed_tpu_torch.serving.protocol\n"
+        "import deepspeed_tpu_torch.serving.router\n"
+        "import deepspeed_tpu_torch.serving.frontend\n"
+        "import deepspeed_tpu_torch.serving.client\n"
+        "import deepspeed_tpu_torch.tools.serve_drill\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "

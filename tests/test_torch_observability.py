@@ -29,6 +29,7 @@ import deepspeed_tpu.comm.logger as ref_comm
 import deepspeed_tpu.observability as ref_obs
 import deepspeed_tpu_torch.comm.logger as port_comm
 import deepspeed_tpu_torch.observability as port_obs
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"ref": ref_obs, "port": port_obs}
 

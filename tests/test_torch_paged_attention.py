@@ -10,6 +10,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 L, BS, H, K, D = 2, 8, 4, 2, 16

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "deepspeed_tpu_torch/csrc/paged_decode.cu"

@@ -20,6 +20,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 NB, BS, NB_MAX = 14, 8, 4          # 14 blocks + scratch, 4 blocks a slot

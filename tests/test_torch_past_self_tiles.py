@@ -26,6 +26,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "deepspeed_tpu_torch/csrc"
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -20,7 +20,6 @@ both, on the CPU.
 import jax
 import numpy as np
 import pytest
-import torch
 
 from deepspeed_tpu.inference import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.inference import ragged as jr
@@ -33,19 +32,10 @@ from deepspeed_tpu_torch.inference import CapacityError, InferenceEngineV2
 from deepspeed_tpu_torch.inference import ragged as tr
 from deepspeed_tpu_torch.inference.speculative import ngram_draft
 from deepspeed_tpu_torch.models import TransformerLM, get_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 SPEC = {"enabled": True, "ngram": 2, "max_draft": 4, "fallback_steps": 4}
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """The suite runs in several worker processes on one CPU: two torch
-    threads a test keep them from oversubscribing its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

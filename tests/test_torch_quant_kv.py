@@ -25,6 +25,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_PV_TOL = dict(atol=1e-2, rtol=1e-2)

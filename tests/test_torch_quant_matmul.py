@@ -30,6 +30,7 @@ import torch
 from deepspeed_tpu.ops import quant_matmul as jqm
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
 from deepspeed_tpu_torch.ops._build import KERNELS
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ROOT = Path(__file__).resolve().parent.parent

@@ -9,6 +9,7 @@ import pytest
 from deepspeed_tpu.inference import SequenceManager as JaxManager
 from deepspeed_tpu_torch.inference import (BlockedAllocator, CapacityError,
                                            SequenceManager)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 class TestRefcountedAllocator:

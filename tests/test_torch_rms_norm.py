@@ -18,6 +18,7 @@ from deepspeed_tpu import ops as jops
 from deepspeed_tpu.ops.rms_norm import fused_rms_norm as jax_rms
 from deepspeed_tpu_torch import ops as tops
 from deepspeed_tpu_torch.ops.rms_norm import fused_rms_norm, plain_rms_norm
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOLS = {"float32": dict(atol=1e-5, rtol=1e-5),
         "bfloat16": dict(atol=1e-2, rtol=1e-2)}

@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models import transformer as tm
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -506,10 +507,6 @@ def tiny_features(monkeypatch):
     monkeypatch.setattr(chip_smoke, "FEATURE_MAX_SEQ", 640)
     monkeypatch.setattr(chip_smoke, "FEATURE_STEPS", 4)
     monkeypatch.setattr(chip_smoke, "PAUSE_CALLS", (3, 3, 3))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)     # beside the suite's other workers
-    yield
-    torch.set_num_threads(n)
 
 
 def test_serve_features_phase_runs_on_a_tiny_cpu_model(tiny_features,

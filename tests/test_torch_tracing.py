@@ -22,6 +22,7 @@ import deepspeed_tpu.observability.trace as ref_trace
 import deepspeed_tpu_torch.observability as port_obs
 import deepspeed_tpu_torch.observability.events as port_events
 import deepspeed_tpu_torch.observability.trace as port_trace
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"ref": (ref_obs, ref_events, ref_trace),
         "port": (port_obs, port_events, port_trace)}

@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.models import TransformerLM, get_preset
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedTpuEngine
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = dict(dtype="float32", num_kv_heads=2)
 STEPS, GA, MICRO, SEQ = 4, 2, 2, 32
