@@ -258,6 +258,41 @@ Phases, in order (any failure raises and the script exits non-zero):
               p50 and p90 of ``serving/ttft_ms`` and ``serving/tpot_ms``
               from the registry, beside the card's name and power limit.
 
+12. fleet -- the elastic fleet (``FleetController`` over a
+              ``WarmStartCache``) at ``llama3-8b`` full width and depth,
+              int4 weights and an int8 pool (phase 6's Q1), engines of
+              max_seq_len 2048, 8 slots, block 128, batchers chunking
+              prompts at 256, every replica built through one cache in a
+              temporary directory and sharing one migration namespace
+              there; the first build inits a fresh model from seed 0 and
+              quantizes it, every later one comes through the cache. (a) r0
+              builds cold and publishes its quantized tree; a warm build
+              reads it back: every leaf ``torch.equal`` to r0's, the greedy
+              tokens of two prompts equal r0's; an injected
+              ``weight_load_io_error`` and a corrupt manifest each build
+              cold. Prints the cold, publish and warm ms, the warm
+              stream's GB/s and the temporary directory's filesystem. (b)
+              ``replica_crash`` on r0 during a storm of 8 prompts of
+              300-1100 tokens (16 new tokens each) over two replicas: every
+              admitted uid terminal, r0 respawned warm under its name with
+              a new incarnation and readmitted, a new request served, one
+              flight dump. (c) the reference drill's burst (48 requests, 16
+              tokens) on one replica with min 1, max 3, 2 queued per
+              replica, 2 pressured polls up, 3 idle polls down: the pool
+              grows and shrinks back to 1, every uid terminal. (d) a
+              rolling swap of two replicas under a trickle of requests:
+              every incarnation bumps, the READY replicas never fall below
+              the floor of 1 (sampled every 20 ms), every trickled request
+              completes. (e) after each part no block leaked and the shared
+              namespace is empty; once every replica is closed the card's
+              allocated memory is back within one replica's KV pool of its
+              value before the phase. G, H, A and B over the int8 pool, C
+              and D must launch; the first launch of each is replayed
+              through its plain version. Prints the peak memory and the
+              largest gap between a live replica's heartbeats against
+              ``heartbeat_timeout_s`` (10 s), beside the card's name and
+              power limit.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -3426,6 +3461,19 @@ def close_stack(tag, engines, reps, router, fe, threads_before,
         f"pools whole on both engines")
 
 
+def tier_client(url, tier=None):
+    """A ``GenerateClient`` whose requests carry ``tier`` in their JSON
+    body (the protocol's field; the client itself sends none)."""
+    from deepspeed_tpu_torch.serving import GenerateClient
+
+    cli = GenerateClient(url, timeout_s=SERVING_JOIN_S)
+    if tier is not None:
+        post = cli._post
+        cli._post = lambda payload, priority: post({**payload, "tier": tier},
+                                                   priority)
+    return cli
+
+
 class StreamCollector:
     """SSE streams on client threads; each stream's events land in
     ``events[i]`` as they arrive."""
@@ -3436,17 +3484,16 @@ class StreamCollector:
         self.errors = {}
         self.threads = []
 
-    def start(self, i, prompt, **kw):
+    def start(self, i, prompt, tier=None, **kw):
         import threading
 
-        from deepspeed_tpu_torch.serving import FrontendError, GenerateClient
+        from deepspeed_tpu_torch.serving import FrontendError
 
         self.events[i] = []
 
         def run():
             try:
-                for ev in GenerateClient(self.url,
-                                         timeout_s=SERVING_JOIN_S).stream(
+                for ev in tier_client(self.url, tier).stream(
                         [int(t) for t in prompt], **kw):
                     self.events[i].append(ev)
             except FrontendError as e:
@@ -3472,13 +3519,13 @@ def unary_all(url, jobs, results, errors):
     """Unary requests on client threads: ``jobs`` = {key: (prompt, kw)}."""
     import threading
 
-    from deepspeed_tpu_torch.serving import FrontendError, GenerateClient
+    from deepspeed_tpu_torch.serving import FrontendError
 
     def run(key, prompt, kw):
+        kw = dict(kw)
         try:
-            results[key] = GenerateClient(url, timeout_s=SERVING_JOIN_S
-                                          ).generate([int(t) for t in prompt],
-                                                     **kw)
+            results[key] = tier_client(url, kw.pop("tier", None)).generate(
+                [int(t) for t in prompt], **kw)
         except FrontendError as e:
             errors[key] = e
 
@@ -3821,6 +3868,469 @@ def serving(torch, pa, fa, KERNELS, reset_counts, model, tree,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the elastic fleet (FleetController over a WarmStartCache)
+# ---------------------------------------------------------------------------
+
+FLEET_KERNELS = ("qmm", "qmm_stacked", "paged_decode_int8", "paged_past_int8",
+                 "chunk_self", "flash_fwd")
+FLEET_PRESET = "llama3-8b"
+FLEET_PRESET_KW = {"param_dtype": "bfloat16"}
+FLEET_WEIGHTS, FLEET_KV = "int4", "int8"     # phase 6's Q1
+FLEET_MAX_SEQ = 2048           # max_seq_len of every replica's engine
+FLEET_BLOCK = 128
+FLEET_CHUNK = 256              # the batchers' prefill_chunk
+FLEET_PROMPTS = (300, 1100)    # the storm's prompt lengths (numpy seed 15)
+FLEET_STORM = 8
+FLEET_NEW = 16
+# a worker whose beat is older is recovered as hung: 40 x the slowest step
+# phase 11 read (150-250 ms, two busy replicas on one card)
+FLEET_HEARTBEAT_S = 10.0
+FLEET_BURST = 48               # the reference drill's burst: 3-token
+FLEET_BURST_NEW = 16           # prompts, 16 new tokens each
+FLEET_TRICKLE_S = 0.25         # gap between (d)'s trickled requests
+FLEET_JOIN_S = 600.0
+
+
+class FleetReplay(Replay):
+    """Phase 12's :class:`Replay`: the first launch of G, H, A and B over
+    the int8 pool, C and D in the replicas' engine steps (stage
+    ``fleet``)."""
+
+    REQUIRED = {(k, "fleet") for k in FLEET_KERNELS}
+
+    def __init__(self, torch, pa, qm, fa):
+        self.qm = qm
+        super().__init__(torch, pa, (qm, fa))
+
+    @staticmethod
+    def make_targets(pa, mods):
+        qm, fa = mods
+        return {**Replay.make_targets(pa, fa),
+                **QuantReplay.make_targets(pa, qm)}
+
+    def kernel_of(self, target, x):
+        if target == "qmm":
+            return QuantReplay.kernel_of(self, target, x)
+        return super().kernel_of(target, x)
+
+    def _wanted(self, target, name, x) -> bool:
+        return self.stage is not None and super()._wanted(target, name, x)
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type and mount point holding ``path`` (from
+    ``/proc/mounts``; ``unknown`` where it cannot be read)."""
+    path = os.path.realpath(path)
+    best = ("unknown", "")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 3 and (path == parts[1] or path.startswith(
+                        parts[1].rstrip("/") + "/")) \
+                        and len(parts[1]) >= len(best[1]):
+                    best = (parts[2], parts[1])
+    except OSError:
+        pass
+    return f"{best[0]} at {best[1] or '?'}"
+
+
+class BeatWatch:
+    """A sampler thread over a router's pool: the largest gap between a
+    live replica's heartbeats (``stats["beat"]``) and the fewest READY,
+    routable replicas, every 20 ms while running."""
+
+    def __init__(self, router):
+        import threading
+
+        self.router = router
+        self.max_gap = 0.0
+        self.min_ready = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="fleet-beat-watch")
+        self._thread.start()
+
+    def _run(self):
+        from deepspeed_tpu_torch.serving import READY
+
+        while not self._stop.wait(0.02):
+            now = time.monotonic()
+            reps = self.router._snapshot()
+            for r in reps:
+                if r.alive:
+                    self.max_gap = max(self.max_gap, now - r.stats["beat"])
+            ready = sum(1 for r in reps
+                        if r.routable and r.stats["health"] == READY)
+            self.min_ready = (ready if self.min_ready is None
+                              else min(self.min_ready, ready))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.router = None
+        return self
+
+
+def held_engines(engines, router) -> list:
+    """Engines of ``engines`` (weak references) that are still alive but
+    serve no replica of ``router``'s pool: a dead or swapped-out replica's
+    weights and KV pool must go with it."""
+    gc.collect()
+    live = {id(r.batcher.engine) for r in router._snapshot()}
+    return [i for i, ref in enumerate(engines)
+            if ref() is not None and id(ref()) not in live]
+
+
+def greedy_tokens(eng, prompts, steps: int) -> dict:
+    """Greedy tokens of ``prompts`` on ``eng``: one ``put``, then
+    ``decode_batch``; the uids are flushed after."""
+    uids = list(range(len(prompts)))
+    out = eng.put(uids, prompts)
+    nxt = [int(np.argmax(out[u])) for u in uids]
+    toks = eng.decode_batch(uids, nxt, steps=steps)
+    eng.flush(uids)
+    return {u: [nxt[u]] + [int(t) for t in toks[u]] for u in uids}
+
+
+def fleet(torch, pa, qm, fa, KERNELS, reset_counts, device="cuda"):
+    """Phase 12: the elastic fleet at ``llama3-8b`` full width and depth,
+    int4 weights and an int8 pool (phase 6's Q1), every replica (max_seq_len
+    2048, 8 slots, block 128, prefill_chunk 256) built through one
+    ``WarmStartCache`` in a temporary directory, the replicas sharing one
+    migration namespace there. (a) cold start, publish, warm start; (b) a
+    replica crash mid-storm, respawned warm; (c) burst autoscale; (d) a
+    rolling swap under a trickle; (e) nothing leaked, the card's memory
+    back. Gates: see the module docstring. Returns the phase's launches
+    per kernel."""
+    import glob
+    import shutil
+    import tempfile
+    import threading
+    import weakref
+
+    from deepspeed_tpu_torch import TransformerLM
+    from deepspeed_tpu_torch.config import FleetConfig
+    from deepspeed_tpu_torch.observability import configure_tracing, get_bus
+    from deepspeed_tpu_torch.resilience import (FaultInjector, FaultSpec,
+                                                set_injector)
+    from deepspeed_tpu_torch.serving import (READY, FleetController,
+                                             ReplicaRouter, ShedError,
+                                             WarmStartCache)
+    from deepspeed_tpu_torch.serving.coldstart import evict_module
+    from deepspeed_tpu_torch.tools.elastic_drill import (
+        Setup, await_terminal, pool_invariants, replica_factory,
+        shared_tier_leftovers, storm, trees_equal)
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else device
+    tmp = tempfile.mkdtemp(prefix="dstpu_fleet_")
+    setup = Setup(device=device, preset=FLEET_PRESET,
+                  preset_kw=dict(FLEET_PRESET_KW),
+                  weight_dtype=FLEET_WEIGHTS, kv_dtype=FLEET_KV,
+                  max_sequences=8, max_seq_len=FLEET_MAX_SEQ,
+                  block_size=FLEET_BLOCK, prefill_chunk=FLEET_CHUNK)
+    V = setup.model_config().vocab_size
+    rng = np.random.default_rng(15)
+    lo, hi = FLEET_PROMPTS
+    prompts = [rng.integers(1, V, int(t)).astype(np.int32)
+               for t in rng.integers(lo, hi + 1, FLEET_STORM)]
+    fleet_cfg = dict(respawn_backoff_s=0.0,
+                     heartbeat_timeout_s=FLEET_HEARTBEAT_S,
+                     probe_timeout_s=FLEET_JOIN_S)
+    gaps = []
+    cache = WarmStartCache(os.path.join(tmp, "warm"))
+    build, key = replica_factory(tmp, setup, cache)
+    engines = []               # a weak reference to every replica's engine
+    loads = []                 # every warm build's stream: (GB, read, all)
+
+    def factory(name):
+        rep = build(name)
+        engines.append(weakref.ref(rep.batcher.engine))
+        if rep.start_info["source"] == "warm":
+            ld = cache.last_load
+            loads.append((ld["bytes"] / 1e9, ld["read_ms"], ld["ms"]))
+        return rep
+
+    free_card(torch, device)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reps = []
+    try:
+        evict_module(key)
+        reset_counts()
+        replay = FleetReplay(torch, pa, qm, fa)
+        with replay:
+            replay.stage = "fleet"
+            # ---- (a) cold start, publish, warm start
+            t0 = time.perf_counter()
+            r0 = factory("r0")
+            publish_ms = (time.perf_counter() - t0) * 1e3 \
+                - r0.start_info["ms"]
+            w = factory("w0")
+            cold_ms, warm_ms = r0.start_info["ms"], w.start_info["ms"]
+            load = dict(cache.last_load)
+            gbps = load["bytes"] / (load["ms"] * 1e6)
+            if (r0.start_info["source"], w.start_info["source"]) \
+                    != ("cold", "warm") or cache.counters["publishes"] != 1:
+                raise AssertionError(f"fleet (a): sources "
+                                     f"{r0.start_info} {w.start_info}, "
+                                     f"cache {cache.report()}")
+            if not trees_equal(w.batcher.engine.params,
+                               r0.batcher.engine.params):
+                raise AssertionError("fleet (a): the warm tree differs from "
+                                     "the published cold tree")
+            toks = [greedy_tokens(r.batcher.engine, prompts[:2], FLEET_NEW)
+                    for r in (r0, w)]
+            if toks[0] != toks[1]:
+                raise AssertionError(f"fleet (a): warm greedy tokens "
+                                     f"{toks[1]} vs cold {toks[0]}")
+            w.close()
+            del w
+            free_card(torch, device)
+            fallbacks = []
+            set_injector(FaultInjector([FaultSpec(
+                kind="weight_load_io_error", site="warm")]))
+            try:
+                eng, info = cache.build_engine(
+                    key, lambda: TransformerLM(setup.model_config()),
+                    engine_kw=setup.engine_kw(), publish=False)
+            finally:
+                set_injector(None)
+            fallbacks.append(info)
+            del eng
+            free_card(torch, device)
+            mp = cache.manifest_path(key)
+            shutil.copy(mp, mp + ".good")
+            with open(mp, "w") as f:
+                f.write('{"schema": 1, "leaves": [')
+            eng, info = cache.build_engine(
+                key, lambda: TransformerLM(setup.model_config()),
+                engine_kw=setup.engine_kw(), publish=False)
+            os.replace(mp + ".good", mp)
+            fallbacks.append(info)
+            del eng
+            free_card(torch, device)
+            if [f["source"] for f in fallbacks] != ["cold", "cold"] \
+                    or cache.counters["warm_load_failures"] != 2:
+                raise AssertionError(f"fleet (a): fallbacks {fallbacks}, "
+                                     f"cache {cache.report()}")
+            log(f"fleet (a) [{card}]: cold build {cold_ms} ms, publish "
+                f"{publish_ms:.1f} ms, warm build {warm_ms} ms (cold / warm "
+                f"{cold_ms / warm_ms:.2f}); warm stream "
+                f"{load['bytes'] / 1e9:.3f} GB in {load['ms']:.1f} ms "
+                f"({gbps:.2f} GB/s, read + upload) from {fs_type(tmp)}")
+            log(f"fleet (a): warm tree equal to the published cold tree, "
+                f"greedy tokens of 2 prompts equal; injected "
+                f"weight_load_io_error -> {fallbacks[0]}, corrupt manifest "
+                f"-> {fallbacks[1]}")
+
+            # ---- (b) a replica crash mid-storm, respawned warm
+            dump_dir = os.path.join(tmp, "flight")
+            configure_tracing(enabled=True, ring_size=4096, sample=1,
+                              dump_dir=dump_dir)
+            router = ReplicaRouter([r0, factory("r1")]).start()
+            reps = [router]
+            fc = FleetController(router, factory, FleetConfig(**fleet_cfg))
+            watch = BeatWatch(router)
+            inc0 = r0.incarnation
+            uids, rejected = storm(router, FLEET_STORM, FLEET_NEW,
+                                   prompts=prompts)
+            wait_until(lambda: r0.stats["active"] > 0,
+                       "(b)'s storm to reach r0", FLEET_JOIN_S)
+            set_injector(FaultInjector([FaultSpec(kind="replica_crash",
+                                                  site="r0")]))
+            wait_until(lambda: not r0.alive, "r0 to crash", FLEET_JOIN_S)
+            set_injector(None)
+            actions = fc.poll()
+            del r0                   # the dead incarnation
+            inv = pool_invariants(router, uids, FLEET_JOIN_S)
+            new_r0 = router.replicas["r0"]
+            held = held_engines(engines, router)
+            post = router.submit([int(t) for t in prompts[2]],
+                                 max_new_tokens=FLEET_NEW)
+            post_left = await_terminal(router, [post], FLEET_JOIN_S)
+            dumps = glob.glob(os.path.join(dump_dir,
+                                           "flight_replica_crash_*"))
+            gaps.append(watch.stop().max_gap)
+            log(f"fleet (b): storm of {len(uids)} ({rejected} rejected), "
+                f"r0 crashed with {inv['terminal_counts']}; recovered "
+                f"{actions['recovered']}; r0 incarnation {inc0} -> "
+                f"{new_r0.incarnation} ({new_r0.start_info}); router "
+                f"crash_failovers {router.counters['crash_failovers']}, "
+                f"readmits {router.counters['readmits']}; flight dumps "
+                f"{[os.path.basename(d) for d in dumps]}")
+            if not (actions["recovered"]
+                    and actions["recovered"][0]["respawned"] and inv["ok"]
+                    and new_r0.alive and new_r0.incarnation > inc0
+                    and new_r0.start_info["source"] == "warm"
+                    and router.counters["readmits"] == 1
+                    and not post_left and len(dumps) == 1 and not held):
+                raise AssertionError(f"fleet (b): {actions} {inv} "
+                                     f"post {post_left} dumps {dumps}, "
+                                     f"engines held {held}")
+            router.close()
+            fc.close()
+            reps = []
+            del new_r0, router, fc, watch
+            configure_tracing(enabled=False)
+            get_bus().clear()
+            left = shared_tier_leftovers(tmp)
+            if left:
+                raise AssertionError(f"fleet (b): shared tier holds {left}")
+            free_card(torch, device)
+
+            # ---- (c) burst autoscale (the reference drill's settings)
+            router = ReplicaRouter([factory("r0")]).start()
+            reps = [router]
+            fc = FleetController(router, factory, FleetConfig(**{
+                **fleet_cfg, "min_replicas": 1, "max_replicas": 3,
+                "scale_up_queue_per_replica": 2.0, "scale_up_polls": 2,
+                "scale_down_idle_polls": 3}))
+            watch = BeatWatch(router)
+            uids, rejected = storm(router, FLEET_BURST, FLEET_BURST_NEW)
+            polls = 0
+            while fc.counters["scale_ups"] == 0 and polls < 20:
+                fc.poll()
+                polls += 1
+                time.sleep(0.02)
+            grew_to = len(router.replicas)
+            inv = pool_invariants(router, uids, FLEET_JOIN_S)
+            polls = 0
+            while len(router.replicas) > 1 and polls < 60:
+                fc.poll()
+                polls += 1
+                time.sleep(0.02)
+            gaps.append(watch.stop().max_gap)
+            held = held_engines(engines, router)
+            log(f"fleet (c): burst of {len(uids)} ({rejected} rejected): "
+                f"pool 1 -> {grew_to} -> "
+                f"{len(router.replicas)}; scale_ups "
+                f"{fc.counters['scale_ups']}, scale_downs "
+                f"{fc.counters['scale_downs']}; {inv['terminal_counts']}")
+            if not (grew_to >= 2 and len(router.replicas) == 1
+                    and fc.counters["scale_downs"] >= 1 and inv["ok"]
+                    and not held):
+                raise AssertionError(f"fleet (c): {fc.report()} {inv}, "
+                                     f"engines held {held}")
+            router.close()
+            fc.close()
+            reps = []
+            del router, fc, watch
+            free_card(torch, device)
+
+            # ---- (d) a rolling swap of two replicas under a trickle
+            router = ReplicaRouter([factory("r0"), factory("r1")]).start()
+            reps = [router]
+            fc = FleetController(router, factory, FleetConfig(**{
+                **fleet_cfg, "min_ready_floor": 1}))
+            before = {r.name: r.incarnation for r in router._snapshot()}
+            live, stop, shed = [], threading.Event(), []
+
+            def trickle():
+                i = 0
+                while not stop.is_set():
+                    try:
+                        live.append(router.submit(
+                            [int(t) for t in prompts[i % len(prompts)]],
+                            max_new_tokens=4))
+                    except ShedError as e:
+                        shed.append(repr(e))
+                    i += 1
+                    time.sleep(FLEET_TRICKLE_S)
+
+            t = threading.Thread(target=trickle, daemon=True,
+                                 name="fleet-trickle")
+            t.start()
+            try:
+                # the swap starts once both replicas have stepped (READY)
+                wait_until(lambda: all(r.stats["health"] == READY
+                                       for r in router._snapshot()),
+                           "(d)'s replicas to be READY", FLEET_JOIN_S)
+                watch = BeatWatch(router)
+                res = fc.rolling_swap(drain_timeout_s=FLEET_JOIN_S)
+            finally:
+                stop.set()
+                t.join(timeout=30)
+            del t, trickle
+            inv = pool_invariants(router, live, FLEET_JOIN_S)
+            gaps.append(watch.stop().max_gap)
+            held = held_engines(engines, router)
+            after = {r.name: r.incarnation for r in router._snapshot()}
+            states = {u: router.resolve(u) for u in live}
+            log(f"fleet (d): rolling swap {res}; incarnations {before} -> "
+                f"{after}; {len(live)} trickled ({len(shed)} refused), "
+                f"{inv['terminal_counts']}; fewest READY replicas "
+                f"{watch.min_ready} (floor 1); {len(engines)} engines "
+                f"built in the phase, {len(held)} held past their replica")
+            if not (res["ok"] and inv["ok"] and live
+                    and all(after[n] > before[n] for n in before)
+                    and watch.min_ready >= 1 and not held
+                    and set(states.values()) == {"completed"}):
+                raise AssertionError(f"fleet (d): {res} {inv} {states}, "
+                                     f"engines held {held}")
+            # ---- (e) nothing leaked
+            left = shared_tier_leftovers(tmp)
+            if left:
+                raise AssertionError(f"fleet (e): shared tier holds {left}")
+            pool_bytes = sum(
+                t.numel() * t.element_size()
+                for t in router.replicas["r0"].batcher.engine.cache.values()
+                if isinstance(t, torch.Tensor))
+            router.close()
+            fc.close()
+            reps = []
+            del router, fc, watch
+            replay.stage = None
+        counts = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        missing = [k for k in FLEET_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"fleet: kernels never launched {missing} "
+                                 f"(counts {counts})")
+        errs = replay.check()
+        del replay
+        log(f"fleet: launches {counts}; captured launches replayed vs "
+            f"plain, max abs err {errs}")
+        cache.close()
+        evict_module(key)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            now = torch.cuda.memory_allocated()
+            log(f"fleet (e) [{card}]: card memory {base / 1e9:.3f} GB "
+                f"before the phase, {now / 1e9:.3f} GB after every replica "
+                f"closed (one replica's KV pool {pool_bytes / 1e9:.3f} GB); "
+                f"peak {peak:.2f} GB")
+            if now - base > pool_bytes:
+                raise AssertionError(f"fleet (e): {(now - base) / 1e9:.3f} "
+                                     f"GB of the card still held")
+        streams = [(round(g, 3), round(r, 1), round(a, 1),
+                    round(g / a * 1e3, 2)) for g, r, a in loads]
+        log(f"fleet (e) [{card}]: every warm build's stream (GB, read ms, "
+            f"read + upload ms, GB/s): {streams}")
+        log(f"fleet (e) [{card}]: largest gap between a live replica's "
+            f"beats {max(gaps) * 1e3:.1f} ms ((b), (c), (d): "
+            f"{[round(g * 1e3, 1) for g in gaps]}) against "
+            f"heartbeat_timeout_s {FLEET_HEARTBEAT_S}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for router in reps:
+            router.close()
+        set_injector(None)
+        configure_tracing(enabled=False)
+        cache.close()
+        evict_module(key)
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch, device)
+    log(f"fleet [{card}]: done")
+    return counts
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3880,6 +4390,9 @@ def main() -> int:
     srv = serving(torch, pa, fa, _build.KERNELS, _build.reset_counts,
                   kept["model"], kept["tree"])
     del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    flt = fleet(torch, pa, qm, fa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -3917,7 +4430,8 @@ def main() -> int:
                                              ("head_dims", head),
                                              ("serve_features", feat),
                                              ("observability", obs),
-                                             ("serving", srv))
+                                             ("serving", srv),
+                                             ("fleet", flt))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

@@ -2,6 +2,7 @@
 (counterpart of ``deepspeed_tpu/config``)."""
 
 from deepspeed_tpu_torch.config.config import (  # noqa: F401
-    DeepSpeedTpuConfig, FrontendConfig, KVTierConfig, MigrationConfig,
-    ObservabilityConfig, PrefixCacheConfig, ProfileTriggerConfig, RouterConfig,
-    ServingConfig, SLOConfig, SpeculativeConfig, TracingConfig, from_config)
+    DeepSpeedTpuConfig, FleetConfig, FrontendConfig, KVTierConfig,
+    MigrationConfig, ObservabilityConfig, PrefixCacheConfig,
+    ProfileTriggerConfig, RouterConfig, ServingConfig, SLOConfig,
+    SpeculativeConfig, TracingConfig, from_config)

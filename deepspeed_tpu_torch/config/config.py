@@ -7,8 +7,8 @@ single-device training engine reads are ported: the batch triple,
 ``steps_per_print``, ``seed``, ``zero_optimization.stage`` (0-3 compute the
 same thing on one device, as the reference does on a one-device mesh),
 ``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
-``wall_clock_breakdown`` and the serving layer's ``serving`` (less its
-``fleet``). Keys are checked:
+``wall_clock_breakdown`` and the serving layer's ``serving``. Keys are
+checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
 the reference that this port does not implement raises
 ``NotImplementedError`` naming it -- nothing is silently ignored.
@@ -388,16 +388,6 @@ class ObservabilityConfig(_Section):
     NESTED = {"profile": ProfileTriggerConfig, "tracing": TracingConfig}
 
 
-#: the reference's ``serving.fleet`` defaults (its :707): a fleet section
-#: that asks for nothing else passes; the elastic fleet is not ported
-_FLEET_DEFAULTS = {
-    "enabled": False, "min_replicas": 1, "max_replicas": 4,
-    "heartbeat_timeout_s": 10.0, "probe_timeout_s": 120.0,
-    "probe_max_new_tokens": 2, "respawn_backoff_s": 0.5, "max_respawns": 3,
-    "scale_up_queue_per_replica": 4.0, "scale_up_retry_after_s": 2.0,
-    "scale_up_polls": 2, "scale_down_idle_polls": 6, "min_ready_floor": 1,
-}
-
 _SLO_TIERS = ("latency", "throughput", "batch")
 
 
@@ -457,6 +447,63 @@ class RouterConfig(_Checked):
                              "submit_timeout_s must be > 0")
         if self.max_route_history < 1:
             raise ValueError("serving.router.max_route_history must be "
+                             ">= 1")
+
+
+@dataclasses.dataclass
+class FleetConfig(_Checked):
+    """``serving.fleet`` (the reference's :707): the elastic replica
+    lifecycle above the router (``serving/fleet.py``) -- crash detection
+    and respawn with READY-gated readmission, autoscaling on queue depth,
+    sheds and Retry-After with hysteresis, and rolling weight swaps under a
+    min-ready floor."""
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # a worker whose stats heartbeat is older than this is treated as hung
+    # and recovered like a death (thread death is seen at once)
+    heartbeat_timeout_s: float = 10.0
+    # readiness probe of a respawned / new replica before readmission: a
+    # tiny generate must complete within this budget
+    probe_timeout_s: float = 120.0
+    probe_max_new_tokens: int = 2
+    # respawn back-off: base * 2^attempt, capped; past max_respawns the
+    # replica stays out (the flight recorder has the why)
+    respawn_backoff_s: float = 0.5
+    max_respawns: int = 3
+    # scale up after scale_up_polls consecutive polls with pool queue
+    # depth > scale_up_queue_per_replica x routable replicas (or any shed
+    # in the poll window, or the Retry-After watermark below); scale down
+    # after scale_down_idle_polls consecutive idle polls
+    scale_up_queue_per_replica: float = 4.0
+    scale_up_retry_after_s: float = 2.0
+    scale_up_polls: int = 2
+    scale_down_idle_polls: int = 6
+    # rolling swap: never below this many READY replicas while one at a
+    # time drains, reloads weights and rejoins
+    min_ready_floor: int = 1
+
+    def validate(self, path: str) -> None:
+        if not (1 <= self.min_replicas <= self.max_replicas):
+            raise ValueError("serving.fleet: need 1 <= min_replicas <= "
+                             "max_replicas")
+        if self.heartbeat_timeout_s <= 0 or self.probe_timeout_s <= 0:
+            raise ValueError("serving.fleet: heartbeat_timeout_s and "
+                             "probe_timeout_s must be > 0")
+        if self.respawn_backoff_s < 0 or self.max_respawns < 1:
+            raise ValueError("serving.fleet: respawn_backoff_s must be "
+                             ">= 0 and max_respawns >= 1")
+        if self.scale_up_polls < 1 or self.scale_down_idle_polls < 1:
+            raise ValueError("serving.fleet: scale_up_polls and "
+                             "scale_down_idle_polls must be >= 1")
+        if self.scale_up_queue_per_replica < 0:
+            raise ValueError("serving.fleet.scale_up_queue_per_replica "
+                             "must be >= 0")
+        if self.min_ready_floor < 1:
+            raise ValueError("serving.fleet.min_ready_floor must be >= 1")
+        if self.probe_max_new_tokens < 1:
+            raise ValueError("serving.fleet.probe_max_new_tokens must be "
                              ">= 1")
 
 
@@ -536,9 +583,8 @@ class ServingConfig(_Checked):
     ``InferenceEngineV2`` -- bounded admission on projected worst-case KV
     demand (prompt + max_new_tokens) under ``kv_high_watermark``,
     deadlines, watermark shedding down to ``kv_low_watermark``, DEGRADED
-    capacity (``degraded_capacity_factor``) and SIGTERM drain. The elastic
-    ``fleet`` section is not ported: a fleet section asking for anything
-    but its defaults raises."""
+    capacity (``degraded_capacity_factor``) and SIGTERM drain; ``fleet``
+    configures the elastic replica lifecycle above the router."""
 
     enabled: bool = False
     max_queue_depth: int = 64
@@ -565,13 +611,13 @@ class ServingConfig(_Checked):
         default_factory=FrontendConfig)
     router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     migration: MigrationConfig = dataclasses.field(
         default_factory=MigrationConfig)
 
     NESTED = {"frontend": FrontendConfig, "router": RouterConfig,
-              "slo": SLOConfig, "migration": MigrationConfig}
-    UNPORTED = {"fleet": _FLEET_DEFAULTS}
-    UNPORTED_ITEM = {"fleet": "The serving layer above the engine"}
+              "fleet": FleetConfig, "slo": SLOConfig,
+              "migration": MigrationConfig}
 
     def validate(self, path: str) -> None:
         if not (0.0 < self.kv_low_watermark <= self.kv_high_watermark

@@ -67,7 +67,8 @@ from deepspeed_tpu_torch.inference.engine import sample_token
 from deepspeed_tpu_torch.inference.quant import quantize_serving_params
 from deepspeed_tpu_torch.inference.ragged import (CapacityError, PrefixCache,
                                                   SequenceManager)
-from deepspeed_tpu_torch.models.transformer import TransformerLM, torch_dtype
+from deepspeed_tpu_torch.models.transformer import (QuantizedWeight,
+                                                    TransformerLM, torch_dtype)
 from deepspeed_tpu_torch.observability.events import get_bus
 from deepspeed_tpu_torch.ops.paged_attention import cache_append
 from deepspeed_tpu_torch.utils import resolve_device
@@ -82,7 +83,17 @@ _MIN_TILE = 32
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(fn(tree.packed), fn(tree.scales), tree.bits,
+                               tree.din)
     return fn(tree)
+
+
+def _quant_bits(tree) -> set:
+    """The ``bits`` of every :class:`QuantizedWeight` leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return set().union(*(_quant_bits(v) for v in tree.values()))
+    return {tree.bits} if isinstance(tree, QuantizedWeight) else set()
 
 
 def _coerce(cls, v):
@@ -172,13 +183,21 @@ class InferenceEngineV2:
         cdt = torch_dtype(self.cfg.dtype)
         if params is None:
             params = model.init(seed=seed, device=self.device)
+        # a tree quantized already (a warm start's published serving tree)
+        # is served as it is, at the width it was quantized to
+        held = _quant_bits(params)
+        want = {"bf16": set(), "int8": {8}, "int4": {4}}[weight_dtype]
+        if held and held != want:
+            raise ValueError(
+                f"params hold int{'/int'.join(map(str, sorted(held)))} "
+                f"weights, weight_dtype is {weight_dtype!r}")
         # serving holds weights in the compute dtype (the reference's
         # _serve_cast): fp32 leaves are cast once, here
         params = _tree_map(
             lambda p: p.to(device=self.device,
                            dtype=cdt if p.dtype == torch.float32 else p.dtype),
             params)
-        if weight_dtype != "bf16":
+        if weight_dtype != "bf16" and not held:
             # decode reads every weight once a step: packed leaves cut those
             # bytes 2x (int8) / 4x (int4); the forward paths pick them up
             # through the model's linear() seam

@@ -125,6 +125,21 @@ class TransformerConfig:
     def rope_dim(self) -> int:
         return 2 * (int(self.head_dim * self.rope_pct) // 2)
 
+    def num_params_estimate(self) -> int:
+        """Parameter count of the dense model (one MLP a layer), the
+        reference's arithmetic: the cost model's and the caches' model
+        signature read it."""
+        D, F, V, L = (self.hidden_size, self.intermediate_size,
+                      self.vocab_size, self.num_layers)
+        hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+        attn = D * nh * hd + 2 * D * nkv * hd + nh * hd * D
+        mlp = (3 if self.activation == "swiglu" else 2) * D * F
+        norms = (2 * D) * (2 if self.norm == "layernorm" else 1)
+        per_layer = attn + mlp + 2 * norms
+        embed = V * D + (self.max_seq_len * D if self.learned_pos else 0)
+        head = 0 if self.tie_embeddings else D * V
+        return L * per_layer + embed + head + D
+
 
 # ---------------------------------------------------------------------------
 # layers
@@ -214,8 +229,11 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor,
     tail = None
     if rd < x.shape[-1]:
         x, tail = x[..., :rd], x[..., rd:]
+    # positions past the table take its last row, as the reference's
+    # gather clamps (an unclamped index is a device-side assert on the card)
     f = (freqs[:T][None, :, None, :] if positions is None
-         else freqs[positions.long()][:, :, None, :])
+         else freqs[positions.long().clamp_max(freqs.shape[0] - 1)]
+         [:, :, None, :])
     cos, sin = torch.cos(f), torch.sin(f)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],

@@ -20,8 +20,9 @@ build raises, there is no pure-Python stand-in):
   errors) when it completes, and its submission is a fault-injector site
   (``swap_read`` / ``swap_write``).
 
-The reference's ``autotune=`` sweep (``ops/aio_bench.py``) is not ported:
-asking for it raises.
+* ``autotune=True`` adopts the best thread count x chunk size from a short
+  :func:`deepspeed_tpu_torch.ops.aio_bench.autotune_config` sweep, cached
+  per swap device; a failed sweep leaves the defaults (``autotuned`` None).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.observability.events import get_bus
+from deepspeed_tpu_torch.utils.logging import logger
 
 __all__ = ["AsyncTensorSwapper", "PinnedBuffer", "PinnedBufferPool",
            "SwapTicket"]
@@ -254,19 +256,15 @@ class AsyncTensorSwapper:
 
     ``o_direct=True`` bypasses the page cache (padded, aligned IO);
     ``chunk_mb`` caps the per-op IO size; ``num_threads=0`` / ``chunk_mb=0``
-    take the defaults (4 threads, 8 MB). ``namespace`` scopes the files to
-    a subdirectory of ``swap_dir``."""
+    mean "auto": the autotuned config when ``autotune=True``, else the
+    defaults (4 threads, 8 MB). ``namespace`` scopes the files to a
+    subdirectory of ``swap_dir``."""
 
     def __init__(self, swap_dir: str, num_threads: int = 0,
                  o_direct: bool = False, chunk_mb: int = 0,
                  autotune: bool = False, autotune_cache: str = "",
                  pool: Optional[PinnedBufferPool] = None,
                  namespace: str = ""):
-        if autotune:
-            raise NotImplementedError(
-                "AsyncTensorSwapper(autotune=True) is not ported yet (it "
-                "needs ops/aio_bench.py, ROADMAP section 1, \"Offload\"); pass "
-                "num_threads / chunk_mb")
         from deepspeed_tpu_torch.ops import get_op_builder
 
         if namespace:
@@ -274,6 +272,20 @@ class AsyncTensorSwapper:
         os.makedirs(swap_dir, exist_ok=True)
         self.swap_dir = swap_dir
         self.o_direct = o_direct
+        self.autotuned: Optional[dict] = None
+        if autotune and (num_threads <= 0 or chunk_mb <= 0):
+            try:
+                from deepspeed_tpu_torch.ops.aio_bench import autotune_config
+
+                self.autotuned = autotune_config(
+                    swap_dir, cache_path=autotune_cache or None,
+                    o_direct=o_direct)
+                if num_threads <= 0:
+                    num_threads = int(self.autotuned["threads"])
+                if chunk_mb <= 0:
+                    chunk_mb = int(self.autotuned["chunk_mb"])
+            except Exception as e:   # autotune must never block the caller
+                logger.warning(f"aio autotune failed ({e}); using defaults")
         self.num_threads = num_threads if num_threads > 0 else _DEFAULT_THREADS
         self.chunk_bytes = _padded(
             (chunk_mb if chunk_mb > 0 else _DEFAULT_CHUNK_MB) * (1 << 20))
@@ -562,7 +574,7 @@ class AsyncTensorSwapper:
             "threads": self.num_threads,
             "chunk_mb": self.chunk_bytes >> 20,
             "o_direct": self.o_direct,
-            "autotuned": None,
+            "autotuned": self.autotuned,
             "pending_ops": self.pending if self.handle else 0,
             "inflight_tickets": len(self._inflight),
             "loaned_read_buffers": len(self._loans),

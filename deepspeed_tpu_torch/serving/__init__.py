@@ -31,14 +31,25 @@ The network layer above the batcher:
 * :mod:`~deepspeed_tpu_torch.serving.client` — :class:`GenerateClient`:
   stdlib client honoring the 429/``Retry-After`` contract.
 
-The reference's elastic layer (``fleet.py``, ``coldstart.py``) is not
-ported yet (ROADMAP section 1, "The serving layer above the engine").
-Drills: ``python -m deepspeed_tpu_torch.tools.serve_drill --list``.
+The elastic layer above the router (replica lifecycle):
+
+* :mod:`~deepspeed_tpu_torch.serving.fleet` — :class:`FleetController`:
+  crash detection, fail-over and respawn/readmit, autoscaling on queue
+  depth, sheds and Retry-After with hysteresis, and rolling weight swaps
+  that never drop below a min-READY floor;
+* :mod:`~deepspeed_tpu_torch.serving.coldstart` — :class:`WarmStartCache`:
+  AIO-streamed weight persistence and a reused model module, so a respawn
+  is a warm start, keyed like the mesh winner store.
+
+Drills: ``python -m deepspeed_tpu_torch.tools.serve_drill --list`` and
+``python -m deepspeed_tpu_torch.tools.elastic_drill --list``.
 """
 
 from deepspeed_tpu_torch.serving.batcher import (DEGRADED, DRAINING, READY,
                                                  STARTING, ContinuousBatcher)
 from deepspeed_tpu_torch.serving.client import FrontendError, GenerateClient
+from deepspeed_tpu_torch.serving.coldstart import WarmStartCache, warm_key
+from deepspeed_tpu_torch.serving.fleet import FleetController
 from deepspeed_tpu_torch.serving.frontend import ServingFrontend
 from deepspeed_tpu_torch.serving.manager import RequestManager
 from deepspeed_tpu_torch.serving.request import (CANCELLED, COMPLETED,
@@ -50,7 +61,7 @@ from deepspeed_tpu_torch.serving.router import Replica, ReplicaRouter
 __all__ = [
     "CANCELLED", "COMPLETED", "DECODING", "DEGRADED", "DRAINING", "EXPIRED",
     "PREFILLING", "QUEUED", "READY", "SHED", "STARTING", "TERMINAL_STATES",
-    "ContinuousBatcher", "FrontendError", "GenerateClient", "Replica",
-    "ReplicaRouter", "RequestManager", "ServeRequest", "ServingFrontend",
-    "ShedError",
+    "ContinuousBatcher", "FleetController", "FrontendError", "GenerateClient",
+    "Replica", "ReplicaRouter", "RequestManager", "ServeRequest",
+    "ServingFrontend", "ShedError", "WarmStartCache", "warm_key",
 ]

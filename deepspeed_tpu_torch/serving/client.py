@@ -88,31 +88,20 @@ class GenerateClient:
     # ------------------------------------------------------------------
     # API
     # ------------------------------------------------------------------
-    @staticmethod
-    def _payload(prompt, max_new_tokens, deadline_s, tier) -> Dict:
+    def generate(self, prompt: List[int], *,
+                 max_new_tokens: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
+                 priority: Optional[int] = None,
+                 max_retries: int = 0,
+                 max_backoff_s: float = 30.0) -> Dict:
+        """Unary generate. ``max_retries > 0`` resubmits after a 429,
+        sleeping the server's ``Retry-After`` (capped) — the reference
+        client-side half of the backpressure contract."""
         payload: Dict = {"prompt": [int(t) for t in prompt]}
         if max_new_tokens is not None:
             payload["max_new_tokens"] = int(max_new_tokens)
         if deadline_s is not None:
             payload["deadline_s"] = float(deadline_s)
-        if tier is not None:
-            payload["tier"] = str(tier)
-        return payload
-
-    def generate(self, prompt: List[int], *,
-                 max_new_tokens: Optional[int] = None,
-                 deadline_s: Optional[float] = None,
-                 priority: Optional[int] = None,
-                 tier: Optional[str] = None,
-                 max_retries: int = 0,
-                 max_backoff_s: float = 30.0) -> Dict:
-        """Unary generate. ``max_retries > 0`` resubmits after a 429,
-        sleeping the server's ``Retry-After`` (capped) — the reference
-        client-side half of the backpressure contract. ``tier`` is the SLO
-        class the protocol's body carries (``latency`` / ``throughput`` /
-        ``batch``; None = the server's default; the reference's client
-        does not send it)."""
-        payload = self._payload(prompt, max_new_tokens, deadline_s, tier)
         attempts = 0
         while True:
             conn, resp = self._post(payload, priority)
@@ -131,15 +120,18 @@ class GenerateClient:
     def stream(self, prompt: List[int], *,
                max_new_tokens: Optional[int] = None,
                deadline_s: Optional[float] = None,
-               priority: Optional[int] = None,
-               tier: Optional[str] = None) -> Iterator[Dict]:
+               priority: Optional[int] = None) -> Iterator[Dict]:
         """Streaming generate: yields the SSE events as dicts
         (``{"event": "token"|"migrated"|"end", "data": {...}}``); the
         final event is always ``end`` with the terminal record. Raises
         :class:`FrontendError` on a non-200 (e.g. 429 before the stream
         opened)."""
-        payload = {**self._payload(prompt, max_new_tokens, deadline_s, tier),
-                   "stream": True}
+        payload: Dict = {"prompt": [int(t) for t in prompt],
+                         "stream": True}
+        if max_new_tokens is not None:
+            payload["max_new_tokens"] = int(max_new_tokens)
+        if deadline_s is not None:
+            payload["deadline_s"] = float(deadline_s)
         conn, resp = self._post(payload, priority)
         try:
             if resp.status != 200:

@@ -29,8 +29,8 @@ maps SIGTERM onto a drain (of one named replica or the whole pool) with
 migration, run from a helper thread so the signal handler itself stays
 async-safe.
 
-Elastic lifecycle (the hooks of the reference's ``FleetController``,
-``deepspeed_tpu/serving/fleet.py``, which is not ported yet): every
+Elastic lifecycle (the hooks of :class:`~deepspeed_tpu_torch.serving.
+fleet.FleetController`): every
 :class:`Replica` carries a process-unique ``incarnation`` token, and routes
 remember the incarnation that minted their uid. A crashed replica's queued
 requests are captured post-mortem (:meth:`Replica.capture_dead`) and
@@ -177,6 +177,7 @@ class Replica:
             sub.events.put({"event": "end", "replica": self.name, **rec})
         self._subs.clear()
         self.batcher.close()
+        self._drop_engine_hook()
 
     @property
     def health(self) -> str:
@@ -343,7 +344,17 @@ class Replica:
         self._subs.clear()
         self._update_stats()
         self.batcher.close()
+        self._drop_engine_hook()
         return captured
+
+    def _drop_engine_hook(self) -> None:
+        """A closed or dead replica's ledger outlives it (the router keeps
+        it to answer ``resolve()`` for a retired incarnation): drop the
+        ledger's hook into the engine, so the engine's weights and KV pool
+        go with the replica instead of living as long as the ledger."""
+        mgr = getattr(self.batcher, "manager", None)
+        if mgr is not None:
+            mgr.release_fn = None
 
     # ------------------------------------------------------------------
     # worker loop (the only batcher-touching thread)
@@ -535,6 +546,11 @@ class ReplicaRouter:
         self.replicas: Dict[str, Replica] = {r.name: r for r in replicas}
         self.clock = clock
         self._lock = threading.Lock()
+        # router submits that reached a replica but have not recorded their
+        # route yet, per replica name; a drain or crash capture that finds
+        # no route waits for them (:meth:`_await_route`)
+        self._landing: Dict[str, int] = {}              #: guarded_by: _lock
+        self._landed = threading.Condition(self._lock)
         # insertion-ordered; TERMINAL routes older than max_route_history
         # are evicted so a long-running front-end does not grow
         # per-request state forever. A still-live head pauses eviction
@@ -632,11 +648,14 @@ class ReplicaRouter:
             if attempts >= cap:
                 break
             attempts += 1
+            with self._lock:
+                self._landing[rep.name] = self._landing.get(rep.name, 0) + 1
             try:
                 uid = rep.submit(prompt, max_new_tokens=max_new_tokens,
                                  deadline_s=deadline_s, priority=priority,
                                  tier=tier, events=events,
                                  trace_id=trace_id)
+                return self._record_route(rep, uid, events, _ruid)
             except ShedError as e:
                 if not e.retryable:
                     raise            # oversize etc: no sibling can help
@@ -644,8 +663,10 @@ class ReplicaRouter:
                 hint = max(hint, e.retry_after_s or 0.0)
                 with self._lock:
                     self.counters["failover"] += 1
-                continue
-            return self._record_route(rep, uid, events, _ruid)
+            finally:
+                with self._landed:
+                    self._landing[rep.name] -= 1
+                    self._landed.notify_all()
         with self._lock:
             self.counters["rejected"] += 1
         if last is None:
@@ -795,6 +816,8 @@ class ReplicaRouter:
             else:
                 req, events, pre_state, manifest, sent = item
             ruid = self._ruid_for(name, rep.incarnation, req.uid)
+            if ruid is None:
+                ruid = self._await_route(name, rep.incarnation, req.uid)
             remaining = (None if req.deadline is None
                          else req.deadline - self.clock())
             if remaining is not None and remaining <= 0:
@@ -976,6 +999,20 @@ class ReplicaRouter:
 
     def _ruid_for(self, replica: str, inc: int, uid: int) -> Optional[int]:
         with self._lock:
+            return self._by_loc.get((replica, inc, uid))
+
+    def _await_route(self, replica: str, inc: int,
+                     uid: int) -> Optional[int]:
+        """The route of a captured request that a router submit landed on
+        ``replica`` just before the capture: the submitting thread records
+        it once the replica answers, so wait until no router submit to
+        ``replica`` is in flight and look again (None: the request came
+        from elsewhere). Without the wait the capture would be re-homed
+        under a fresh uid while the client's uid recorded the request the
+        drain shed."""
+        with self._landed:
+            self._landed.wait_for(lambda: not self._landing.get(replica),
+                                  timeout=self.cfg.submit_timeout_s)
             return self._by_loc.get((replica, inc, uid))
 
     # ------------------------------------------------------------------

@@ -361,24 +361,17 @@ def test_unported_options_name_their_roadmap_item(kw, item):
         InferenceEngineV2(tm, device="cpu", **KW, **kw)
 
 
-def _refuse_fleet():
-    from deepspeed_tpu_torch.config import from_config
-
-    from_config({"serving": {"enabled": True, "fleet": {"enabled": True}}})
-
-
 def _refuse_moe_storm():
     from deepspeed_tpu_torch.tools.serve_drill import run_scenario
 
     run_scenario("moe-storm", device="cpu")
 
 
-@pytest.mark.parametrize("refuse,item", [
-    (_refuse_fleet, "The serving layer above the engine"),
-    (_refuse_moe_storm, MOE)], ids=["serving.fleet", "moe-storm"])
+@pytest.mark.parametrize("refuse,item", [(_refuse_moe_storm, MOE)],
+                         ids=["moe-storm"])
 def test_unported_serving_parts_name_their_roadmap_item(refuse, item):
-    """The serving layer's refusals -- the elastic ``fleet`` section and
-    the ``moe-storm`` drill -- name their ROADMAP section 1 item too."""
+    """The serving layer's refusal -- the ``moe-storm`` drill -- names its
+    ROADMAP section 1 item too."""
     assert f"**{item}" in _roadmap_section_1()
     with pytest.raises(NotImplementedError, match=f'ROADMAP section 1, '
                                                   f'"{item}"'):

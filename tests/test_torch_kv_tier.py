@@ -861,7 +861,18 @@ def test_tiers_config_reaches_engine(tmp_path):
                 dict(nvme_max_mb=-1)):
         with pytest.raises(ValueError):
             KVTierConfig(**bad)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        from deepspeed_tpu_torch.offload import AsyncTensorSwapper
+    # autotune=True adopts the AIO bench's cached winner for the swap
+    # device (ops/aio_bench.py; no sweep when the cache holds one)
+    from deepspeed_tpu_torch.offload import AsyncTensorSwapper
 
-        AsyncTensorSwapper(tempfile.mkdtemp(dir=str(tmp_path)), autotune=True)
+    swap_dir = tempfile.mkdtemp(dir=str(tmp_path))
+    cache = os.path.join(str(tmp_path), "aio.json")
+    dev = f"{os.stat(swap_dir).st_dev}:buf"
+    with open(cache, "w") as f:
+        json.dump({dev: {"threads": 3, "chunk_mb": 2}}, f)
+    sw = AsyncTensorSwapper(swap_dir, autotune=True, autotune_cache=cache)
+    try:
+        assert (sw.num_threads, sw.chunk_bytes) == (3, 2 << 20)
+        assert sw.report()["autotuned"] == {"threads": 3, "chunk_mb": 2}
+    finally:
+        sw.close()

@@ -68,6 +68,14 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.serving.frontend\n"
         "import deepspeed_tpu_torch.serving.client\n"
         "import deepspeed_tpu_torch.tools.serve_drill\n"
+        "import deepspeed_tpu_torch.parallel\n"
+        "import deepspeed_tpu_torch.parallel.cost_model\n"
+        "import deepspeed_tpu_torch.autotuning\n"
+        "import deepspeed_tpu_torch.autotuning.mesh_store\n"
+        "import deepspeed_tpu_torch.ops.aio_bench\n"
+        "import deepspeed_tpu_torch.serving.coldstart\n"
+        "import deepspeed_tpu_torch.serving.fleet\n"
+        "import deepspeed_tpu_torch.tools.elastic_drill\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "

@@ -600,14 +600,15 @@ def test_drain_matches_reference(sides):
 
 
 def test_config_serving_section_and_fleet_refusal():
-    """``serving`` builds with the reference's defaults and validators;
-    ``fleet`` passes only at its defaults and otherwise names its ROADMAP
-    item (``tests/test_torch_engine_features.py`` checks the title)."""
+    """``serving`` builds with the reference's defaults and validators,
+    its ``fleet`` section included (which no longer refuses anything but
+    its defaults: ``tests/test_torch_fleet.py`` holds it against the
+    reference case by case)."""
     from deepspeed_tpu.config.config import ServingConfig as Ref
     from deepspeed_tpu_torch.config import ServingConfig, from_config
 
     ref, port = Ref(), ServingConfig()
-    for sec in (None, "frontend", "router", "slo", "migration"):
+    for sec in (None, "frontend", "router", "fleet", "slo", "migration"):
         r = ref if sec is None else getattr(ref, sec)
         p = port if sec is None else getattr(port, sec)
         for k, v in r.model_dump().items():
@@ -615,13 +616,15 @@ def test_config_serving_section_and_fleet_refusal():
                 assert getattr(p, k) == v, (sec, k)
     cfg = from_config({"serving": {"enabled": True, "fleet": {
         "enabled": False, "max_replicas": 4}}})
-    assert cfg.serving.enabled and not hasattr(cfg.serving, "fleet")
+    assert cfg.serving.enabled and cfg.serving.fleet.max_replicas == 4
+    cfg = from_config({"serving": {"fleet": {"enabled": True,
+                                             "min_ready_floor": 2}}})
+    assert cfg.serving.fleet.enabled and cfg.serving.fleet.min_ready_floor == 2
     for bad in ({"slo": {"default_tier": "gold"}},
                 {"kv_low_watermark": 0.95},
                 {"migration": {"enabled": True}},
                 {"frontend": {"min_header_priority": 3}},
-                {"router": {"failover_attempts": -1}}):
+                {"router": {"failover_attempts": -1}},
+                {"fleet": {"min_replicas": 0}}):
         with pytest.raises(ValueError):
             from_config({"serving": bad})
-    with pytest.raises(NotImplementedError, match="serving.fleet"):
-        from_config({"serving": {"fleet": {"enabled": True}}})
