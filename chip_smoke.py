@@ -293,6 +293,44 @@ Phases, in order (any failure raises and the script exits non-zero):
               ``heartbeat_timeout_s`` (10 s), beside the card's name and
               power limit.
 
+13. checkpoint -- engine checkpoints and the resilience layer. (a)
+              ``llama3-1b`` at full width and depth with phase 5's config
+              and batch (plus a WarmupLR schedule, so its state rides the
+              tag): engine A (seed 0) takes 2 ``train_batch`` steps, saves
+              synchronously (tag ``global_step2``: params, AdamW's moments
+              and count, the scaler, the schedule, ``meta.json``) and takes
+              2 more; engine B (seed 1, other weights) loads the tag: its
+              whole state equals A's at the save bit for bit, and its 2
+              steps give A's losses and leaves bit for bit; the gate is
+              ``torch.equal`` because a second run of A's four steps, checked
+              here too, gives the same bits.
+              Prints save / load ms, bytes, GB/s and the temporary
+              directory's filesystem and free bytes. (b) an async save under
+              ``resilience.enabled`` with both ``async_save`` flags:
+              ``save_checkpoint`` returns after the device-to-host copy (its
+              ms printed), the next step runs while the commit thread writes
+              (its ms beside the step before and phase 5's), ``latest``
+              names the tag only once its manifest is there (polled every
+              2 ms), the tag verifies, ``shutdown()`` joins the commit, at
+              most two tags on disk (at 2 layers when the disk cannot hold
+              a second full tag). (c) on tiny engines (width 256, bf16): a
+              torn newest tag falls back to the previous one, keep-last-K
+              collects, an injected ``io_error`` is retried, a
+              ``nan_grads`` step is skipped with params and moments
+              unchanged, SIGTERM gives a verified, loadable
+              ``preempt_step2``, a heartbeat with a 5 s deadline reports no
+              hang. (d) ``tools/crash_resume.py`` in two subprocesses: run
+              0 tears the step-3 tag and hard-crashes in step 4 (exit 43),
+              run 1 resumes from step 2, heals one NaN step and reaches step
+              6. (e) ``init_inference(model, checkpoint=<(a)'s dir>)`` gives
+              the greedy tokens of ``params=`` (A's params at the save) for
+              two prompts of 16 new tokens; ``consolidate_to_fp32`` equals
+              A's saved masters bit for bit; ``save_16bit_model`` writes the
+              same names. D, E and F must launch; the first launch of each
+              in (a) is replayed through its plain version. After the phase
+              the card's allocated memory is back within 16 MB and every
+              thread the phase started has ended.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -336,6 +374,7 @@ RMS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # J, forward and backward
 STREAM_REL = 1e-6              # K's sum vs its plain version
 SERVE_KERNELS = ("paged_decode", "paged_past", "chunk_self", "flash_fwd")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PHASE_NOTES: dict = {}         # readings a later phase prints beside its own
 
 
 def log(msg: str) -> None:
@@ -2299,6 +2338,7 @@ def train(torch, fa, KERNELS, reset_counts):
     flops_per_token = 6 * n + 12 * cfg.num_layers * TRAIN_SEQ \
         * cfg.hidden_size
     steady = float(np.median(step_s[1:]))
+    PHASE_NOTES["train_step_ms"] = round(steady * 1e3, 1)
     tps = tokens / steady
     log(f"train [{torch.cuda.get_device_name(0)}]: step ms "
         f"{[round(s * 1e3, 1) for s in step_s]} (4 train_batch, then "
@@ -4331,6 +4371,619 @@ def fleet(torch, pa, qm, fa, KERNELS, reset_counts, device="cuda"):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: engine checkpoints and the resilience layer
+# ---------------------------------------------------------------------------
+
+CKPT_KERNELS = TRAIN_KERNELS   # D, E, F while training (v1 serving: counted)
+CKPT_MODEL_KW: dict = {}       # overrides of phase 5's model (CPU tests)
+CKPT_SEQ = None                # tokens a row (None: phase 5's TRAIN_SEQ)
+CKPT_STEPS = 2                 # train_batch steps before the save, and after
+CKPT_SCHEDULE = {"type": "WarmupLR", "params": {
+    "warmup_min_lr": 0.0, "warmup_max_lr": 1e-4, "warmup_num_steps": 10,
+    "warmup_type": "linear"}}
+CKPT_PROMPTS = (37, 128)       # (e): two prompts, greedy
+CKPT_NEW = 16
+CKPT_MEM_SLACK = 16 << 20      # card bytes the phase may leave allocated
+CKPT_HB_DEADLINE_S = 5.0       # (c)'s heartbeat step deadline
+
+
+class CheckpointReplay(TrainReplay):
+    """Phase 13's :class:`Replay`: the first launch of each of
+    ``CKPT_KERNELS`` (stage ``checkpoint``)."""
+
+    def __init__(self, torch, fa):
+        super().__init__(torch, fa)
+        self.REQUIRED = {(k, "checkpoint") for k in CKPT_KERNELS}
+
+    def _wanted(self, target, name, x) -> bool:
+        return self.stage is not None and super()._wanted(target, name, x)
+
+
+def ckpt_model():
+    """Phase 5's model (``CKPT_MODEL_KW`` applied)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import TransformerLM
+    from deepspeed_tpu_torch.tools.train_profile import train_model_config
+
+    return TransformerLM(dataclasses.replace(train_model_config(),
+                                             **CKPT_MODEL_KW))
+
+
+def ckpt_config(seed: int, **extra) -> dict:
+    """Phase 5's ``TRAIN_CONFIG`` with a warm-up schedule (so the
+    scheduler's state rides the checkpoint) and ``seed``."""
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    return {**TRAIN_CONFIG, "scheduler": CKPT_SCHEDULE, "seed": seed,
+            **extra}
+
+
+def ckpt_batch(vocab: int) -> dict:
+    from deepspeed_tpu_torch.tools.train_profile import (TRAIN_CONFIG,
+                                                         TRAIN_SEQ)
+
+    rng = np.random.default_rng(0)
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    return {"input_ids": rng.integers(
+        0, vocab, (micro, CKPT_SEQ or TRAIN_SEQ)).astype(np.int32)}
+
+
+def state_snapshot(eng) -> dict:
+    """Host copies of an engine's whole training state: every param leaf,
+    every optimizer leaf (by its param's name), the update count, the scaler, the
+    schedule's state and the step counters."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{prefix}{k}/")
+        else:
+            yield prefix[:-1], tree
+
+    names = [n for n, _ in walk(eng.params, "")]
+    snap = {f"params/{n}": t.detach().to("cpu", copy=True)
+            for n, t in walk(eng.params, "")}
+    for key, val in eng.opt_state.items():
+        if isinstance(val, list):     # per leaf, in the engine's leaf order
+            for n, t in zip(names, val):
+                snap[f"opt/{key}/{n}"] = t.detach().to("cpu", copy=True)
+        else:
+            snap[f"opt/{key}"] = val
+    snap["scaler"] = dict(eng.scaler_state)
+    snap["lr_scheduler"] = (None if eng.lr_scheduler is None
+                            else eng.lr_scheduler.state_dict())
+    snap["counters"] = (eng.global_steps, eng.global_samples,
+                        eng.micro_steps, eng.skipped_steps)
+    return snap
+
+
+def snapshots_equal(torch, got: dict, want: dict) -> list:
+    """Keys of two snapshots that differ (tensors by ``torch.equal``)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        same = (torch.equal(a, b) and a.dtype == b.dtype
+                if isinstance(a, torch.Tensor) else a == b)
+        if not same:
+            bad.append(k)
+    return sorted(bad)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def tag_dirs(root: str) -> list:
+    """Every checkpoint tag directory under ``root`` (its checkpoint
+    directories one level down)."""
+    out = []
+    for d, dirs, files in os.walk(root):
+        if "meta.json" in files:
+            out.append(os.path.relpath(d, root))
+    return sorted(out)
+
+
+def ckpt_train(eng, batch, steps: int, sync) -> tuple:
+    """``steps`` train_batch steps: (losses, wall ms of each)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(eng.train_batch(itertools.repeat(batch)))
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+class LatestWatch:
+    """Polls a checkpoint directory every 20 ms while an async commit runs:
+    whenever ``latest`` names ``tag``, the tag's manifest must already be
+    there and its ``.staging`` sentinel gone. (The manifest's sha256 pass
+    alone takes seconds at full size, so 20 ms sees a wrong order.)"""
+
+    def __init__(self, ckpt_dir: str, tag: str):
+        import threading
+
+        from deepspeed_tpu_torch.resilience.manager import (MANIFEST_FILE,
+                                                            STAGING_FILE)
+
+        self.latest = os.path.join(ckpt_dir, "latest")
+        self.manifest = os.path.join(ckpt_dir, tag, MANIFEST_FILE)
+        self.staging = os.path.join(ckpt_dir, tag, STAGING_FILE)
+        self.tag = tag
+        self.polls = self.seen_staged = 0
+        self.violations = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="latest-watch")
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.polls += 1
+            try:
+                with open(self.latest) as f:
+                    named = f.read().strip()
+            except OSError:
+                named = None
+            if named != self.tag:
+                self.seen_staged += os.path.exists(self.staging)
+                continue
+            if not os.path.exists(self.manifest) \
+                    or os.path.exists(self.staging):
+                self.violations.append(self.polls)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self
+
+
+def ckpt_roundtrip(torch, tmp, device, sync, card):
+    """(a): engine A trains, saves synchronously, trains on; engine B (seed
+    1) loads the tag, equals A's state at the save and repeats A's steps.
+    Returns A's state at the save and the numbers."""
+    import shutil
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.runtime.checkpoint import save_16bit_model
+
+    model = ckpt_model()
+    V = model.cfg.vocab_size
+    batch = ckpt_batch(V)
+    ckpt = os.path.join(tmp, "a")
+    eng, *_ = initialize(model, ckpt_config(0), device=device)
+    losses_a, _ = ckpt_train(eng, batch, CKPT_STEPS, sync)
+    saved = state_snapshot(eng)
+    t = time.perf_counter()
+    eng.save_checkpoint(ckpt)
+    sync()
+    save_ms = (time.perf_counter() - t) * 1e3
+    nbytes = dir_bytes(ckpt)
+    after_a, _ = ckpt_train(eng, batch, CKPT_STEPS, sync)
+    final_a = {k: v for k, v in state_snapshot(eng).items()
+               if k.startswith("params/")}
+    del eng
+    free_card(torch, device)
+    # the gate's premise: A's steps are deterministic on this device (a
+    # second run of them, no save between, gives the same bits)
+    eng, *_ = initialize(model, ckpt_config(0), device=device)
+    again, _ = ckpt_train(eng, batch, 2 * CKPT_STEPS, sync)
+    bad = snapshots_equal(torch, {k: v for k, v in state_snapshot(
+        eng).items() if k.startswith("params/")}, final_a)
+    del eng
+    free_card(torch, device)
+    if again != losses_a + after_a or bad:
+        raise AssertionError(f"checkpoint (a): A's steps are not "
+                             f"deterministic: losses {again} vs "
+                             f"{losses_a + after_a}, leaves {bad[:8]}")
+
+    eng, *_ = initialize(model, ckpt_config(1), device=device)
+    fresh = state_snapshot(eng)
+    if not [k for k in saved if k.startswith("params/")
+            and not torch.equal(fresh[k], saved[k])]:
+        raise AssertionError("checkpoint (a): engine B starts from A's "
+                             "weights")
+    t = time.perf_counter()
+    path, client = eng.load_checkpoint(ckpt)
+    sync()
+    load_ms = (time.perf_counter() - t) * 1e3
+    bad = snapshots_equal(torch, state_snapshot(eng), saved)
+    if bad:
+        raise AssertionError(f"checkpoint (a): loaded state differs from "
+                             f"the saved state at {bad[:8]}")
+    out16 = save_16bit_model(eng, tmp, "model_fp16.npz")
+    after_b, _ = ckpt_train(eng, batch, CKPT_STEPS, sync)
+    final_b = {k: v for k, v in state_snapshot(eng).items()
+               if k.startswith("params/")}
+    del eng
+    free_card(torch, device)
+    if after_b != after_a:
+        raise AssertionError(f"checkpoint (a): resumed losses {after_b} != "
+                             f"A's {after_a}")
+    bad = snapshots_equal(torch, final_b, final_a)
+    if bad:
+        raise AssertionError(f"checkpoint (a): resumed leaves differ from "
+                             f"A's at {bad[:8]}")
+    free = shutil.disk_usage(tmp)
+    log(f"checkpoint (a) [{card}]: {ckpt_model().cfg.num_layers} layers, "
+        f"losses {losses_a} then {after_a} (A) / {after_b} (B resumed, "
+        f"equal bit for bit, every leaf torch.equal; a second run of A's "
+        f"{2 * CKPT_STEPS} steps equal too); loaded state equals "
+        f"the saved state bit for bit ({len(saved)} entries); save "
+        f"{save_ms:.1f} ms, load {load_ms:.1f} ms, {nbytes} bytes, save "
+        f"{nbytes / save_ms / 1e6:.3f} GB/s, load "
+        f"{nbytes / load_ms / 1e6:.3f} GB/s; {tmp}: {fs_type(tmp)}, "
+        f"disk_usage total {free.total}, used {free.used}, free "
+        f"{free.free}")
+    return {"saved": saved, "ckpt": ckpt, "bytes": nbytes, "fp16": out16,
+            "save_ms": save_ms, "load_ms": load_ms, "V": V,
+            "model": model}
+
+
+def ckpt_async(torch, tmp, device, sync, card, tag_bytes: int):
+    """(b): an async save under ``resilience.enabled`` with both
+    ``checkpoint.async_save`` flags, at (a)'s depth; the next step runs
+    while the commit thread writes. The watch on ``latest`` starts after
+    that step, so its polls are not in the step's time."""
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.resilience.manager import (STAGING_FILE,
+                                                        verify_tag_dir)
+    from deepspeed_tpu_torch.runtime.checkpoint import read_latest_tag
+
+    free = shutil.disk_usage(tmp).free
+    if free < tag_bytes:
+        raise AssertionError(f"checkpoint (b): {tmp} has {free} bytes free, "
+                             f"less than a second {tag_bytes}-byte tag")
+    model = ckpt_model()
+    batch = ckpt_batch(model.cfg.vocab_size)
+    ckpt = os.path.join(tmp, "b")
+    eng, *_ = initialize(model, ckpt_config(0, checkpoint={
+        "async_save": True}, resilience={"enabled": True, "checkpoint": {
+            "async_save": True, "keep_last_k": 2}}), device=device)
+    before = {t.ident for t in threading.enumerate()}
+    _, step_ms = ckpt_train(eng, batch, 2, sync)
+    tag = f"global_step{eng.global_steps}"
+    t = time.perf_counter()
+    eng.save_checkpoint(ckpt)
+    stage_ms = (time.perf_counter() - t) * 1e3
+    commit = [t for t in threading.enumerate()
+              if t.ident not in before and t.name.startswith("ckpt")]
+    mgr = eng._primary_mgr
+    _, overlap_ms = ckpt_train(eng, batch, 1, sync)
+    running = [t.name for t in commit if t.is_alive()]
+    watch = LatestWatch(ckpt, tag)
+    eng.shutdown()
+    watch.stop()
+    alive = [t.name for t in commit if t.is_alive()]
+    # the manager times its save from before the stage to ``latest``
+    save_ms = mgr.async_stats["last_latency_s"] * 1e3
+    commit_ms = save_ms - stage_ms
+    mgr_commits = mgr.async_stats["commits"]
+    ok, why = verify_tag_dir(os.path.join(ckpt, tag))
+    tags = tag_dirs(tmp)
+    del eng, mgr
+    free_card(torch, device)
+    problems = []
+    if not ok:
+        problems.append(f"tag does not verify: {why}")
+    if read_latest_tag(ckpt) != tag:
+        problems.append(f"latest names {read_latest_tag(ckpt)}")
+    if os.path.exists(os.path.join(ckpt, tag, STAGING_FILE)):
+        problems.append("the .staging sentinel is left")
+    if watch.violations:
+        problems.append(f"latest named the tag before its manifest "
+                        f"({len(watch.violations)} polls)")
+    if alive or mgr_commits != 1:
+        problems.append(f"commits {mgr_commits}, commit threads alive "
+                        f"after shutdown {alive}")
+    if len(tags) > 2:
+        problems.append(f"{len(tags)} tags on disk: {tags}")
+    if problems:
+        raise AssertionError(f"checkpoint (b): {problems}")
+    log(f"checkpoint (b) [{card}]: {model.cfg.num_layers} layers (free "
+        f"bytes {free} for a {tag_bytes}-byte tag); stage (device -> host "
+        f"copy) {stage_ms:.1f} ms, commit (end of stage -> latest: writes, "
+        f"manifest sha256, latest) {commit_ms:.1f} ms, save start -> latest "
+        f"{save_ms:.1f} ms, "
+        f"the step during the commit {overlap_ms[0]:.1f} ms (commit threads "
+        f"still running at its end: {running}) beside {step_ms[-1]:.1f} ms "
+        f"before the save and phase 5's "
+        f"{PHASE_NOTES.get('train_step_ms', 'not run')} ms; latest moved "
+        f"after the manifest ({watch.polls} polls, staged seen "
+        f"{watch.seen_staged}); tag verifies; tags on disk {tags}")
+    return {"stage_ms": stage_ms, "commit_ms": commit_ms,
+            "overlap_ms": overlap_ms[0]}
+
+
+def ckpt_tiny_engine(device, **resilience):
+    """(c)'s engine: the tiny preset (widened on the card to a head dim the
+    kernels take), resilience on."""
+    import torch
+
+    from deepspeed_tpu_torch import TransformerLM, get_preset, initialize
+    from deepspeed_tpu_torch.tools.crash_resume import _CARD_TINY
+
+    kw = dict(_CARD_TINY) if torch.device(device).type == "cuda" else {}
+    res = {"enabled": True, **resilience}
+    eng, *_ = initialize(TransformerLM(get_preset("tiny", **kw)), {
+        "train_micro_batch_size_per_gpu": 2,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+        "steps_per_print": 100, "resilience": res}, device=device)
+    return eng
+
+
+def tiny_steps(eng, n: int, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        loss = eng.forward({"input_ids": rng.integers(0, 256, (2, 32))})
+        eng.backward(loss)
+        eng.step()
+        out.append(float(loss.detach()))
+    return out
+
+
+def ckpt_drill(torch, tmp, device, card):
+    """(c): the reference's resilience outcomes on tiny engines."""
+    import signal
+
+    from deepspeed_tpu_torch.resilience import (set_injector,
+                                                tear_checkpoint_dir)
+    from deepspeed_tpu_torch.resilience.manager import verify_tag_dir
+    from deepspeed_tpu_torch.runtime.checkpoint import read_latest_tag
+
+    out = {}
+    prev_term = signal.getsignal(signal.SIGTERM)
+    try:
+        # torn newest tag -> the load falls back to the previous verified one
+        d = os.path.join(tmp, "torn")
+        eng = ckpt_tiny_engine(device)
+        tiny_steps(eng, 2)
+        eng.save_checkpoint(d)
+        tiny_steps(eng, 1)
+        eng.save_checkpoint(d)
+        eng.shutdown()
+        tear_checkpoint_dir(os.path.join(d, "global_step3"), mode="truncate")
+        eng = ckpt_tiny_engine(device)
+        path, _ = eng.load_checkpoint(d)
+        rep = eng.resilience_report()["checkpoint"]
+        eng.shutdown()
+        if not (path.endswith("global_step2") and eng.global_steps == 2
+                and rep["verify_failures"] >= 1
+                and rep["load_fallbacks"] == 1
+                and read_latest_tag(d) == "global_step2"):
+            raise AssertionError(f"checkpoint (c) torn: {path} {rep}")
+        out["torn"] = {k: rep[k] for k in ("verify_failures",
+                                           "load_fallbacks")}
+        # keep-last-K
+        d = os.path.join(tmp, "gc")
+        eng = ckpt_tiny_engine(device, checkpoint={"keep_last_k": 2})
+        for _ in range(4):
+            tiny_steps(eng, 1)
+            eng.save_checkpoint(d)
+        tags = sorted(t for t in os.listdir(d)
+                      if os.path.isdir(os.path.join(d, t)))
+        gc_removed = eng.resilience_report()["checkpoint"]["gc_removed"]
+        eng.shutdown()
+        if tags != ["global_step3", "global_step4"] or gc_removed != 2 or \
+                not all(verify_tag_dir(os.path.join(d, t))[0] for t in tags):
+            raise AssertionError(f"checkpoint (c) keep-last-K: {tags} "
+                                 f"gc_removed {gc_removed}")
+        out["gc"] = tags
+        # an injected IO error is retried and the save lands
+        d = os.path.join(tmp, "io")
+        eng = ckpt_tiny_engine(device, retry={"max_attempts": 3,
+                                              "base_delay_s": 0.001},
+                               faults=[{"kind": "io_error", "times": 2}])
+        tiny_steps(eng, 1)
+        eng.save_checkpoint(d)
+        retries = eng.resilience_report()["checkpoint"]["io_retries"]
+        eng.shutdown()
+        set_injector(None)
+        ok, why = verify_tag_dir(os.path.join(d, "global_step1"))
+        if retries != 2 or not ok:
+            raise AssertionError(f"checkpoint (c) io_error: retries "
+                                 f"{retries}, {why}")
+        out["io_retries"] = retries
+        # a nan_grads step is healed, params and moments unchanged by it
+        eng = ckpt_tiny_engine(device, faults=[{"kind": "nan_grads",
+                                                "step": 2}])
+        tiny_steps(eng, 2)
+        before = state_snapshot(eng)
+        tiny_steps(eng, 1, seed=7)
+        after = state_snapshot(eng)
+        changed = [k for k in snapshots_equal(torch, after, before)
+                   if k != "counters"]
+        rep = eng.resilience_report()
+        eng.shutdown()
+        set_injector(None)
+        if eng.skipped_steps != 1 or changed or \
+                rep["guard"]["bad_steps_skipped"] != 1:
+            raise AssertionError(f"checkpoint (c) nan_grads: skipped "
+                                 f"{eng.skipped_steps}, changed {changed}")
+        out["nan_skipped"] = eng.skipped_steps
+        # SIGTERM -> a loadable emergency tag at the next boundary
+        d = os.path.join(tmp, "preempt")
+        eng = ckpt_tiny_engine(device)
+        tiny_steps(eng, 1)
+        eng.save_checkpoint(d)              # the manager + its handler
+        if not eng._primary_mgr._preempt_handler_installed:
+            raise AssertionError("checkpoint (c): no SIGTERM handler (not "
+                                 "the main thread)")
+        os.kill(os.getpid(), signal.SIGTERM)
+        tiny_steps(eng, 1)                  # the boundary fires the save
+        emergency = eng.resilience_report()["checkpoint"]["emergency_saves"]
+        eng.shutdown()
+        tags = [t for t in os.listdir(d) if t.startswith("preempt")]
+        eng = ckpt_tiny_engine(device)
+        path, _ = eng.load_checkpoint(d)
+        resumed = tiny_steps(eng, 1, seed=3)
+        eng.shutdown()
+        if emergency != 1 or tags != ["preempt_step2"] or \
+                not verify_tag_dir(os.path.join(d, tags[0]))[0] or \
+                not path.endswith("preempt_step2") or \
+                not np.isfinite(resumed[0]):
+            raise AssertionError(f"checkpoint (c) SIGTERM: emergency "
+                                 f"{emergency}, tags {tags}, path {path}")
+        out["preempt"] = tags
+        # a heartbeat with a short deadline reports no hang
+        hb = os.path.join(tmp, "hb")
+        eng = ckpt_tiny_engine(device, heartbeat={
+            "enabled": True, "dir": hb, "interval_s": 0.05, "poll_s": 0.05,
+            "deadline_s": CKPT_HB_DEADLINE_S,
+            "collective_deadline_s": None})
+        tiny_steps(eng, 3)
+        time.sleep(0.2)                     # a few beats after the steps
+        rep = eng.resilience_report()
+        eng.shutdown()
+        with open(os.path.join(hb, "heartbeat_0.json")) as f:
+            beat = json.load(f)
+        if rep["heartbeat"]["counters"]["hangs_detected"] or \
+                rep["heartbeat"]["hang_detected"] or beat["step"] < 1:
+            raise AssertionError(f"checkpoint (c) heartbeat: {rep} {beat}")
+        out["heartbeat_step"] = beat["step"]
+    finally:
+        set_injector(None)
+        with contextlib.suppress(ValueError):   # not the main thread
+            signal.signal(signal.SIGTERM, prev_term)
+    log(f"checkpoint (c) [{card}]: torn newest fell back "
+        f"{out['torn']}; keep-last-K left {out['gc']}; io_error retried "
+        f"{out['io_retries']} times and landed; nan_grads step skipped "
+        f"({out['nan_skipped']}), params and moments unchanged; SIGTERM "
+        f"gave {out['preempt']}, verified and loaded; heartbeat (deadline "
+        f"{CKPT_HB_DEADLINE_S} s) no hang, last beat at step "
+        f"{out['heartbeat_step']}")
+    return out
+
+
+def ckpt_serve(torch, a, device, card):
+    """(e): ``init_inference(model, checkpoint=)`` against
+    ``init_inference(model, params=)`` on A's params at the save; the
+    consolidated fp32 masters and the 16-bit export's names."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.runtime.checkpoint import consolidate_to_fp32
+
+    saved = {k[len("params/"):]: v for k, v in a["saved"].items()
+             if k.startswith("params/")}
+    flat = consolidate_to_fp32(a["ckpt"])
+    if set(flat) != set(saved):
+        raise AssertionError(f"checkpoint (e): consolidated names "
+                             f"{sorted(set(flat) ^ set(saved))[:8]}")
+    bad = [n for n, w in saved.items()
+           if not np.array_equal(flat[n].view(np.uint32),
+                                 w.float().numpy().view(np.uint32))]
+    if bad:
+        raise AssertionError(f"checkpoint (e): consolidated masters differ "
+                             f"at {bad[:8]}")
+    with np.load(a["fp16"]) as z:
+        names16 = set(z.files)
+    if names16 != set(saved):
+        raise AssertionError(f"checkpoint (e): save_16bit_model names "
+                             f"{sorted(names16 ^ set(saved))[:8]}")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, a["V"], (1, n)).astype(np.int64)
+               for n in CKPT_PROMPTS]
+    model = a["model"]
+
+    def tokens(**kw):
+        eng = tds.init_inference(model, device=device, **kw)
+        out = [eng.generate(p, max_new_tokens=CKPT_NEW)[0, p.shape[1]:]
+               for p in prompts]
+        del eng
+        free_card(torch, device)
+        return [t.tolist() for t in out]
+
+    from deepspeed_tpu_torch.runtime.checkpoint import unflatten_tree
+
+    got = tokens(checkpoint=a["ckpt"])
+    want = tokens(params=unflatten_tree(saved))
+    if [len(t) for t in got] != [CKPT_NEW] * len(prompts):
+        raise AssertionError(f"checkpoint (e): generated {got}")
+    if got != want:
+        raise AssertionError(f"checkpoint (e): tokens from the checkpoint "
+                             f"{got} != from params= {want}")
+    log(f"checkpoint (e) [{card}]: init_inference(checkpoint=) greedy "
+        f"tokens equal params= for prompts of {list(CKPT_PROMPTS)} "
+        f"({CKPT_NEW} new tokens each): {got}; consolidate_to_fp32 equals "
+        f"A's saved masters bit for bit ({len(flat)} names); "
+        f"save_16bit_model wrote the same {len(names16)} names")
+    return got
+
+
+def checkpoint(torch, fa, KERNELS, reset_counts, device="cuda"):
+    """Phase 13: engine checkpoints and the resilience layer -- (a) the
+    round trip at phase 5's width and depth, (b) the async save, (c) the
+    resilience drill on tiny engines, (d) crash and resume in subprocesses,
+    (e) serving the checkpoint. Returns the phase's launches per kernel."""
+    import shutil
+    import tempfile
+    import threading
+
+    from deepspeed_tpu_torch.tools.crash_resume import check as check_drill
+    from deepspeed_tpu_torch.tools.crash_resume import drill
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else device
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    free_card(torch, device)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    threads = {t.ident for t in threading.enumerate()}
+    tmp = tempfile.mkdtemp(prefix="dstpu_ckpt_")
+    t_phase = time.perf_counter()
+    try:
+        reset_counts()
+        with CheckpointReplay(torch, fa) as replay:
+            replay.stage = "checkpoint"
+            a = ckpt_roundtrip(torch, tmp, device, sync, card)
+            replay.stage = None
+            ckpt_async(torch, tmp, device, sync, card, a["bytes"])
+            ckpt_drill(torch, tmp, device, card)
+            t = time.perf_counter()
+            result = drill(os.path.join(tmp, "crash"), device)
+            check_drill(result)
+            rep = result["run1"]["report"]
+            log(f"checkpoint (d) [{card}]: exit codes "
+                f"{result['exit_codes']}, run 1 resumed at step "
+                f"{result['run1']['start_step']} and reached "
+                f"{result['run1']['end_step']}; verify_failures "
+                f"{rep['checkpoint']['verify_failures']}, load_fallbacks "
+                f"{rep['checkpoint']['load_fallbacks']}, healed "
+                f"{rep['guard']['bad_steps_skipped']} NaN step; "
+                f"{(time.perf_counter() - t) * 1e3:.0f} ms")
+            ckpt_serve(torch, a, device, card)
+            del a
+        counts = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        missing = [k for k in CKPT_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"checkpoint: kernels never launched "
+                                 f"{missing} (counts {counts})")
+        errs = replay.check()
+        del replay
+        log(f"checkpoint: launches {counts}; captured launches replayed vs "
+            f"plain, max abs err {errs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch, device)
+    now = torch.cuda.memory_allocated() if cuda else 0
+    left = [t.name for t in threading.enumerate() if t.ident not in threads]
+    log(f"checkpoint [{card}]: card memory {base} bytes before the phase, "
+        f"{now} after; threads left {left}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if now - base > CKPT_MEM_SLACK or left:
+        raise AssertionError(f"checkpoint: {now - base} bytes of the card "
+                             f"still held, threads left {left}")
+    return counts
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -4393,6 +5046,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flt = fleet(torch, pa, qm, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = checkpoint(torch, fa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -4431,7 +5087,8 @@ def main() -> int:
                                              ("serve_features", feat),
                                              ("observability", obs),
                                              ("serving", srv),
-                                             ("fleet", flt))
+                                             ("fleet", flt),
+                                             ("checkpoint", ckpt))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

@@ -17,7 +17,11 @@ Ported so far, all on one device:
 - :func:`init_inference` and its v1 ``InferenceEngine`` (``forward``,
   ``generate`` with greedy, temperature, top-k and top-p sampling);
 - the training path of :func:`initialize` (fp32 master weights, bf16 or
-  fp32 compute, flash attention forward and backward on the card);
+  fp32 compute, flash attention forward and backward on the card), with
+  engine checkpoints (``runtime/checkpoint.py``), the resilience layer
+  (``resilience/``: checkpoint manager, step guard, retries, coordinator,
+  heartbeat watchdog), ``runtime/sanity.py`` and ``utils/tensor_fragment``;
+  :func:`init_inference` serves an engine checkpoint;
 - the op-builder registry (``ops.get_op_builder``: flash attention, the
   fused RMSNorm and the ``async_io`` library of the NVMe swapper,
   ``offload.swap``) and the card's measured memory rates
@@ -74,14 +78,29 @@ def init_inference(model=None, config=None, checkpoint=None, dtype=None,
     (``params``, ``max_seq_len``, ``device``, the card unless ``"cpu"``).
     ``dtype="int8"``/``"int4"`` serves quantized weights (kernels G/H);
     ``config`` goes through :func:`~deepspeed_tpu_torch.config.from_config`
-    (a mesh axis above 1 raises there). Loading a ``checkpoint`` is not
-    ported yet."""
+    (a mesh axis above 1 raises there).
+
+    ``checkpoint`` names an engine checkpoint directory (written by the
+    training engine's ``save_checkpoint``; pass the ``model``): its params
+    load onto the engine's device. A HuggingFace checkpoint directory
+    (``config.json`` + safetensors) is not ported yet and raises."""
+    import os
+
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "init_inference(checkpoint=...) is not ported yet: HF checkpoints "
-            "need models/hf.py and engine checkpoints runtime/checkpoint.py "
-            '(ROADMAP section 1, "Remainder" and "The rest of training"); '
-            'pass params= instead')
+    if checkpoint is not None and "params" not in kwargs:
+        if os.path.exists(os.path.join(checkpoint, "config.json")):
+            raise NotImplementedError(
+                "init_inference(checkpoint=<HF checkpoint dir>) is not "
+                "ported yet: it needs models/hf.py (ROADMAP section 1, "
+                '"Remainder"); engine checkpoint dirs load')
+        if model is None:
+            raise ValueError(
+                "init_inference(checkpoint=<engine checkpoint>) needs "
+                "the model; only HF checkpoint dirs are self-describing")
+        from deepspeed_tpu_torch.runtime.checkpoint import load_params_only
+        from deepspeed_tpu_torch.utils import resolve_device
+
+        kwargs["params"] = load_params_only(
+            checkpoint, device=resolve_device(kwargs.get("device", "cuda")))
     return InferenceEngine(model=model, config=config, dtype=dtype, **kwargs)

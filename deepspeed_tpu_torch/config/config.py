@@ -7,8 +7,9 @@ single-device training engine reads are ported: the batch triple,
 ``steps_per_print``, ``seed``, ``zero_optimization.stage`` (0-3 compute the
 same thing on one device, as the reference does on a one-device mesh),
 ``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
-``wall_clock_breakdown`` and the serving layer's ``serving``. Keys are
-checked:
+``wall_clock_breakdown``, ``checkpoint``, ``resilience``,
+``sanity_checks`` / ``sanity_check_batches`` and the serving layer's
+``serving``. Keys are checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
 the reference that this port does not implement raises
 ``NotImplementedError`` naming it -- nothing is silently ignored.
@@ -19,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import json
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 AUTO = "auto"
 _SECTION = object()     # an unported key whose mere presence raises
@@ -70,6 +71,8 @@ class _Section:
     UNPORTED: Dict[str, Any] = {}
     #: unported key -> the title of the ROADMAP section 1 item that ports it
     UNPORTED_ITEM: Dict[str, str] = {}
+    #: keys with a non-None default that also take None
+    NULLABLE: frozenset = frozenset()
 
     @classmethod
     def build(cls, values, path: str):
@@ -98,7 +101,8 @@ class _Section:
             if sub is not None and val is not None:
                 val = sub.build(val, where)
             elif fields[key].default not in (dataclasses.MISSING, None,
-                                             AUTO):
+                                             AUTO) and not (
+                    val is None and key in cls.NULLABLE):
                 _check_type(where, fields[key].default, val)
             kw[key] = val
         obj = cls(**kw)
@@ -638,6 +642,111 @@ class ServingConfig(_Checked):
 
 
 @dataclasses.dataclass
+class CheckpointConfig(_Section):
+    """``checkpoint`` (the reference's :410): ``async_save`` writes the
+    files and the ``latest`` pointer on a commit thread after a synchronous
+    device-to-host copy. The reference's other keys are taken at their
+    defaults only: nothing on one device reads them."""
+
+    UNPORTED = {"use_node_local_storage": False,
+                "parallel_write_pipeline": False, "tag_validation": "Warn",
+                "load_universal": False}
+    UNPORTED_ITEM = {k: "Mesh, ZeRO and tensor parallelism"
+                     for k in UNPORTED}
+
+    async_save: bool = False
+
+
+@dataclasses.dataclass
+class RetryConfig(_Section):
+    """``resilience.retry`` (the reference's :573): backoff for checkpoint
+    IO."""
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.25
+    deadline_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ResilienceCheckpointConfig(_Section):
+    """``resilience.checkpoint`` (the reference's :584): the preemption-safe
+    checkpoint lifecycle."""
+
+    keep_last_k: int = 3
+    verify: bool = True          # manifest+checksum on save, verify on load
+    save_on_preempt: bool = True  # SIGTERM -> emergency save at next boundary
+    exit_on_preempt: bool = False
+    preempt_exit_code: int = 42
+    # stage inline, commit (manifest -> latest -> GC) on a background thread;
+    # a .staging sentinel keeps crash-in-the-window tags load-rejectable
+    async_save: bool = False
+
+
+@dataclasses.dataclass
+class CoordinationConfig(_Section):
+    """``resilience.coordination`` (the reference's :597): step-boundary
+    CONTINUE / SAVE / ABORT decisions. One process decides locally; signals
+    are held across off-interval boundaries, never dropped."""
+
+    enabled: bool = True
+    interval_steps: int = 1
+
+
+@dataclasses.dataclass
+class HeartbeatConfig(_Section):
+    """``resilience.heartbeat`` (the reference's :613): the liveness file
+    and the hang watchdog. ``dir`` defaults to ``<checkpoint dir>/
+    heartbeats``; no step boundary for ``deadline_s`` (or a host collective
+    in flight past ``collective_deadline_s``) escalates per ``on_hang``:
+    ``abort``, ``exit`` or ``report``."""
+
+    enabled: bool = False
+    dir: Optional[str] = None
+    interval_s: float = 5.0
+    deadline_s: float = 300.0
+    collective_deadline_s: Optional[float] = 120.0
+    poll_s: Optional[float] = None   # default: min(deadlines) / 4
+    on_hang: str = "abort"
+    exit_code: int = 47
+
+    NULLABLE = frozenset({"collective_deadline_s"})
+
+
+@dataclasses.dataclass
+class ResilienceConfig(_Section):
+    """``resilience`` (the reference's :1215): the step guard, retries,
+    checkpoint verification and fallback, step-boundary coordination, the
+    heartbeat watchdog and the fault table."""
+
+    enabled: bool = False
+    # consecutive NaN/Inf steps before aborting
+    max_consecutive_bad_steps: int = 3
+    retry: RetryConfig = dataclasses.field(default_factory=RetryConfig)
+    checkpoint: ResilienceCheckpointConfig = dataclasses.field(
+        default_factory=ResilienceCheckpointConfig)
+    coordination: CoordinationConfig = dataclasses.field(
+        default_factory=CoordinationConfig)
+    heartbeat: HeartbeatConfig = dataclasses.field(
+        default_factory=HeartbeatConfig)
+    # fault-injection table (resilience/faults.py FaultSpec), e.g.
+    # [{"kind": "crash", "step": 3, "hard": true}]
+    faults: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+
+    NESTED = {"retry": RetryConfig, "checkpoint": ResilienceCheckpointConfig,
+              "coordination": CoordinationConfig,
+              "heartbeat": HeartbeatConfig}
+
+    def validate(self, path: str) -> None:
+        if not (isinstance(self.faults, list)
+                and all(isinstance(f, dict) for f in self.faults)):
+            raise ValueError(f"resilience.faults: expected a list of "
+                             f"objects, got {self.faults!r}")
+
+
+@dataclasses.dataclass
 class DeepSpeedTpuConfig(_Section):
     """The root config. Build it with :func:`from_config`."""
 
@@ -659,25 +768,35 @@ class DeepSpeedTpuConfig(_Section):
         default_factory=ObservabilityConfig)
     wall_clock_breakdown: bool = False
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig)
+    resilience: ResilienceConfig = dataclasses.field(
+        default_factory=ResilienceConfig)
+    # cross-process config digest, param integrity / placement at startup,
+    # first-batch agreement (runtime/sanity.py); per-host-sharded loaders
+    # disable only the batch check with sanity_check_batches=false
+    sanity_checks: bool = False
+    sanity_check_batches: bool = True
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
               "zero_optimization": ZeroConfig, "mesh": MeshConfig,
               "activation_checkpointing": ActivationCheckpointingConfig,
               "observability": ObservabilityConfig,
-              "serving": ServingConfig}
+              "serving": ServingConfig, "checkpoint": CheckpointConfig,
+              "resilience": ResilienceConfig}
     UNPORTED = {
         **{k: _SECTION for k in (
-            "moe", "pipeline", "resilience", "offload",
+            "moe", "pipeline", "offload",
             "comms_logger", "monitor_config", "tensorboard", "csv_monitor",
             "wandb", "flops_profiler", "data_types", "compression",
-            "checkpoint", "sequence_parallel", "elasticity", "autotuning",
+            "sequence_parallel", "elasticity", "autotuning",
             "inference", "data_efficiency", "hybrid_engine",
             "progressive_layer_drop")},
-        "sanity_checks": False, "sanity_check_batches": True,
         "prescale_gradients": False,
         "gradient_predivide_factor": 1.0, "dump_state": False,
     }
+    UNPORTED_ITEM = {"elasticity": "Remainder"}
 
     @classmethod
     def build(cls, values, path: str = ""):

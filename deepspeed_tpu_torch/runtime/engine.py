@@ -27,11 +27,25 @@ The reference's imperative UX with its semantics:
   instant on the event bus when tracing is on, checks the profile trigger,
   and can serve ``/metrics``.
 
+* Checkpoints (the reference's :1127-1163): ``save_checkpoint`` /
+  ``load_checkpoint`` through ``runtime/checkpoint.py`` -- or, under
+  ``resilience.enabled``, through a per-directory ``CheckpointManager``
+  (manifest, verification with fallback, keep-last-K, retried IO, the
+  SIGTERM emergency save) -- and the ``train/checkpoint_ms`` gauge.
+* Resilience (the reference's :278-350, :1333-1590): under
+  ``resilience.enabled`` the ``StepGuard`` checks each step before the
+  update (a non-finite loss or gradient skips it whole), the coordinator
+  decides CONTINUE / SAVE / ABORT at each boundary, the heartbeat and hang
+  watchdog threads run when configured, ``DSTPU_CHECKPOINT_DIR`` arms the
+  preemption handler, and ``resilience_report()`` gathers every counter
+  (into the registry's ``resilience/*`` gauges at ``steps_per_print``).
+  ``sanity_checks`` runs ``runtime/sanity.py`` at construction and on the
+  first batch.
+
 One device: params, grads and optimizer state stay whole on it, so ZeRO
 stages 0-3 compute the same step, as they do in the reference on a
-one-device mesh. Monitor (and so the registry-to-monitor bridge),
-resilience, offload, 1-bit optimizers, ZeRO++ and checkpoints are not in
-this slice.
+one-device mesh. Monitor (and so the registry-to-monitor bridge), offload,
+1-bit optimizers and ZeRO++ are not in this slice.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
@@ -59,9 +74,12 @@ logger = logging.getLogger("deepspeed_tpu_torch")
 
 def _own_params(tree, device: torch.device):
     """The engine's own copy of a parameter tree (tensors or numpy arrays)
-    on ``device``: contiguous leaves, floating ones requiring grad."""
+    on ``device``: contiguous leaves, floating ones requiring grad. Keys in
+    sorted order, as JAX flattens a dict: the leaf order (and so the global
+    norm's summation order) is the same whatever order the tree came in,
+    so a checkpoint resumes bit for bit into any engine of the model."""
     if isinstance(tree, dict):
-        return {k: _own_params(v, device) for k, v in tree.items()}
+        return {k: _own_params(tree[k], device) for k in sorted(tree)}
     if isinstance(tree, torch.Tensor):
         t = tree.detach().to(device).clone()
     else:
@@ -136,10 +154,18 @@ class DeepSpeedTpuEngine:
             monitor_memory=config.observability.monitor_memory,
             device=self.device)
         self._configure_observability(config)
+        self._pending_ckpt = None      # an in-flight async save
+        self._configure_resilience(config.resilience)
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data,
                                                          collate_fn=collate_fn)
+        self._first_batch_checked = not (config.sanity_checks
+                                         and config.sanity_check_batches)
+        if config.sanity_checks:
+            from deepspeed_tpu_torch.runtime.sanity import run_startup_checks
+
+            run_startup_checks(self)
         logger.info("engine ready: %.1fM params, zero_stage=%d, device=%s",
                     self._world_params / 1e6, self.zero_stage, self.device)
 
@@ -193,6 +219,12 @@ class DeepSpeedTpuEngine:
         self.tput_timer.start()
         if self._breakdown:
             self.wall_timers("fwd").start(synchronize=False)
+        if not self._first_batch_checked:
+            from deepspeed_tpu_torch.runtime.sanity import (
+                check_batch_consistency)
+
+            check_batch_consistency(batch)  # engine.py:641 broadcast check
+            self._first_batch_checked = True
         loss = self.module.loss_fn(self.params, self._put_batch(batch))
         self._pending = loss
         self._last_loss = loss.detach()
@@ -248,6 +280,10 @@ class DeepSpeedTpuEngine:
         """Optimizer step at the GA boundary (reference :778)."""
         if not self.is_gradient_accumulation_boundary():
             return
+        # self-healing guard: fires configured faults, then skips (instead
+        # of applying) a step whose loss/grads are non-finite
+        if self._guard is not None and self._guard.intercept():
+            return
         t0 = time.perf_counter()
         gnorm, skipped = self._apply(
             float(self.config.gradient_accumulation_steps))
@@ -257,6 +293,16 @@ class DeepSpeedTpuEngine:
         # one call, where only train/step_ms means something
         self._opt_ms = (time.perf_counter() - t0) * 1e3
         self._commit_step(skipped)
+        self.tput_timer.stop(global_step=True, report_speed=True)
+
+    def _skip_step(self, gnorm) -> None:
+        """The guard's skip: drop the accumulated gradients and commit the
+        step as skipped (no update, no LR tick)."""
+        for p in self._leaves:
+            p.grad = None
+        self._grad_acc_count = 0
+        self._last_gnorm = gnorm
+        self._commit_step(True)
         self.tput_timer.stop(global_step=True, report_speed=True)
 
     def _commit_step(self, skipped: bool) -> None:
@@ -272,6 +318,12 @@ class DeepSpeedTpuEngine:
             self._report_progress()
         if self._obs is not None:
             self._emit_train_metrics()
+            if self._resilience_enabled() and self.global_steps and \
+                    self.global_steps % self.config.steps_per_print == 0:
+                self._emit_resilience_metrics()
+        if self._heartbeat is not None:
+            self._heartbeat.notify_step(self.global_steps)
+        self._resilience_step_boundary()
 
     def train_batch(self, data_iter: Optional[Iterable] = None) -> float:
         """One global batch: GA micro-steps, then the optimizer step; returns
@@ -296,6 +348,8 @@ class DeepSpeedTpuEngine:
         if self._grad_acc_count:
             raise RuntimeError("fused_train_step inside an open gradient-"
                                "accumulation window (call step() first)")
+        if self._guard is not None:
+            self._guard.pre_step()  # crash faults fire on the fused path too
         ga = int(self.config.gradient_accumulation_steps)
         batch = self._put_batch(batch)
         rows = {v.shape[0] for v in batch.values()}
@@ -313,6 +367,10 @@ class DeepSpeedTpuEngine:
         gnorm, skipped = self._apply(float(ga))
         self._last_loss, self._last_gnorm = loss, gnorm
         self._commit_step(skipped)
+        if self._guard is not None:
+            # post-hoc: the update already ran, so a bad step is detected
+            # (and escalated past the budget) rather than unwound
+            self._guard.check_loss(loss)
         return loss
 
     # ---- introspection (reference public getters) -----------------------
@@ -460,9 +518,338 @@ class DeepSpeedTpuEngine:
             "families": sorted(f.name for f in get_registry().collect()),
         }
 
+    # ---- checkpoints (delegates to runtime/checkpoint.py) ----------------
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None, **kw) -> None:
+        """Write a tagged checkpoint (reference :1129). Under
+        ``resilience.enabled`` through the directory's checkpoint manager.
+        ``train/checkpoint_ms`` reads the call's wall time: an async save
+        reports its stage (the device-to-host copy) here, its commit in
+        ``resilience/ckpt_save_ms``."""
+        from deepspeed_tpu_torch.runtime.checkpoint import save_checkpoint
+
+        t0 = time.perf_counter()
+        if self._resilience_enabled():
+            self._resilience_manager(save_dir).save(
+                self, tag=tag, client_state=client_state or {})
+        else:
+            save_checkpoint(self, save_dir, tag=tag,
+                            client_state=client_state or {})
+        if self._obs is not None:
+            self._obs["checkpoint_ms"].set((time.perf_counter() - t0) * 1e3)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True, **kw):
+        """Restore a checkpoint into this engine's tensors on its device
+        (reference :1147); returns ``(path, client_state)``."""
+        from deepspeed_tpu_torch.runtime.checkpoint import load_checkpoint
+
+        if self._resilience_enabled():
+            return self._resilience_manager(load_dir).load(
+                self, tag=tag, load_optimizer_states=load_optimizer_states)
+        return load_checkpoint(self, load_dir, tag=tag,
+                               load_optimizer_states=load_optimizer_states)
+
+    # ---- resilience surface (the reference's :278-350, :1333-1590) -------
+    def _configure_resilience(self, rcfg) -> None:
+        """The guard, the coordinator, the heartbeat and watchdog threads,
+        and (with ``DSTPU_CHECKPOINT_DIR``) the preemption handler."""
+        self._guard = None
+        self._coordinator = None
+        self._heartbeat = None
+        self._watchdog = None
+        self._ckpt_managers: Dict[str, Any] = {}
+        self._primary_mgr = None
+        self._resilience_report_dir = os.environ.get("DSTPU_CHECKPOINT_DIR")
+        if not rcfg.enabled:
+            return
+        from deepspeed_tpu_torch.resilience import (FaultInjector,
+                                                    ResilienceCoordinator,
+                                                    StepGuard, set_injector)
+
+        if rcfg.faults:
+            set_injector(FaultInjector(rcfg.faults))
+        self._guard = StepGuard(
+            self, max_consecutive_bad_steps=rcfg.max_consecutive_bad_steps)
+        if rcfg.coordination.enabled:
+            self._coordinator = ResilienceCoordinator(
+                interval_steps=rcfg.coordination.interval_steps)
+        hb = rcfg.heartbeat
+        if hb.enabled:
+            from deepspeed_tpu_torch.resilience import HangWatchdog, Heartbeat
+
+            if hb.on_hang == "abort" and self._coordinator is None:
+                # the default escalation routes through the coordinated
+                # decide; without it the watchdog would detect and then do
+                # nothing -- the exact wedge it exists to prevent
+                raise ValueError(
+                    "resilience.heartbeat.on_hang='abort' requires "
+                    "resilience.coordination.enabled; use on_hang="
+                    "'exit' (hard wedges) or 'report' instead")
+            hb_dir = hb.dir
+            if hb_dir is None and self._resilience_report_dir:
+                hb_dir = os.path.join(self._resilience_report_dir,
+                                      "heartbeats")
+            if hb_dir is None:
+                import tempfile
+
+                hb_dir = os.path.join(tempfile.gettempdir(),
+                                      f"dstpu_heartbeats_{os.getpid()}")
+                logger.warning(
+                    "resilience.heartbeat.dir is unset and no checkpoint "
+                    "dir is known; writing heartbeats to %s -- peer "
+                    "straggler classification needs a shared directory "
+                    "(set heartbeat.dir or DSTPU_CHECKPOINT_DIR)", hb_dir)
+            self._heartbeat = Heartbeat(hb_dir,
+                                        interval_s=hb.interval_s).start()
+            self._watchdog = HangWatchdog(
+                self._heartbeat, deadline_s=hb.deadline_s,
+                collective_deadline_s=hb.collective_deadline_s,
+                poll_s=hb.poll_s, coordinator=self._coordinator,
+                on_hang=hb.on_hang, exit_code=hb.exit_code).start()
+        if self._resilience_report_dir:
+            # launched with a checkpoint dir: arm the preemption handler
+            # against it right away
+            self._resilience_manager(self._resilience_report_dir)
+
+    def _resilience_enabled(self) -> bool:
+        return bool(self.config.resilience.enabled)
+
+    def _resilience_manager(self, ckpt_dir: str):
+        """One CheckpointManager per checkpoint directory; the first
+        becomes the preemption-save target."""
+        from deepspeed_tpu_torch.resilience import (CheckpointManager,
+                                                    RetryPolicy)
+
+        key = os.path.abspath(ckpt_dir)
+        mgr = self._ckpt_managers.get(key)
+        if mgr is None:
+            rc = self.config.resilience
+            mgr = CheckpointManager(
+                ckpt_dir, keep_last_k=rc.checkpoint.keep_last_k,
+                verify=rc.checkpoint.verify,
+                retry_policy=RetryPolicy(**dataclasses.asdict(rc.retry)),
+                async_save=rc.checkpoint.async_save)
+            if rc.checkpoint.save_on_preempt:
+                mgr.install_preemption_handler()
+            self._ckpt_managers[key] = mgr
+            if self._primary_mgr is None:
+                self._primary_mgr = mgr
+            if not self._resilience_report_dir:
+                self._resilience_report_dir = key
+        return mgr
+
+    def _resilience_step_boundary(self) -> None:
+        """Fold local signals into this boundary's decision. With
+        coordination on (the default under ``resilience.enabled``) a
+        SIGTERM, the guard's budget and a watchdog hang become votes, and
+        the agreed code acts; with it off, an armed preemption saves
+        locally."""
+        mgr, guard = self._primary_mgr, self._guard
+        if self._coordinator is None:
+            if mgr is not None and mgr.preempted:
+                mgr.maybe_emergency_save(self)
+                rc = self.config.resilience.checkpoint
+                if rc.exit_on_preempt:
+                    raise SystemExit(rc.preempt_exit_code)
+            return
+        from deepspeed_tpu_torch.resilience.coordinator import (ABORT,
+                                                                CONTINUE,
+                                                                SAVE)
+
+        local, reason = CONTINUE, ""
+        if mgr is not None and mgr.preempted:
+            local, reason = SAVE, "preemption notice (SIGTERM)"
+        if guard is not None and \
+                guard.consecutive_bad >= guard.max_consecutive_bad_steps:
+            local, reason = ABORT, (f"{guard.consecutive_bad} consecutive "
+                                    "non-finite steps")
+        decision = self._coordinator.decide(self.global_steps, local, reason)
+        if decision == SAVE:
+            self._coordinated_emergency_save()
+        elif decision == ABORT:
+            self._coordinated_abort()
+
+    def _set_decision_gauge(self, code: int) -> None:
+        if self._obs is not None:
+            from deepspeed_tpu_torch.observability import get_registry
+
+            get_registry().gauge("resilience/decision",
+                                 "last non-CONTINUE decision").set(
+                                     float(code))
+
+    def _coordinated_emergency_save(self) -> None:
+        """Commit the emergency tag of this boundary."""
+        from deepspeed_tpu_torch.observability import flight_dump
+        from deepspeed_tpu_torch.resilience.coordinator import SAVE
+
+        coord = self._coordinator
+        mgr = self._primary_mgr
+        if mgr is None and self._resilience_report_dir:
+            mgr = self._resilience_manager(self._resilience_report_dir)
+        if mgr is None:
+            logger.error("SAVE agreed but no checkpoint dir is known (set "
+                         "DSTPU_CHECKPOINT_DIR or save once first); "
+                         "skipping the emergency save")
+            return
+        mgr.preempted = False  # consumed, signaled here or not
+        tag = f"preempt_step{self.global_steps}"
+        path = mgr.save(self, tag=tag, emergency=True,
+                        decision=coord.decision_record())
+        flight_dump("emergency_save",
+                    extra={"tag": tag, "path": path,
+                           "decision": coord.decision_record()},
+                    key=f"emergency-{tag}")
+        logger.warning("coordinated emergency checkpoint saved to %s", path)
+        self._set_decision_gauge(SAVE)
+        rc = self.config.resilience.checkpoint
+        if rc.exit_on_preempt:
+            raise SystemExit(rc.preempt_exit_code)
+
+    def _coordinated_abort(self) -> None:
+        """Abort at this boundary: the guard's own abort when its budget is
+        the cause, else write the report and raise ``CoordinatedAbort``."""
+        from deepspeed_tpu_torch.observability import flight_dump
+        from deepspeed_tpu_torch.resilience.coordinator import (
+            ABORT, CoordinatedAbort)
+
+        coord, guard = self._coordinator, self._guard
+        reason = coord.last_reason or "peer abort"
+        self._set_decision_gauge(ABORT)
+        if guard is not None and \
+                guard.consecutive_bad >= guard.max_consecutive_bad_steps:
+            guard.abort(reason)
+        if self._resilience_report_dir:
+            try:
+                self.write_resilience_report(self._resilience_report_dir)
+            except OSError as e:
+                logger.error("could not write resilience report: %s", e)
+        flight_dump("coordinated_abort",
+                    extra={"step": int(self.global_steps),
+                           "reason": reason},
+                    key=f"abort-step{int(self.global_steps)}")
+        logger.error("coordinated abort: %s", reason)
+        raise CoordinatedAbort(reason)
+
+    def _resilience_events(self):
+        """The reference's ``resilience/*`` stream: one value per counter
+        the report exposes, as ``(name, value)``."""
+        events = [("resilience/skipped_steps", float(self.skipped_steps)),
+                  ("resilience/comm_retries", 0.0)]
+        if self._guard is not None:
+            events += [
+                ("resilience/guard_bad_steps_skipped",
+                 float(self._guard.counters["bad_steps_skipped"])),
+                ("resilience/guard_consecutive_bad",
+                 float(self._guard.consecutive_bad))]
+        agg: Dict[str, float] = {}
+        for mgr in self._ckpt_managers.values():
+            for k, v in mgr.counters.items():
+                agg[k] = agg.get(k, 0) + v
+            if mgr.async_stats["commits"]:
+                events.append(("resilience/async_save_latency_s",
+                               float(mgr.async_stats["last_latency_s"])))
+        for k in ("emergency_saves", "verify_failures", "load_fallbacks",
+                  "gc_removed", "io_retries", "async_saves",
+                  "async_commit_failures"):
+            if k in agg:
+                events.append((f"resilience/ckpt_{k}", float(agg[k])))
+        if self._coordinator is not None:
+            c = self._coordinator.counters
+            events += [("resilience/decisions_save",
+                        float(c["saves_agreed"])),
+                       ("resilience/decisions_abort",
+                        float(c["aborts_agreed"]))]
+        if self._watchdog is not None:
+            w = self._watchdog.counters
+            events += [("resilience/hangs_detected",
+                        float(w["hangs_detected"])),
+                       ("resilience/heartbeat_max_peer_gap_s",
+                        float(w["max_peer_gap_s"]))]
+        if self._heartbeat is not None:
+            events.append(("resilience/heartbeat_step_age_s",
+                           float(self._heartbeat.step_age_s())))
+        return events
+
+    def _emit_resilience_metrics(self) -> None:
+        """``resilience/*`` into the registry's gauges (the port has no
+        monitor: the reference writes the same values as monitor events)."""
+        from deepspeed_tpu_torch.observability import get_registry
+
+        g = get_registry().gauge
+        for name, value in self._resilience_events():
+            g(name, "resilience counter").set(value)
+
+    def resilience_report(self) -> Dict[str, Any]:
+        """The whole recovery picture in one call: guard skips and aborts,
+        checkpoint verification failures, fallbacks and GC, async-save
+        commit stats, coordination decisions, heartbeat and hang counters,
+        faults fired. ``comm`` reads no retries and nothing in flight: the
+        port runs no host collective on one device."""
+        from deepspeed_tpu_torch.resilience.faults import get_injector
+
+        ckpt: Dict[str, int] = {}
+        async_stats = {"commits": 0, "last_latency_s": 0.0,
+                       "total_latency_s": 0.0}
+        for mgr in self._ckpt_managers.values():
+            for k, v in mgr.counters.items():
+                ckpt[k] = ckpt.get(k, 0) + v
+            for k, v in mgr.async_stats.items():
+                async_stats[k] = (max(async_stats[k], v)
+                                  if k == "last_latency_s"
+                                  else async_stats[k] + v)
+        guard = self._guard
+        aborted = bool(guard.counters["aborts"]) if guard else False
+        coord = self._coordinator
+        if coord is not None:
+            aborted = aborted or bool(coord.counters["aborts_agreed"])
+        return {
+            "schema": 2,
+            "global_steps": self.global_steps,
+            "skipped_steps": self.skipped_steps,
+            "guard": dict(guard.counters) if guard is not None else {},
+            "consecutive_bad_steps": (guard.consecutive_bad
+                                      if guard is not None else 0),
+            "aborted": aborted,
+            "checkpoint": ckpt,
+            "checkpoint_async": async_stats,
+            "comm": {"retries": 0, "inflight": None},
+            "coordination": coord.report() if coord is not None else {},
+            "heartbeat": (self._watchdog.report()
+                          if self._watchdog is not None else {}),
+            "faults_fired": list(get_injector().fired),
+        }
+
+    def write_resilience_report(self, out_dir: str) -> str:
+        """Atomically persist ``resilience_report()`` as
+        ``<out_dir>/resilience_report.json`` (where an elastic agent looks
+        for it)."""
+        import json
+
+        from deepspeed_tpu_torch.utils.io import atomic_write_text
+
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "resilience_report.json")
+        atomic_write_text(path, json.dumps(self.resilience_report(),
+                                           indent=2))
+        return path
+
     def shutdown(self) -> None:
-        """Stop an in-flight profile capture and the ``/metrics`` server.
-        Idempotent."""
+        """Orderly teardown: finish an in-flight async save and its commit,
+        stop the heartbeat and watchdog threads, an in-flight profile
+        capture and the ``/metrics`` server. Idempotent."""
+        from deepspeed_tpu_torch.runtime.checkpoint import finalize_pending
+
+        for mgr in self._ckpt_managers.values():
+            mgr.drain(raise_on_error=False)
+        try:
+            finalize_pending(self)
+        except Exception as e:   # already logged by the commit thread
+            logger.error("async checkpoint commit failed: %s", e)
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
         if self._profile_trigger is not None:
             self._profile_trigger.close()
         if self._obs_server is not None:

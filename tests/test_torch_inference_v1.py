@@ -127,10 +127,17 @@ def test_int8_weights_match():
         np.asarray(jeng.generate(ids, max_new_tokens=6)))
 
 
-def test_checkpoint_loading_is_not_ported():
+def test_checkpoint_loading_is_not_ported(tmp_path):
+    """What stays unported of ``init_inference(checkpoint=)``: a HF
+    checkpoint directory (``config.json``) raises naming models/hf.py.
+    Engine checkpoint directories load (tests/test_torch_checkpoint.py);
+    without the model they raise the reference's ValueError."""
     tm = TransformerLM(TransformerConfig(**TINY))
+    (tmp_path / "config.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="models/hf.py"):
-        tds.init_inference(tm, checkpoint="/nonexistent", device="cpu")
+        tds.init_inference(tm, checkpoint=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="needs the model"):
+        tds.init_inference(checkpoint="/nonexistent", device="cpu")
 
 
 def _logits(seed=6, B=4, V=64):

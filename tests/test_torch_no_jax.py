@@ -76,6 +76,16 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.serving.coldstart\n"
         "import deepspeed_tpu_torch.serving.fleet\n"
         "import deepspeed_tpu_torch.tools.elastic_drill\n"
+        "import deepspeed_tpu_torch.utils.io\n"
+        "import deepspeed_tpu_torch.utils.tensor_fragment\n"
+        "import deepspeed_tpu_torch.runtime.checkpoint\n"
+        "import deepspeed_tpu_torch.runtime.sanity\n"
+        "import deepspeed_tpu_torch.resilience.retry\n"
+        "import deepspeed_tpu_torch.resilience.manager\n"
+        "import deepspeed_tpu_torch.resilience.guard\n"
+        "import deepspeed_tpu_torch.resilience.coordinator\n"
+        "import deepspeed_tpu_torch.resilience.heartbeat\n"
+        "import deepspeed_tpu_torch.tools.crash_resume\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "

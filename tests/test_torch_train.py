@@ -318,7 +318,7 @@ def test_misspelled_key_names_the_field(raw, where):
     ({"mesh": "auto"}, "mesh"),
     ({"moe": {"enabled": True}}, "moe"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"resilience": {"enabled": False}}, "resilience"),
+    ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"monitor_config": {"csv_monitor": {"enabled": True}}},
      "monitor_config"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}},
