@@ -331,6 +331,29 @@ Phases, in order (any failure raises and the script exits non-zero):
               the card's allocated memory is back within 16 MB and every
               thread the phase started has ended.
 
+14. train-features -- the rest of training on phase 5's ``llama3-1b``,
+              config and batch. (a) one ``forward`` + ``backward`` under
+              each remat policy: per-leaf grads within 1e-5 rel L2 of
+              ``none``'s (bit-equality printed), kernel D launched L times
+              for ``none`` and the policies that keep the attention output,
+              2L for the rest, peak memory ``full`` <= ``attn_saveable`` <=
+              ``none`` and ``offload_attn``'s below ``attn_saveable``'s
+              (peak GB, host bytes and ms printed). (b) lamb, lion,
+              adagrad, adafactor, rmsprop and muon, 3 ``train_batch`` steps
+              each at the rate printed: finite losses, the last below the
+              first; one update of the embedding, ``wq`` and ``ln1.scale``
+              on the card against the CPU's within 1e-5 (muon 2e-2) rel L2
+              of the displacement beyond fp32's rounding. (c) random-LTD
+              (keep 1000 over layers [1, 15)): D's calls by rows, an LTD
+              layer within 2e-2 of plain attention on the kept rows and
+              its dropped rows equal to its input; PLD with 4 compiled
+              tiers (D calls k a micro-batch) and gated (D calls = the
+              host's kept layers); a curriculum 256 -> 2048 over 4 steps
+              (D runs at each step's difficulty); ``loss_tiling`` 8 vs 1
+              (loss 1e-3, grads 2e-2 rel L2, a lower peak). D, E and F's
+              first launches at 1000 rows are replayed through their plain
+              versions. Prints the phase's seconds.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -898,25 +921,29 @@ def chunked_equals_whole(torch, pa, fa, H=32, K=8, d=128, T=1024, tq=256,
     return checked
 
 
-def device_launches(torch, fn, traces: int = 3) -> int:
+def device_launches(torch, fn, traces: int = 8) -> int:
     """Kernels the card ran for one call of ``fn``, counted by
     ``torch.profiler`` (a ``Kernel`` record counts wrapper calls only).
 
     CUPTI now and then hands the profiler no records for a short trace (a
-    one-launch call once read 0 launches). So a control kernel
-    (``torch.cuda._sleep``'s ``spin_kernel``) runs just before and just
-    after the call, and only a trace that shows both is read; another is
-    taken otherwise, and after ``traces`` incomplete ones the run fails."""
+    one-launch call once read 0 launches; once three traces in a row lost
+    their records). So a control kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``, ~0.1 ms) runs just before and just after the call,
+    and only a trace that shows both is read; another is taken otherwise,
+    half a second later, and after ``traces`` incomplete ones the run
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for n in range(1, traces + 1):
         torch.cuda.synchronize()
+        if n > 1:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(200_000)
             fn()
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(200_000)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -4984,6 +5011,520 @@ def checkpoint(torch, fa, KERNELS, reset_counts, device="cuda"):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of training -- remat policies, optimizers, LTD, PLD,
+# the curriculum and the tiled loss on llama3-1b
+# ---------------------------------------------------------------------------
+
+FEAT_MODEL_KW: dict = {}       # overrides of phase 5's model (CPU tests)
+FEAT_SEQ = None                # tokens a row (None: phase 5's TRAIN_SEQ)
+FEAT_LTD_KEEP = 1000           # not a multiple of D's 64-row tile
+FEAT_LTD_LAYERS = (1, 15)
+FEAT_CURRICULUM = (256, 2048, 4)   # min, max difficulty, steps (bucket: min)
+FEAT_PLD_TIERS = 4
+FEAT_PLD_STEPS = 4
+FEAT_PLD_GAMMA = 0.5           # theta 1 -> 0.80 -> 0.68 -> 0.61: depth moves
+FEAT_OPT_STEPS = 3
+# (name, learning rate): each optimizer's usual rate for a model this size
+FEAT_OPTIMIZERS = (("lamb", 1e-3), ("lion", 1e-4), ("adagrad", 1e-1),
+                   ("adafactor", 1e-2), ("rmsprop", 3e-5), ("muon", 2e-2))
+FEAT_REMAT_REL = 1e-5          # per-leaf grads under a policy vs none's
+FEAT_OPT_REL = 1e-5            # one update, card vs CPU
+FEAT_MUON_REL = 2e-2           # muon's bf16 Newton-Schulz, card vs CPU
+FEAT_TILED_LOSS_REL = 1e-3     # loss_tiling 8 vs 1: the loss
+FEAT_TILED_GRAD_REL = 2e-2     # ... and the per-leaf grads
+FEAT_LTD_REL = 2e-2            # an LTD layer, kernels vs plain attention
+
+
+class FeatureTrainReplay(TrainReplay):
+    """Phase 14's :class:`Replay`: the first launch of each of D, E and F
+    at random-LTD's ``FEAT_LTD_KEEP`` rows (stage ``ltd``: D's ragged
+    tail)."""
+
+    REQUIRED = {(k, "ltd") for k in TRAIN_KERNELS}
+
+    def _wanted(self, target, name, x) -> bool:
+        return (self.stage is not None and x["q"].shape[1] == FEAT_LTD_KEEP
+                and super()._wanted(target, name, x))
+
+
+class attention_calls:
+    """Counts the calls of kernel D's wrapper by query rows (one launch
+    each on the card), wrapping the module attribute until exit."""
+
+    def __init__(self, fa):
+        self.fa, self.rows = fa, []
+
+    def __enter__(self):
+        fn = self.fa.flash_forward
+
+        def counted(q, *a, **k):
+            self.rows.append(int(q.shape[1]))
+            return fn(q, *a, **k)
+
+        counted.__wrapped__ = fn
+        self.fa.flash_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_forward = self.fa.flash_forward.__wrapped__
+
+    def take(self) -> list:
+        rows, self.rows = self.rows, []
+        return rows
+
+
+def feat_model(**kw):
+    """Phase 5's model (``FEAT_MODEL_KW`` and ``kw`` applied)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import TransformerLM
+    from deepspeed_tpu_torch.tools.train_profile import train_model_config
+
+    return TransformerLM(dataclasses.replace(train_model_config(),
+                                             **{**FEAT_MODEL_KW, **kw}))
+
+
+def feat_config(**extra) -> dict:
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    return {**TRAIN_CONFIG, **extra}
+
+
+def feat_batch(vocab: int) -> dict:
+    from deepspeed_tpu_torch.tools.train_profile import (TRAIN_CONFIG,
+                                                         TRAIN_SEQ)
+
+    rng = np.random.default_rng(0)
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    return {"input_ids": rng.integers(
+        0, vocab, (micro, FEAT_SEQ or TRAIN_SEQ)).astype(np.int32)}
+
+
+def leaf_rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def update_rel(torch, p0, got, want):
+    """(rel L2 of two updated fp32 leaves' difference over the CPU
+    update's displacement, the same for one ulp of every updated
+    element): two updates equal to within fp32's rounding of ``p + u``
+    differ by at most the second number."""
+    moved = (want.double() - p0.double()).norm().clamp_min(1e-300)
+    ulp = torch.nextafter(want, torch.full_like(want, float("inf"))) - want
+    return (float((got.double() - want.double()).norm() / moved),
+            float(ulp.double().norm() / moved))
+
+
+def feat_remat(torch, fa, ctx):
+    """(a): one forward + backward per policy on the same parameters and
+    micro-batch. Returns none's gradients and the engine's leaves."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+    model = feat_model()
+    cfg0 = model.cfg
+    L = cfg0.num_layers
+    eng, *_ = tds.initialize(model, feat_config(), device=ctx["device"])
+    batch = ctx["batch"]
+    keeps_attn = ("none", "attn_saveable", "dots_and_attn_saveable",
+                  "offload_attn")
+    eng.backward(eng.forward(batch))       # warm-up (allocator, cuBLAS)
+    for p in eng._leaves:
+        p.grad = None
+    eng._grad_acc_count = 0
+    ctx["take"]()
+    ref, res = None, {}
+    for policy in ac.POLICIES:
+        eng.module.cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        ac.OFFLOAD_STATS.update(bytes=0, tensors=0)
+        ctx["sync"]()
+        base = ctx["allocated"]()
+        ctx["reset_peak"]()
+        ctx["calls"].take()
+        t = time.perf_counter()
+        eng.backward(eng.forward(batch))
+        ctx["sync"]()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = (ctx["peak"]() - base) / 1e9
+        rows = ctx["calls"].take()
+        launches = ctx["take"]()
+        grads = [p.grad for p in eng._leaves]
+        for p in eng._leaves:
+            p.grad = None
+        eng._grad_acc_count = 0
+        if ref is None:
+            ref = grads
+        rel = max(leaf_rel(torch, g, w) for g, w in zip(grads, ref))
+        bit = all(torch.equal(g, w) for g, w in zip(grads, ref))
+        want = L if policy in keeps_attn else 2 * L
+        res[policy] = dict(peak_gb=round(peak, 3), ms=round(ms, 1),
+                           host_bytes=ac.OFFLOAD_STATS["bytes"], rel=rel,
+                           bit_equal=bit, d_calls=len(rows),
+                           d_launches=launches["flash_fwd"])
+        log(f"train-features (a) [{ctx['card']}] {policy}: peak "
+            f"{peak:.3f} GB above the start, host {ac.OFFLOAD_STATS['bytes']}"
+            f" bytes, {ms:.1f} ms fwd+bwd, grads vs none max rel L2 "
+            f"{rel:.3e}, bit-equal {bit}, D {len(rows)} calls / "
+            f"{launches['flash_fwd']} launches (want {want})")
+        if not rel <= FEAT_REMAT_REL:
+            raise AssertionError(f"train-features (a): {policy} grads rel "
+                                 f"L2 {rel} > {FEAT_REMAT_REL}")
+        if len(rows) != want or (ctx["cuda"]
+                                 and launches["flash_fwd"] != want):
+            raise AssertionError(f"train-features (a): {policy} ran D "
+                                 f"{len(rows)} times ({launches} launches)"
+                                 f", want {want}")
+        del grads
+    if ctx["cuda"]:
+        p = {k: v["peak_gb"] for k, v in res.items()}
+        if not (p["full"] <= p["attn_saveable"] <= p["none"]
+                and p["offload_attn"] < p["attn_saveable"]):
+            raise AssertionError(f"train-features (a): peak order {p}")
+        if not res["offload_attn"]["host_bytes"]:
+            raise AssertionError("train-features (a): offload_attn sent "
+                                 "nothing to the host")
+    names = {"embed": ("embed", "tokens"), "wq": ("layers", "attn", "wq"),
+             "ln1": ("layers", "ln1", "scale")}
+    order = [n for n, _ in _walk(eng.params)]
+    keep = {}
+    for tag, path in names.items():
+        i = order.index("/".join(path))
+        keep[tag] = (eng._leaves[i].detach().clone(), ref[i].clone())
+    del eng, ref
+    free_card(torch, ctx["device"])
+    return res, keep
+
+
+def _walk(tree, prefix=""):
+    for k in tree:
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _walk(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def feat_optimizers(torch, ctx, leaves):
+    """(b): each optimizer for ``FEAT_OPT_STEPS`` steps; one update of
+    three real leaves on the card against the same update on the CPU."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+
+    res = {}
+    for name, lr in FEAT_OPTIMIZERS:
+        eng, *_ = tds.initialize(feat_model(), feat_config(optimizer={
+            "type": name, "params": {"lr": lr}}), device=ctx["device"])
+        losses, ms = [], []
+        for _ in range(FEAT_OPT_STEPS):
+            t = time.perf_counter()
+            losses.append(eng.train_batch(itertools.repeat(ctx["batch"])))
+            ctx["sync"]()
+            ms.append(round((time.perf_counter() - t) * 1e3, 1))
+        ctx["take"]()
+        del eng
+        free_card(torch, ctx["device"])
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"train-features (b): {name} losses "
+                                 f"{losses}")
+        rels = {}
+        t = time.perf_counter()
+        for tag, (p, g) in leaves.items():
+            tx = build_optimizer(name, {"lr": lr})
+            new = []
+            for dev in (p.device, "cpu"):
+                w = [p.to(dev, copy=True)]
+                state = tx.init(w)
+                tx.update(w, [g.to(dev, copy=True)], state)
+                new.append(w[0].to(p.device))
+            rels[tag] = update_rel(torch, p, *new)
+            del new
+        gate = FEAT_MUON_REL if name == "muon" else FEAT_OPT_REL
+        res[name] = dict(lr=lr, losses=losses, step_ms=ms, update_rel=rels)
+        log(f"train-features (b) [{ctx['card']}] {name} lr {lr}: losses "
+            f"{losses}, step ms {ms}; one update of "
+            f"{ {k: tuple(v[0].shape) for k, v in leaves.items()} } card vs "
+            f"CPU (rel L2 over the displacement, fp32 rounding floor) "
+            f"{rels} (gate {gate} + floor; "
+            f"{(time.perf_counter() - t) * 1e3:.0f} ms)")
+        bad = {k: r for k, r in rels.items() if not r[0] <= gate + r[1]}
+        if bad:
+            raise AssertionError(f"train-features (b): {name} update card "
+                                 f"vs CPU rel L2 {bad} > {gate} + floor")
+    return res
+
+
+def ltd_layer_check(torch, fa, ctx, model):
+    """An LTD layer's output with the kernels against the same layer
+    through plain attention on the same kept rows."""
+    from deepspeed_tpu_torch.models.transformer import (_layer_views,
+                                                        ltd_block,
+                                                        torch_dtype)
+
+    cfg = model.cfg
+    dev = ctx["device"]
+    T = ctx["batch"]["input_ids"].shape[1]
+    params = model.init(seed=0, device=dev)
+    dt = torch_dtype(cfg.dtype)
+    w = _layer_views(params["layers"], dt)(FEAT_LTD_LAYERS[0])
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(ctx["batch"]["input_ids"].shape[0], T, cfg.hidden_size,
+                    generator=g, device=dev).to(dt)
+    pos = model.ltd_positions(3, FEAT_LTD_LAYERS[0], T, FEAT_LTD_KEEP).to(dev)
+    with torch.no_grad():
+        y = ltd_block(x, w, cfg, model.freqs(dev), pos)
+        with plain_attention(fa):
+            want = ltd_block(x, w, cfg, model.freqs(dev), pos)
+    dropped = torch.ones(T, dtype=torch.bool, device=dev)
+    dropped[pos] = False
+    rel = leaf_rel(torch, y[:, pos], want[:, pos])
+    same = torch.equal(y[:, dropped], x[:, dropped])
+    del params
+    return rel, same
+
+
+def feat_data_efficiency(torch, fa, ctx):
+    """(c): random-LTD, both PLD modes, the curriculum and the tiled
+    loss."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.spec import tree_leaves
+
+    batch, calls, card = ctx["batch"], ctx["calls"], ctx["card"]
+    ga = feat_config()["gradient_accumulation_steps"]
+    T = batch["input_ids"].shape[1]
+    res = {}
+
+    def steps(eng, n, b=batch):
+        out, ms, rows = [], [], []
+        for _ in range(n):
+            calls.take()
+            t = time.perf_counter()
+            out.append(eng.train_batch(itertools.repeat(b)))
+            ctx["sync"]()
+            ms.append(round((time.perf_counter() - t) * 1e3, 1))
+            rows.append(calls.take())
+        if not all(np.isfinite(out)):
+            raise AssertionError(f"train-features (c): losses {out}")
+        return out, ms, rows
+
+    # random-LTD
+    lo, hi = FEAT_LTD_LAYERS
+    ltd = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
+        "enabled": True, "min_value": FEAT_LTD_KEEP, "max_value":
+        FEAT_LTD_KEEP, "step_size": 0, "random_ltd_layer_start": lo,
+        "random_ltd_layer_end": hi}}}
+    model = feat_model()
+    L = model.cfg.num_layers
+    eng, *_ = tds.initialize(model, feat_config(data_efficiency=ltd),
+                             device=ctx["device"])
+    ctx["take"]()
+    ctx["replay"].stage = "ltd"
+    losses, ms, rows = steps(eng, 2)
+    ctx["replay"].stage = None
+    launches = ctx["take"]()
+    n_ltd = hi - lo
+    want = sorted([T] * (L - n_ltd) + [FEAT_LTD_KEEP] * n_ltd) * ga
+    got = [sorted(r) for r in rows]
+    base = PHASE_NOTES.get("train_step_ms")
+    pred = (L - n_ltd + n_ltd * FEAT_LTD_KEEP / T) / L
+    log(f"train-features (c) [{card}] random-LTD keep {FEAT_LTD_KEEP} of "
+        f"{T} over layers [{lo}, {hi}): losses {losses}, step ms {ms} "
+        f"(phase 5: {base}; predicted {pred:.3f} of phase 5's step), "
+        f"D calls by rows {[len(r) for r in rows]} / launches "
+        f"{launches}")
+    if got != [sorted(want)] * 2 or (
+            ctx["cuda"] and launches["flash_fwd"] != 2 * len(want)):
+        raise AssertionError(f"train-features (c): LTD ran D at rows {got}, "
+                             f"launches {launches}, want {sorted(want)} a "
+                             "step")
+    del eng
+    free_card(torch, ctx["device"])
+    rel, same = ltd_layer_check(torch, fa, ctx, model)
+    ctx["reset_counts"]()      # the check's launches are a comparison
+    log(f"train-features (c) [{card}] LTD layer {lo}: kept rows vs plain "
+        f"attention rel L2 {rel:.3e} (gate {FEAT_LTD_REL}), dropped rows "
+        f"equal to the input: {same}")
+    if not (rel <= FEAT_LTD_REL and same):
+        raise AssertionError(f"train-features (c): LTD layer rel {rel}, "
+                             f"dropped rows unchanged {same}")
+    res["ltd"] = dict(losses=losses, step_ms=ms, layer_rel=rel,
+                      phase5_step_ms=base, predicted_share=pred)
+
+    # progressive layer drop: compiled tiers, then gated
+    pld = {"enabled": True, "theta": 0.5, "gamma": FEAT_PLD_GAMMA}
+    no_wd = {"type": "AdamW", "params": {"lr": 1e-4}}
+    eng, *_ = tds.initialize(feat_model(), feat_config(
+        progressive_layer_drop={**pld, "compiled_tiers": FEAT_PLD_TIERS},
+        optimizer=no_wd), device=ctx["device"])
+    depths, counts = [], []
+    for _ in range(FEAT_PLD_STEPS):
+        out = steps(eng, 1)
+        depths.append(eng.module._pld_depth)
+        counts.append(len(out[2][0]))
+    launches = ctx["take"]()
+    log(f"train-features (c) [{card}] PLD compiled_tiers {FEAT_PLD_TIERS}:"
+        f" depth a step {depths}, D calls a step {counts} (GA {ga}), "
+        f"launches {launches}")
+    if counts != [k * ga for k in depths] or len(set(depths)) < 2 or (
+            ctx["cuda"] and launches["flash_fwd"] != sum(counts)):
+        raise AssertionError(f"train-features (c): PLD tiers depth {depths}"
+                             f" D calls {counts} launches {launches}")
+    del eng
+    free_card(torch, ctx["device"])
+    eng, *_ = tds.initialize(feat_model(), feat_config(
+        progressive_layer_drop=pld), device=ctx["device"])
+    bits = []
+    keep_fn = eng.module.pld_keep
+    eng.module.pld_keep = lambda *a: bits.append(keep_fn(*a)) or bits[-1]
+    kept, counts = [], []
+    for _ in range(3):
+        out = steps(eng, 1)
+        kept.append(sum(bits))
+        bits.clear()
+        counts.append(len(out[2][0]))
+    launches = ctx["take"]()
+    log(f"train-features (c) [{card}] gated PLD: layers kept a step "
+        f"(host draws) {kept}, D calls {counts}, launches {launches}")
+    if counts != kept or (ctx["cuda"]
+                          and launches["flash_fwd"] != sum(kept)):
+        raise AssertionError(f"train-features (c): gated PLD kept {kept}, "
+                             f"D calls {counts}, launches {launches}")
+    res["pld"] = dict(depths=depths, gated_kept=kept)
+    del eng
+    free_card(torch, ctx["device"])
+
+    # the curriculum
+    lo_d, hi_d, n = FEAT_CURRICULUM
+    cur = {"enabled": True, "data_sampling": {
+        "enabled": True, "curriculum_learning": {
+            "enabled": True, "min_difficulty": lo_d,
+            "max_difficulty": hi_d, "schedule_config": {
+                "total_curriculum_step": n, "difficulty_step": lo_d}}}}
+    eng, *_ = tds.initialize(feat_model(), feat_config(data_efficiency=cur),
+                             device=ctx["device"])
+    diffs = []
+    for _ in range(n + 1):
+        diffs.append(eng.curriculum_difficulty())
+        out = steps(eng, 1)
+        if set(out[2][0]) != {diffs[-1]}:
+            raise AssertionError(f"train-features (c): curriculum step "
+                                 f"{len(diffs) - 1} ran D at rows "
+                                 f"{set(out[2][0])}, want {diffs[-1]}")
+    ctx["take"]()
+    log(f"train-features (c) [{card}] curriculum {lo_d} -> {hi_d} over {n}"
+        f" steps: difficulty a step {diffs} (D's rows followed)")
+    if diffs[0] != lo_d or diffs[-1] != hi_d:
+        raise AssertionError(f"train-features (c): curriculum {diffs}")
+    res["curriculum"] = diffs
+    del eng
+    free_card(torch, ctx["device"])
+
+    # the tiled loss: loss_tiling 8 against 1 on one batch
+    model = feat_model()
+    params = model.init(seed=0, device=ctx["device"])
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    ids = {"input_ids": torch.from_numpy(batch["input_ids"]).to(
+        ctx["device"])}
+    out = {}
+    for tiles in (1, 8):
+        m = dataclasses.replace(model.cfg, loss_tiling=tiles)
+        ctx["sync"]()
+        base_b = ctx["allocated"]()
+        ctx["reset_peak"]()
+        loss = type(model)(m).loss_fn(params, ids)
+        grads = torch.autograd.grad(loss, leaves)
+        ctx["sync"]()
+        out[tiles] = (float(loss.detach()), grads,
+                      (ctx["peak"]() - base_b) / 1e9)
+        del loss
+    ctx["take"]()
+    lrel = abs(out[8][0] - out[1][0]) / abs(out[1][0])
+    rels = {n: leaf_rel(torch, g, w) for (n, _), g, w in
+            zip(_walk(params), out[8][1], out[1][1])}
+    worst = max(rels, key=rels.get)
+    grel = rels[worst]
+    log(f"train-features (c) [{card}] loss_tiling 8 vs 1: loss {out[8][0]} "
+        f"vs {out[1][0]} (rel {lrel:.2e}, gate {FEAT_TILED_LOSS_REL}), "
+        f"grads max rel L2 {grel:.3e} at {worst} (embed/tokens "
+        f"{rels['embed/tokens']:.3e}; gate {FEAT_TILED_GRAD_REL}), peak "
+        f"{out[8][2]:.3f} vs {out[1][2]:.3f} GB above the start")
+    if not (lrel <= FEAT_TILED_LOSS_REL and grel <= FEAT_TILED_GRAD_REL):
+        raise AssertionError(f"train-features (c): tiled loss rel {lrel}, "
+                             f"grads {grel}")
+    if ctx["cuda"] and not out[8][2] < out[1][2]:
+        raise AssertionError(f"train-features (c): tiled peak {out[8][2]} "
+                             f"not below {out[1][2]}")
+    res["tiled"] = dict(loss_rel=lrel, grad_rel=grel,
+                        peak_gb={t: round(v[2], 3) for t, v in out.items()})
+    del out, params, leaves
+    free_card(torch, ctx["device"])
+    return res
+
+
+def train_features(torch, fa, KERNELS, reset_counts, device="cuda"):
+    """Phase 14: the rest of training on llama3-1b at full width and depth
+    with phase 5's batch -- (a) every remat policy, (b) six optimizers,
+    (c) random-LTD, both PLD modes, the curriculum and the tiled loss.
+    Returns the phase's launches per kernel (comparison runs excluded)."""
+    cuda = torch.device(device).type == "cuda"
+    totals = {k: 0 for k in TRAIN_KERNELS}
+
+    def take():
+        got = {k: KERNELS[k].launches for k in TRAIN_KERNELS}
+        for k, v in got.items():
+            totals[k] += v
+        reset_counts()
+        return got
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    ctx = dict(
+        device=device, cuda=cuda, sync=sync, take=take,
+        reset_counts=reset_counts, card=card_line() if cuda else device,
+        allocated=(torch.cuda.memory_allocated if cuda else lambda: 0),
+        peak=(torch.cuda.max_memory_allocated if cuda else lambda: 0),
+        reset_peak=(torch.cuda.reset_peak_memory_stats if cuda
+                    else lambda: None),
+        batch=feat_batch(feat_model().cfg.vocab_size))
+    free_card(torch, device)
+    t_phase = time.perf_counter()
+    reset_counts()
+    with FeatureTrainReplay(torch, fa) as replay, \
+            attention_calls(fa) as calls:
+        ctx["replay"], ctx["calls"] = replay, calls
+        t = time.perf_counter()
+        remat, leaves = feat_remat(torch, fa, ctx)
+        t_a = time.perf_counter() - t
+        t = time.perf_counter()
+        opts = feat_optimizers(torch, ctx, leaves)
+        del leaves
+        t_b = time.perf_counter() - t
+        t = time.perf_counter()
+        de = feat_data_efficiency(torch, fa, ctx)
+        t_c = time.perf_counter() - t
+    errs = replay.check()
+    del replay
+    missing = [k for k, v in totals.items() if not v] if cuda else []
+    if missing:
+        raise AssertionError(f"train-features: kernels never launched "
+                             f"{missing} ({totals})")
+    log(f"train-features: launches {totals}; captured launches at "
+        f"{FEAT_LTD_KEEP} rows replayed vs plain, max abs err {errs}")
+    log(f"train-features [{ctx['card']}]: (a) {t_a:.1f} s, (b) {t_b:.1f} s,"
+        f" (c) {t_c:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    PHASE_NOTES["train_features"] = dict(remat=remat, optimizers=opts, **de)
+    return totals
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -5049,6 +5590,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = checkpoint(torch, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    feats = train_features(torch, fa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -5088,7 +5632,8 @@ def main() -> int:
                                              ("observability", obs),
                                              ("serving", srv),
                                              ("fleet", flt),
-                                             ("checkpoint", ckpt))
+                                             ("checkpoint", ckpt),
+                                             ("train_features", feats))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

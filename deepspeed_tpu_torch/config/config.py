@@ -8,6 +8,7 @@ single-device training engine reads are ported: the batch triple,
 same thing on one device, as the reference does on a one-device mesh),
 ``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
 ``wall_clock_breakdown``, ``checkpoint``, ``resilience``,
+``data_efficiency``, ``progressive_layer_drop``,
 ``sanity_checks`` / ``sanity_check_batches`` and the serving layer's
 ``serving``. Keys are checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
@@ -23,6 +24,7 @@ import json
 from typing import Any, Dict, List, Optional, Union
 
 AUTO = "auto"
+_MESH_ITEM = ' (ROADMAP section 1, "Mesh, ZeRO and tensor parallelism")'
 _SECTION = object()     # an unported key whose mere presence raises
 
 
@@ -182,6 +184,9 @@ class ZeroConfig(_Section):
                 "zero_quantized_gradients": False,
                 "zero_hpz_partition_size": 1, "mics_shard_size": -1,
                 "mics_hierarchical_params_gather": False}
+    UNPORTED_ITEM = {**{k: "Mesh, ZeRO and tensor parallelism"
+                        for k in UNPORTED},
+                     "offload_optimizer": "Offload", "offload_param": "Offload"}
 
     def validate(self, path: str) -> None:
         if not 0 <= int(self.stage) <= 3:
@@ -204,8 +209,8 @@ class MeshConfig(_Section):
 
     def validate(self, path: str) -> None:
         if self.auto:
-            raise NotImplementedError("config 'mesh.auto' is not ported (one "
-                                      "device)")
+            raise NotImplementedError(
+                "config 'mesh.auto' is not ported (one device)" + _MESH_ITEM)
         for ax in ("pp", "dp", "fsdp", "ep", "sp", "tp", "num_slices"):
             v = getattr(self, ax)
             if ax == "dp" and v == AUTO:
@@ -216,29 +221,111 @@ class MeshConfig(_Section):
             if v > 1:
                 raise NotImplementedError(
                     f"config 'mesh.{ax}' = {v}: the PyTorch engine runs on "
-                    "one device; meshes are not ported yet")
+                    "one device; meshes are not ported yet" + _MESH_ITEM)
 
 
 @dataclasses.dataclass
 class ActivationCheckpointingConfig(_Section):
-    """``activation_checkpointing``: ``policy`` ``none`` or ``full`` (the
-    reference's named policies raise); the engine applies a policy other
-    than ``none`` to the model's layers."""
+    """``activation_checkpointing``: ``policy`` is any name of
+    ``runtime/activation_checkpointing.py`` ``POLICIES`` (an unknown one
+    raises ``ValueError``); the engine applies a policy other than ``none``
+    to the model's layers. The reference's other keys are accepted as it
+    accepts them: on one device they ask for nothing (its offload is the
+    ``offload_*`` policies)."""
 
     partition_activations: bool = False
+    cpu_checkpointing: bool = False
     contiguous_memory_optimization: bool = False
     number_checkpoints: Optional[int] = None
     synchronize_checkpoint_boundary: bool = False
     profile: bool = False
     policy: str = "none"
 
-    UNPORTED = {"cpu_checkpointing": False}
-
     def validate(self, path: str) -> None:
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             check_policy)
 
         check_policy(self.policy)
+
+
+@dataclasses.dataclass
+class CurriculumLearningConfig(_Section):
+    """``data_efficiency.data_sampling.curriculum_learning`` (the
+    reference's :478)."""
+
+    enabled: bool = False
+    curriculum_type: str = "seqlen"
+    min_difficulty: int = 8
+    max_difficulty: int = 1024
+    schedule_type: str = "fixed_linear"
+    schedule_config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def model_dump(self) -> Dict[str, Any]:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+
+@dataclasses.dataclass
+class DataSamplingConfig(_Section):
+    enabled: bool = False
+    curriculum_learning: CurriculumLearningConfig = dataclasses.field(
+        default_factory=CurriculumLearningConfig)
+
+    NESTED = {"curriculum_learning": CurriculumLearningConfig}
+
+
+@dataclasses.dataclass
+class RandomLTDConfig(_Section):
+    """``data_efficiency.data_routing.random_ltd``: layers ``[start, end)``
+    run on a random subset of ``keep`` tokens; keep grows from
+    ``min_value`` by ``step_size`` every ``interval`` steps up to
+    ``max_value`` (0: the model's ``max_seq_len``); ``end`` -1 is
+    ``num_layers - 1``."""
+
+    enabled: bool = False
+    random_ltd_layer_start: int = 1
+    random_ltd_layer_end: int = -1
+    min_value: int = 128
+    max_value: int = 0
+    step_size: int = 16
+    interval: int = 100
+
+
+@dataclasses.dataclass
+class DataRoutingConfig(_Section):
+    enabled: bool = False
+    random_ltd: RandomLTDConfig = dataclasses.field(
+        default_factory=RandomLTDConfig)
+
+    NESTED = {"random_ltd": RandomLTDConfig}
+
+
+@dataclasses.dataclass
+class DataEfficiencyConfig(_Section):
+    """``data_efficiency`` (the reference's :517): the curriculum and
+    random-LTD."""
+
+    enabled: bool = False
+    data_sampling: DataSamplingConfig = dataclasses.field(
+        default_factory=DataSamplingConfig)
+    data_routing: DataRoutingConfig = dataclasses.field(
+        default_factory=DataRoutingConfig)
+
+    NESTED = {"data_sampling": DataSamplingConfig,
+              "data_routing": DataRoutingConfig}
+
+
+@dataclasses.dataclass
+class ProgressiveLayerDropConfig(_Section):
+    """``progressive_layer_drop`` (the reference's :525): ``compiled_tiers``
+    > 0 runs only the first k layers, k from theta's expected kept-layer
+    count on that many tiers; 0 drops each layer at random with the PLD
+    depth ramp."""
+
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+    compiled_tiers: int = 0
 
 
 class _Checked(_Section):
@@ -777,6 +864,10 @@ class DeepSpeedTpuConfig(_Section):
     # disable only the batch check with sanity_check_batches=false
     sanity_checks: bool = False
     sanity_check_batches: bool = True
+    data_efficiency: DataEfficiencyConfig = dataclasses.field(
+        default_factory=DataEfficiencyConfig)
+    progressive_layer_drop: ProgressiveLayerDropConfig = dataclasses.field(
+        default_factory=ProgressiveLayerDropConfig)
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
@@ -784,25 +875,33 @@ class DeepSpeedTpuConfig(_Section):
               "activation_checkpointing": ActivationCheckpointingConfig,
               "observability": ObservabilityConfig,
               "serving": ServingConfig, "checkpoint": CheckpointConfig,
-              "resilience": ResilienceConfig}
+              "resilience": ResilienceConfig,
+              "data_efficiency": DataEfficiencyConfig,
+              "progressive_layer_drop": ProgressiveLayerDropConfig}
+    UNPORTED_ITEM = {
+        "moe": "MoE on one device",
+        **{k: "Mesh, ZeRO and tensor parallelism" for k in (
+            "pipeline", "comms_logger", "compression", "autotuning",
+            "prescale_gradients", "gradient_predivide_factor")},
+        "offload": "Offload",
+        "sequence_parallel": "Long context",
+        **{k: "Remainder" for k in (
+            "monitor_config", "tensorboard", "csv_monitor", "wandb",
+            "flops_profiler", "data_types", "elasticity", "inference",
+            "hybrid_engine", "dump_state")},
+    }
     UNPORTED = {
-        **{k: _SECTION for k in (
-            "moe", "pipeline", "offload",
-            "comms_logger", "monitor_config", "tensorboard", "csv_monitor",
-            "wandb", "flops_profiler", "data_types", "compression",
-            "sequence_parallel", "elasticity", "autotuning",
-            "inference", "data_efficiency", "hybrid_engine",
-            "progressive_layer_drop")},
+        **{k: _SECTION for k in UNPORTED_ITEM},
         "prescale_gradients": False,
         "gradient_predivide_factor": 1.0, "dump_state": False,
     }
-    UNPORTED_ITEM = {"elasticity": "Remainder"}
 
     @classmethod
     def build(cls, values, path: str = ""):
         if isinstance(values, dict) and values.get("mesh") == AUTO:
-            raise NotImplementedError("config 'mesh': 'auto' is not ported "
-                                      "(one device)")
+            raise NotImplementedError(
+                "config 'mesh': 'auto' is not ported (one device)"
+                + _MESH_ITEM)
         return super().build(values, path)
 
     def validate(self, path: str) -> None:

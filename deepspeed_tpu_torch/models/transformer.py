@@ -16,9 +16,16 @@ leaves to the compute dtype inside the forward, so autograd lands the
 gradients in fp32, and wraps each layer in the ``remat_policy``'s
 activation checkpointing.
 
+The training forward also runs random-LTD (layers ``[start, end)`` on a
+sorted random subset of the tokens), progressive layer drop (the first k
+layers, or each layer kept at random with the PLD depth ramp) and the tiled
+logits loss (``loss_tiling > 1``). The random draws come from host
+``torch.Generator``s seeded by the step seed and the layer
+(:meth:`TransformerLM.ltd_positions`, :meth:`TransformerLM.pld_keep`): a
+valid draw, not the reference's ``jax.random`` one.
+
 Not ported yet (they raise ``NotImplementedError``): MoE layers,
-``act_quant_bits``, the fpdt/ring/ulysses attention impls, random-LTD,
-progressive layer drop and the tiled loss (``loss_tiling > 1``).
+``act_quant_bits`` and the fpdt/ring/ulysses attention impls.
 """
 
 from __future__ import annotations
@@ -389,17 +396,38 @@ def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
 
 
 def transformer_block(x: torch.Tensor, w: Params, cfg: TransformerConfig,
-                      freqs: Optional[torch.Tensor]) -> torch.Tensor:
+                      freqs: Optional[torch.Tensor],
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """One decoder block of the training forward over the whole sequence:
     the counterpart of ``transformer_block`` (:526) and ``attention_block``
     (:413, without the fpdt tier), causal flash attention with the layer's
-    window. ``w`` holds one layer's weights in the compute dtype."""
+    window. ``w`` holds one layer's weights in the compute dtype;
+    ``positions`` [B, T] overrides the rotary positions (random-LTD)."""
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
     def attend(q, k, v):
         return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
 
-    return _decode_block(x, w, cfg, freqs, None, attend)
+    return _decode_block(x, w, cfg, freqs, positions, attend)
+
+
+def ltd_block(x: torch.Tensor, w: Params, cfg: TransformerConfig,
+              freqs: Optional[torch.Tensor],
+              pos: torch.Tensor) -> torch.Tensor:
+    """A random-LTD layer: the block runs on the tokens at the sorted
+    positions ``pos`` [keep] (causal among them, each at its own rotary
+    position); the other rows pass through unchanged (the reference's
+    ``ltd_block``)."""
+    B, keep = x.shape[0], pos.shape[0]
+    y = transformer_block(x.index_select(1, pos), w, cfg, freqs,
+                          positions=pos[None].expand(B, keep))
+    return x.index_copy(1, pos, y)
+
+
+def _mix_seed(seed: int, layer: int) -> int:
+    """One 63-bit generator seed from a step seed and a layer index."""
+    return (int(seed) * 1_000_003 + 7919 * (int(layer) + 1)) % (1 << 63)
 
 
 def lm_loss(cfg: TransformerConfig, logits: torch.Tensor,
@@ -478,6 +506,47 @@ class TransformerLM:
                 "(the port has one attention path: auto/flash)")
         self.cfg = cfg
         self._freqs: Dict[torch.device, torch.Tensor] = {}
+        # random-LTD: when set, layers [start, end) process only `keep`
+        # random tokens; progressive layer drop's static-depth mode: when set
+        # (< num_layers) the training forward runs only the first k layers.
+        # The engine owns both schedules.
+        self._ltd_keep: Optional[int] = None
+        self._ltd_layers: Optional[tuple] = None
+        self._pld_depth: Optional[int] = None
+
+    def set_random_ltd(self, keep: Optional[int],
+                       layers: Optional[tuple] = None) -> None:
+        """Random-LTD's kept-token count (None: off) over layers
+        ``[start, end)`` (default ``(1, L - 1)``; ``end <= 0`` reads as
+        ``L - 1``)."""
+        L = self.cfg.num_layers
+        self._ltd_keep = keep
+        if keep is not None:
+            start, end = layers if layers is not None else (1, L - 1)
+            self._ltd_layers = (max(0, start), end if end > 0 else L - 1)
+
+    def set_pld_depth(self, k: Optional[int]) -> None:
+        """PLD's static depth (None: every layer)."""
+        if k is not None and not (1 <= k <= self.cfg.num_layers):
+            raise ValueError(f"pld depth {k} out of [1, "
+                             f"{self.cfg.num_layers}]")
+        self._pld_depth = k
+
+    # ---- the random draws of random-LTD and PLD (replaceable in tests) ---
+    def ltd_positions(self, seed: int, layer: int, T: int,
+                      keep: int) -> torch.Tensor:
+        """The sorted positions [keep] (int64, CPU) an LTD layer keeps: the
+        first ``keep`` of a permutation of ``T`` drawn on a host generator
+        seeded by (``seed``, ``layer``)."""
+        g = torch.Generator().manual_seed(_mix_seed(seed, layer))
+        return torch.randperm(T, generator=g)[:keep].sort().values
+
+    def pld_keep(self, seed: int, layer: int, theta: float) -> bool:
+        """Whether gated PLD keeps ``layer`` (0-based) this step: a host
+        draw against the depth ramp ``1 - ((layer + 1) / L)(1 - theta)``."""
+        keep_p = 1.0 - ((layer + 1.0) / self.cfg.num_layers) * (1.0 - theta)
+        g = torch.Generator().manual_seed(_mix_seed(seed, layer))
+        return bool(torch.rand(1, generator=g).item() < keep_p)
 
     def freqs(self, device) -> Optional[torch.Tensor]:
         """Rotary table on ``device`` (computed once per device, fp32)."""
@@ -612,25 +681,53 @@ class TransformerLM:
                 yield i, cseg
 
     # ---- full-sequence forward and the training loss ---------------------
-    def hidden_states(self, params: Params,
-                      input_ids: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, params: Params, input_ids: torch.Tensor,
+                      ltd_seed: Optional[int] = None,
+                      pld_theta: Optional[float] = None) -> torch.Tensor:
         """Final-norm hidden states [B, T, D] (the reference's
         ``hidden_states`` :745, dense path): each layer runs under the
         ``remat_policy``'s activation checkpointing, with its window
-        segment's config."""
+        segment's config. With :meth:`set_random_ltd` (and keep < T) the
+        layers in its range are LTD layers; with :meth:`set_pld_depth` only
+        the first k layers run; with ``pld_theta`` each layer runs or is
+        skipped outright by :meth:`pld_keep` (the reference computes and
+        masks it: the same function). ``ltd_seed`` seeds both draws."""
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             checkpoint_wrapper)
 
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, T = input_ids.shape
-        pos = torch.arange(T, device=input_ids.device)[None].expand(B, T)
+        dev = input_ids.device
+        pos = torch.arange(T, device=dev)[None].expand(B, T)
         x = self._embed(params, input_ids, pos)
-        freqs = self.freqs(input_ids.device)
+        freqs = self.freqs(dev)
         layer_at = _layer_views(params["layers"], dt)
+        ltd = self._ltd_keep is not None and self._ltd_keep < T
+        segs = self._window_segments()
+        if len(segs) > 1 and (ltd or pld_theta is not None):
+            raise NotImplementedError(
+                "mixed-window layers (window_start_layer > 0) cannot "
+                "combine with random-LTD or progressive layer drop")
+        n_run = cfg.num_layers
+        if (self._pld_depth is not None and len(segs) == 1 and not ltd):
+            n_run = self._pld_depth
+        seed = 0 if ltd_seed is None else int(ltd_seed)
         block = checkpoint_wrapper(transformer_block, cfg.remat_policy)
+        lblock = checkpoint_wrapper(ltd_block, cfg.remat_policy)
         for i, cseg in self._layers():
-            x = block(x, layer_at(i), cseg, freqs)
+            if i >= n_run:
+                break
+            if pld_theta is not None and not self.pld_keep(seed, i,
+                                                           pld_theta):
+                continue
+            if ltd and self._ltd_layers[0] <= i < self._ltd_layers[1]:
+                p = self.ltd_positions(seed, i, T, self._ltd_keep)
+                p = (p.pin_memory().to(dev, non_blocking=True)
+                     if dev.type == "cuda" else p.to(dev))
+                x = lblock(x, layer_at(i), cseg, freqs, p)
+            else:
+                x = block(x, layer_at(i), cseg, freqs)
         return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
     def logits(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -638,20 +735,45 @@ class TransformerLM:
         paths)."""
         return self._head_proj(params, self.hidden_states(params, input_ids))
 
+    def _tiled_loss(self, params: Params, batch: Dict[str, torch.Tensor],
+                    hidden: torch.Tensor) -> torch.Tensor:
+        """The loss over ``loss_tiling`` sequence chunks (the reference's
+        :888): the next-token shift keeps length T by appending one padding
+        label, and the logits are never whole."""
+        from deepspeed_tpu_torch.sequence.tiling import tiled_logits_loss
+
+        cfg = self.cfg
+        ids = batch["input_ids"]
+        if "labels" in batch:
+            labels = batch["labels"]
+        else:
+            pad = torch.full((ids.shape[0], 1), -100, dtype=ids.dtype,
+                             device=ids.device)
+            labels = torch.cat([ids[:, 1:], pad], dim=1)
+            if "attention_mask" in batch:
+                mask = batch["attention_mask"].bool()
+                labels[:, :-1] = torch.where(mask[:, 1:], labels[:, :-1],
+                                             -100)
+        # the master head: each chunk casts it, so its gradient sums in fp32
+        return tiled_logits_loss(hidden, self._head(params), labels,
+                                 num_shards=cfg.loss_tiling,
+                                 z_loss=cfg.z_loss)
+
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                 rng=None) -> torch.Tensor:
         """Scalar training loss of one micro-batch (the reference's
-        ``loss_fn`` :914, untiled): ``batch`` holds ``input_ids`` [B, T] and
-        optionally ``labels`` / ``attention_mask``."""
-        cfg = self.cfg
-        if "ltd_seed" in batch or "pld_theta" in batch:
-            raise NotImplementedError("random-LTD and progressive layer drop "
-                                      "are not ported yet")
-        if cfg.loss_tiling > 1:
-            raise NotImplementedError("loss_tiling > 1 (the tiled logits "
-                                      "loss) is not ported yet")
-        logits = self.logits(params, batch["input_ids"])
-        return lm_loss(cfg, logits, batch)
+        ``loss_fn`` :914): ``batch`` holds ``input_ids`` [B, T], optionally
+        ``labels`` / ``attention_mask``, and the engine's per-row
+        ``ltd_seed`` / ``pld_theta`` (read from their first row; host
+        tensors, so reading them costs no device sync)."""
+        seed, pld = batch.get("ltd_seed"), batch.get("pld_theta")
+        hidden = self.hidden_states(
+            params, batch["input_ids"],
+            ltd_seed=None if seed is None else int(seed.reshape(-1)[0]),
+            pld_theta=None if pld is None else float(pld.reshape(-1)[0]))
+        if self.cfg.loss_tiling > 1:
+            return self._tiled_loss(params, batch, hidden)
+        return lm_loss(self.cfg, self._head_proj(params, hidden), batch)
 
     # ---- paged serving path ----------------------------------------------
     def init_paged_kv_cache(self, num_blocks: int, block_size: int = 128,

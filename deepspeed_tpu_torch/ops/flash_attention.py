@@ -3,9 +3,9 @@
 
 ``flash_attention`` / ``flash_attention_lse`` take the model layout
 ``q [B, T, H, d]``, ``k/v [B, S, K, d]`` (query head ``h`` reads kv head
-``h // (H/K)``) and are differentiable in both outputs through
-``torch.autograd.Function`` (the counterpart of the reference's
-``custom_vjp``s ``_flash`` / ``_flash_lse``). On CUDA tensors the forward
+``h // (H/K)``) and are differentiable in both outputs through the op
+``dstpu::flash_attn`` with its registered autograd (:func:`flash_op`, the
+counterpart of the reference's ``custom_vjp``s ``_flash`` / ``_flash_lse``). On CUDA tensors the forward
 launches kernel D (``csrc/flash_forward.cu``, replacing the TPU
 ``_fwd_kernel``) and the backward kernels E then F (``csrc/
 flash_backward.cu``, replacing ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
@@ -19,6 +19,7 @@ position ``t + rel_offset`` against key column ``c``; causal keeps
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -257,26 +258,60 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: kernel D. Backward: E then F, with the cotangents of both
-    outputs (an unused output's cotangent arrives as None)."""
+_OPS: dict = {}
+_OPS_LOCK = threading.Lock()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, rel_offset):
-        out, lse = flash_forward(q, k, v, causal=causal, window=window,
-                                 rel_offset=rel_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, rel_offset=rel_offset)
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
+def flash_op():
+    """The flash forward as a dispatcher op, ``dstpu::flash_attn(q, k, v,
+    causal, window, rel_offset) -> (out, lse)``, with its autograd
+    registered (backward: the op ``dstpu::flash_attn_bwd``, kernels E then
+    F). Registered at first use. Being an op the dispatcher sees, it is the
+    one a selective-checkpoint policy names to keep the attention output
+    (the reference's ``checkpoint_name(out, "flash_attn_out")``;
+    ``runtime/activation_checkpointing.py``). Kernel D on CUDA tensors,
+    the plain versions on CPU tensors."""
+    op = _OPS.get("fwd")
+    if op is not None:
+        return op
+    with _OPS_LOCK:     # replicas on threads may reach here together
+        if "fwd" not in _OPS:
+            _OPS["fwd"] = _register_flash_op()
+    return _OPS["fwd"]
+
+
+def _register_flash_op():
+    from torch.library import custom_op
+
+    @custom_op("dstpu::flash_attn", mutates_args=())
+    def fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], rel_offset: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return flash_forward(q, k, v, causal=causal, window=window,
+                             rel_offset=rel_offset)
+
+    @custom_op("dstpu::flash_attn_bwd", mutates_args=())
+    def bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            dlse: Optional[torch.Tensor], causal: bool,
+            window: Optional[int], rel_offset: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return flash_backward(q, k, v, out, lse, do, dlse, causal=causal,
+                              window=window, rel_offset=rel_offset)
+
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, rel_offset = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.opts = (causal, window, rel_offset)
+
     def backward(ctx, do, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         do = torch.zeros_like(out) if do is None else do.contiguous()
-        dq, dk, dv = flash_backward(q, k, v, out, lse, do, dlse, **ctx.opts)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, dlse, *ctx.opts)
         return dq, dk, dv, None, None, None
+
+    fwd.register_autograd(backward, setup_context=setup_context)
+    return fwd
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -289,7 +324,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``[B,H,T,1]``; here the trailing unit axis is dropped."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    return _FlashAttention.apply(q, k, v, causal, window, int(rel_offset))
+    on_cpu(q, k, v)         # a mixed call raises before the dispatcher
+    return flash_op()(q, k, v, bool(causal), window, int(rel_offset))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

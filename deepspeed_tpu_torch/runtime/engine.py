@@ -32,6 +32,15 @@ The reference's imperative UX with its semantics:
   ``resilience.enabled``, through a per-directory ``CheckpointManager``
   (manifest, verification with fallback, keep-last-K, retried IO, the
   SIGTERM emergency save) -- and the ``train/checkpoint_ms`` gauge.
+* Data efficiency and progressive layer drop (the reference's :212-275,
+  :582-662): the curriculum truncates each batch's sequence keys to its
+  difficulty; random-LTD's kept-token count grows with the step (updated
+  at accumulation boundaries); PLD's theta rides the batch (gated mode) or
+  sets the model's static depth (``compiled_tiers``). Each batch carries
+  the step seed ``ltd_seed`` and ``pld_theta`` as host tensors, so the
+  model reads them with no device sync. The reference rebuilds its jitted
+  programs after a bucket or tier change; the port has nothing to
+  rebuild.
 * Resilience (the reference's :278-350, :1333-1590): under
   ``resilience.enabled`` the ``StepGuard`` checks each step before the
   update (a non-finite loss or gradient skips it whole), the coordinator
@@ -101,11 +110,16 @@ class DeepSpeedTpuEngine:
         self.config = config
         config.resolve_batch_sizes(1)
         policy = config.activation_checkpointing.policy
-        if policy != "none" and getattr(model, "cfg", None) is not None:
-            # the config's remat policy applies to the model's layers; the
-            # caller's model object is left as it was
+        if getattr(model, "cfg", None) is not None and (
+                policy != "none" or config.data_efficiency.enabled
+                or config.progressive_layer_drop.enabled):
+            # the config's remat policy applies to the model's layers, and
+            # random-LTD / PLD set the model's state; the caller's model
+            # object is left as it was
             model = copy.copy(model)
-            model.cfg = dataclasses.replace(model.cfg, remat_policy=policy)
+            if policy != "none":
+                model.cfg = dataclasses.replace(model.cfg,
+                                                remat_policy=policy)
         self.module = model
         self.zero_stage = int(config.zero_optimization.stage)
         self.fp16_enabled = bool(config.fp16.enabled)
@@ -154,6 +168,7 @@ class DeepSpeedTpuEngine:
             monitor_memory=config.observability.monitor_memory,
             device=self.device)
         self._configure_observability(config)
+        self._configure_data_efficiency(config)
         self._pending_ckpt = None      # an in-flight async save
         self._configure_resilience(config.resilience)
         self.training_dataloader = None
@@ -202,11 +217,142 @@ class DeepSpeedTpuEngine:
         return DeepSpeedTpuDataLoader(dataset, bs, collate_fn=collate_fn,
                                       seed=self.config.seed, **kw)
 
+    # ---- data efficiency and PLD (the reference's :212-275, :582-662) -----
+    def _configure_data_efficiency(self, config) -> None:
+        de = config.data_efficiency
+        self._curriculum = None
+        self._ltd_cfg = None
+        if de.enabled and de.data_sampling.enabled \
+                and de.data_sampling.curriculum_learning.enabled:
+            from deepspeed_tpu_torch.runtime.data_pipeline import (
+                CurriculumScheduler)
+
+            self._curriculum = CurriculumScheduler(
+                de.data_sampling.curriculum_learning.model_dump())
+            # the reference bounds the distinct difficulties because each
+            # is a fresh compile there; the port compiles nothing per shape
+            # but keeps the bound as a contract of the config
+            n_buckets = (self._curriculum.max_difficulty
+                         - self._curriculum.min_difficulty) \
+                // max(self._curriculum.difficulty_step, 1) + 1
+            if n_buckets > 64:
+                raise ValueError(
+                    f"curriculum_learning would create {n_buckets} distinct "
+                    "sequence-length buckets; raise schedule_config."
+                    "difficulty_step so (max_difficulty - min_difficulty) / "
+                    "difficulty_step <= 64")
+        if de.enabled and de.data_routing.enabled \
+                and de.data_routing.random_ltd.enabled:
+            self._ltd_cfg = de.data_routing.random_ltd
+            if not hasattr(self.module, "set_random_ltd"):
+                raise ValueError("random_ltd requires a model with "
+                                 "set_random_ltd (TransformerLM family)")
+            self._update_random_ltd()
+        self._pld = None
+        self._pld_tiers = 0
+        pcfg = config.progressive_layer_drop
+        if not pcfg.enabled:
+            return
+        if self._ltd_cfg is not None:
+            raise ValueError("progressive_layer_drop and random_ltd both "
+                             "rewrite the layer loop; enable one")
+        from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
+            ProgressiveLayerDrop)
+
+        self._pld = ProgressiveLayerDrop(theta=pcfg.theta, gamma=pcfg.gamma)
+        self._pld_tiers = int(pcfg.compiled_tiers)
+        if self._pld_tiers > 0:
+            if getattr(getattr(self.module, "cfg", None),
+                       "window_start_layer", 0):
+                raise NotImplementedError(
+                    "progressive_layer_drop.compiled_tiers does not support "
+                    "mixed-window models (window_start_layer > 0)")
+            wd = float((config.optimizer.params or {}).get(
+                "weight_decay", 0.0)) if config.optimizer else 0.0
+            if wd > 0.0:
+                # the dropped tail layers get no gradients, but decoupled
+                # decay would keep shrinking them every step
+                raise ValueError(
+                    "progressive_layer_drop.compiled_tiers requires "
+                    "weight_decay=0: the statically-dropped tail layers "
+                    "receive no gradients but decoupled decay would keep "
+                    "shrinking them every step")
+
+    def _update_random_ltd(self) -> None:
+        """Random-LTD's kept-token count: from ``min_value``, +``step_size``
+        every ``interval`` steps, clamped at ``max_value`` (0: the model's
+        ``max_seq_len``)."""
+        c = self._ltd_cfg
+        ceil = c.max_value or getattr(self.module.cfg, "max_seq_len", 1 << 30)
+        keep = min(ceil, c.min_value
+                   + c.step_size * (self.global_steps // max(c.interval, 1)))
+        if keep != self.module._ltd_keep:
+            self.module.set_random_ltd(
+                keep, (c.random_ltd_layer_start, c.random_ltd_layer_end))
+
+    def curriculum_difficulty(self) -> Optional[int]:
+        if self._curriculum is None:
+            return None
+        return self._curriculum.update_difficulty(self.global_steps)
+
+    def _apply_curriculum(self, batch):
+        """Truncate the sequence keys to the curriculum's difficulty."""
+        if self._curriculum is None or not isinstance(batch, dict):
+            return batch
+        diff = self.curriculum_difficulty()
+        out = {}
+        for k, v in batch.items():
+            arr = v if isinstance(v, torch.Tensor) else np.asarray(v)
+            if arr.ndim >= 2 and arr.shape[1] > diff and k in (
+                    "input_ids", "labels", "attention_mask", "position_ids"):
+                arr = arr[:, :diff]
+            out[k] = arr
+        return out
+
+    def _inject_ltd_seed(self, batch):
+        """The per-step routing inputs, one per example: the random-LTD /
+        PLD step seed and (gated PLD) theta. In PLD's compiled-tiers mode
+        theta sets the model's depth instead (:meth:`_update_pld_depth`)."""
+        if (self._ltd_cfg is None and self._pld is None) \
+                or not isinstance(batch, dict):
+            return batch
+        if self._pld is not None and self._pld_tiers > 0:
+            self._update_pld_depth()
+            return batch
+        b = batch["input_ids"].shape[0]
+        out = {**batch, "ltd_seed": np.full((b,), self.global_steps
+                                            + self.micro_steps, np.int32)}
+        if self._pld is not None:
+            self._pld.update_state(self.global_steps)
+            out["pld_theta"] = np.full((b,), self._pld.get_theta(),
+                                       np.float32)
+        return out
+
+    def _update_pld_depth(self) -> None:
+        """PLD's static depth in compiled-tiers mode: theta's expected
+        kept-layer count on the tier grid."""
+        from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
+            active_layers)
+
+        if not hasattr(self.module, "set_pld_depth"):
+            raise NotImplementedError(
+                "progressive_layer_drop.compiled_tiers requires a "
+                "TransformerLM module")
+        self._pld.update_state(self.global_steps)
+        k = active_layers(self._pld.get_theta(), self.module.cfg.num_layers,
+                          self._pld_tiers, theta_min=self._pld.theta)
+        if k != self.module._pld_depth:
+            self.module.set_pld_depth(k)
+
+    #: batch keys the model reads on the host (no device sync)
+    _HOST_KEYS = ("ltd_seed", "pld_theta")
+
     def _put_batch(self, batch):
         """Host batch (numpy arrays, tensors, in dicts/lists) -> tensors on
-        the engine's device."""
+        the engine's device (the routing keys stay host tensors)."""
         if isinstance(batch, dict):
-            return {k: self._put_batch(v) for k, v in batch.items()}
+            return {k: (torch.as_tensor(v) if k in self._HOST_KEYS
+                        else self._put_batch(v)) for k, v in batch.items()}
         if isinstance(batch, (list, tuple)):
             return type(batch)(self._put_batch(v) for v in batch)
         if isinstance(batch, torch.Tensor):
@@ -219,6 +365,9 @@ class DeepSpeedTpuEngine:
         self.tput_timer.start()
         if self._breakdown:
             self.wall_timers("fwd").start(synchronize=False)
+        if self._ltd_cfg is not None and self._grad_acc_count == 0:
+            self._update_random_ltd()   # only at accumulation boundaries
+        batch = self._inject_ltd_seed(self._apply_curriculum(batch))
         if not self._first_batch_checked:
             from deepspeed_tpu_torch.runtime.sanity import (
                 check_batch_consistency)
@@ -348,6 +497,9 @@ class DeepSpeedTpuEngine:
         if self._grad_acc_count:
             raise RuntimeError("fused_train_step inside an open gradient-"
                                "accumulation window (call step() first)")
+        if self._ltd_cfg is not None:
+            self._update_random_ltd()
+        batch = self._inject_ltd_seed(self._apply_curriculum(batch))
         if self._guard is not None:
             self._guard.pre_step()  # crash faults fire on the fused path too
         ga = int(self.config.gradient_accumulation_steps)
@@ -360,6 +512,10 @@ class DeepSpeedTpuEngine:
         losses = []
         for i in range(ga):
             mb = {k: v.chunk(ga)[i] for k, v in batch.items()}
+            if "ltd_seed" in mb:
+                # each micro-batch draws its own tokens / layers (the
+                # reference folds the batch's token sum into its key)
+                mb["ltd_seed"] = mb["ltd_seed"] + i
             loss = self.module.loss_fn(self.params, mb)
             (loss * scale).backward()
             losses.append(loss.detach())

@@ -1,13 +1,17 @@
 """Where a training step's time goes on the card: ``torch.profiler`` over
 one warm ``train_batch`` step of the train configuration below.
 
-    python -m deepspeed_tpu_torch.tools.train_profile
+    python -m deepspeed_tpu_torch.tools.train_profile \
+        [--remat-policy POLICY] [--optimizer NAME] [--lr LR]
 
 The configuration is the one ``chip_smoke.py``'s train phase drives, and
 both read it from here: ``llama3-1b`` at full width and depth
 (``max_seq_len`` ``TRAIN_SEQ``), random fp32 master weights from seed 0,
 bf16 compute, ``TRAIN_CONFIG`` (micro-batch 4, GA 2, AdamW with clipping)
-and one fixed numpy-seeded micro-batch (``fixed_batch``).
+and one fixed numpy-seeded micro-batch (``fixed_batch``). ``--remat-policy``
+(any name of ``runtime/activation_checkpointing.py`` ``POLICIES``) and
+``--optimizer`` (with ``--lr``; weight decay and clipping are kept) replace
+the configuration's ``none`` and AdamW.
 
 Prints the wall time per step (profiler on, so above an unprofiled run),
 the device time the profiler recorded (sum of CUDA kernel durations, one
@@ -19,6 +23,7 @@ card.
 
 from __future__ import annotations
 
+import argparse
 import itertools
 
 import numpy as np
@@ -61,19 +66,39 @@ def fixed_batch(vocab_size: int) -> dict:
             .astype(np.int32)}
 
 
-def main() -> int:
+def train_config(remat_policy: str = "none", optimizer: str = None,
+                 lr: float = None) -> dict:
+    """``TRAIN_CONFIG`` with another remat policy and/or optimizer (its
+    ``params`` keep the weight decay; ``lr`` replaces the learning rate)."""
+    config = {**TRAIN_CONFIG,
+              "activation_checkpointing": {"policy": remat_policy}}
+    opt = TRAIN_CONFIG["optimizer"]
+    params = dict(opt["params"], **({"lr": lr} if lr is not None else {}))
+    config["optimizer"] = {"type": optimizer or opt["type"],
+                           "params": params}
+    return config
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--remat-policy", default="none")
+    ap.add_argument("--optimizer", default=None)
+    ap.add_argument("--lr", type=float, default=None)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
     import deepspeed_tpu_torch as tds
     from deepspeed_tpu_torch import TransformerLM
 
     cfg = train_model_config()
-    eng, *_ = tds.initialize(TransformerLM(cfg), dict(TRAIN_CONFIG))
+    config = train_config(args.remat_policy, args.optimizer, args.lr)
+    eng, *_ = tds.initialize(TransformerLM(cfg), config)
     batch = fixed_batch(cfg.vocab_size)
     prof = profile_phase(
         f"train_batch {TRAIN_PRESET} L={cfg.num_layers} "
         f"{TRAIN_CONFIG['train_micro_batch_size_per_gpu']}x{TRAIN_SEQ} "
-        f"ga={TRAIN_CONFIG['gradient_accumulation_steps']}",
+        f"ga={TRAIN_CONFIG['gradient_accumulation_steps']} "
+        f"remat={args.remat_policy} opt={config['optimizer']['type']}",
         lambda: eng.train_batch(itertools.repeat(batch)), 1)
     rows = _device_events(prof)
     total = sum(r[1] for r in rows)

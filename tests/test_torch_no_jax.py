@@ -86,6 +86,17 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.resilience.coordinator\n"
         "import deepspeed_tpu_torch.resilience.heartbeat\n"
         "import deepspeed_tpu_torch.tools.crash_resume\n"
+        "import deepspeed_tpu_torch.runtime.activation_checkpointing\n"
+        "import deepspeed_tpu_torch.runtime.optimizers\n"
+        "import deepspeed_tpu_torch.runtime.progressive_layer_drop\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline.curriculum\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline.data_sampler\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline.variable_batch\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline.indexed_dataset\n"
+        "import deepspeed_tpu_torch.runtime.data_pipeline.sp_dataloader\n"
+        "import deepspeed_tpu_torch.sequence\n"
+        "import deepspeed_tpu_torch.sequence.tiling\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if any(m == f or m.startswith(f + '.') "

@@ -599,3 +599,34 @@ def test_spec_gate_checks_every_token_after_the_runs_part(spec_case,
     spec[6] = int(np.argmin(lg))
     with pytest.raises(AssertionError, match="at step 6"):
         chip_smoke.spec_matches("late", eng, prompt, t0, plain, spec)
+
+
+# ---------------------------------------------------------------------------
+# phase 14 (train-features) at a tiny width on the CPU
+# ---------------------------------------------------------------------------
+
+FEAT_TINY = dict(hidden_size=64, num_layers=4, num_heads=4, num_kv_heads=2,
+                 intermediate_size=128, vocab_size=512, dtype="float32",
+                 param_dtype="float32")
+
+
+def test_train_features_phase_runs_on_a_tiny_cpu_model(monkeypatch):
+    """Phase 14 on llama3-1b's preset cut to 4 layers of width 64 in fp32
+    on the CPU, rows cut to 64 (LTD keeps 40 over layers [1, 3), the
+    curriculum runs 16 -> 64, PLD's gamma 5 so its depth moves within 4
+    steps): every gate that does not read the card passes, and the replay
+    captures D, E and F at the LTD rows."""
+    for name, value in (("FEAT_MODEL_KW", FEAT_TINY), ("FEAT_SEQ", 64),
+                        ("FEAT_LTD_KEEP", 40), ("FEAT_LTD_LAYERS", (1, 3)),
+                        ("FEAT_CURRICULUM", (16, 64, 3)),
+                        ("FEAT_PLD_GAMMA", 5.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    from deepspeed_tpu_torch.ops import _build
+
+    counts = chip_smoke.train_features(torch, tfa, _build.KERNELS,
+                                       _build.reset_counts, device="cpu")
+    assert set(counts) == set(chip_smoke.TRAIN_KERNELS)
+    notes = chip_smoke.PHASE_NOTES["train_features"]
+    assert notes["curriculum"] == [16, 32, 48, 64]
+    assert notes["pld"]["depths"][0] == 4 and min(notes["pld"]["depths"]) < 4
+    assert len(notes["remat"]) == 9 and len(notes["optimizers"]) == 6
