@@ -354,6 +354,33 @@ Phases, in order (any failure raises and the script exits non-zero):
               first launches at 1000 rows are replayed through their plain
               versions. Prints the phase's seconds.
 
+15. moe-train -- MoE training on ``mixtral-8x7b`` at full width (D 4096,
+              F 14336, 8 experts, top-2, H 32 / K 8, d 128, V 32000), cut
+              to 2 of its 32 layers (fp32 masters, grads and AdamW moments
+              of 32 layers would not fit the card), max_seq_len 2048, seed-0
+              weights, ``TRAIN_CONFIG``'s AdamW and clipping at micro-batch
+              2 x 2048 and GA 2: (a) the capacity dispatch (the preset's
+              default) and (b) the grouped dispatch with the ragged
+              product, each 3 ``train_batch`` steps and one
+              ``fused_train_step`` on one fixed batch through
+              ``initialize``: finite losses and grad norms, the last loss
+              below the first, the trained model's aux loss > 0; the drop
+              fraction (from an expert-load tracker over one forward),
+              step ms, tokens/s, the model-FLOPs share on the active
+              parameters (top-2 of 8 experts' MLPs, ``parallel/
+              cost_model.py``'s count) and peak memory printed. (c) one
+              MoE block at 1 x 2048 tokens in bf16: grouped ``ragged`` vs
+              ``padded`` -- the same top-k indices, output and the grads of
+              x, router, ``w_gate``, ``w_up``, ``w_down`` within rel L2
+              2e-2 --, the capacity path at ``capacity_factor`` 8 (nothing
+              drops) vs grouped within 2e-2, two ragged launches bit for
+              bit; the 2-layer model's grads under remat ``full`` bit-equal
+              to ``none``'s under both dispatches. (d) the tracker
+              installed for the ``full`` grouped forward and backward:
+              each layer reports once, 2048 x 2 routed pairs. D, E and F
+              must launch; the first launch of each in (a) is replayed
+              through its plain version.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -4216,13 +4243,16 @@ def fleet(torch, pa, qm, fa, KERNELS, reset_counts, device="cuda"):
             del r0                   # the dead incarnation
             inv = pool_invariants(router, uids, FLEET_JOIN_S)
             new_r0 = router.replicas["r0"]
+            # the sampler's last snapshot of the pool may still hold the
+            # dead incarnation: stop it before looking for held engines,
+            # as (c) and (d) do
+            gaps.append(watch.stop().max_gap)
             held = held_engines(engines, router)
             post = router.submit([int(t) for t in prompts[2]],
                                  max_new_tokens=FLEET_NEW)
             post_left = await_terminal(router, [post], FLEET_JOIN_S)
             dumps = glob.glob(os.path.join(dump_dir,
                                            "flight_replica_crash_*"))
-            gaps.append(watch.stop().max_gap)
             log(f"fleet (b): storm of {len(uids)} ({rejected} rejected), "
                 f"r0 crashed with {inv['terminal_counts']}; recovered "
                 f"{actions['recovered']}; r0 incarnation {inc0} -> "
@@ -5275,9 +5305,9 @@ def ltd_layer_check(torch, fa, ctx, model):
                     generator=g, device=dev).to(dt)
     pos = model.ltd_positions(3, FEAT_LTD_LAYERS[0], T, FEAT_LTD_KEEP).to(dev)
     with torch.no_grad():
-        y = ltd_block(x, w, cfg, model.freqs(dev), pos)
+        y, _ = ltd_block(x, w, cfg, model.freqs(dev), pos)
         with plain_attention(fa):
-            want = ltd_block(x, w, cfg, model.freqs(dev), pos)
+            want, _ = ltd_block(x, w, cfg, model.freqs(dev), pos)
     dropped = torch.ones(T, dtype=torch.bool, device=dev)
     dropped[pos] = False
     rel = leaf_rel(torch, y[:, pos], want[:, pos])
@@ -5525,6 +5555,332 @@ def train_features(torch, fa, KERNELS, reset_counts, device="cuda"):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MoE training -- mixtral-8x7b at full width on one card
+# ---------------------------------------------------------------------------
+
+MOE_PRESET = "mixtral-8x7b"
+MOE_MODEL_KW = {"num_layers": 2}   # overrides of the preset (depth cut)
+MOE_SEQ = 2048                 # tokens a row
+MOE_MICRO = 2                  # rows a micro-batch (TRAIN_CONFIG's GA 2)
+MOE_STEPS = 3                  # train_batch steps, then one fused step
+MOE_BLOCK_REL = 2e-2           # (c): block outputs and grads, rel L2
+
+
+class MoETrainReplay(TrainReplay):
+    """Phase 15's :class:`Replay`: the first launch of each of D, E and F
+    at Mixtral's attention (stage ``moe``)."""
+
+    REQUIRED = {(k, "moe") for k in TRAIN_KERNELS}
+
+    def _wanted(self, target, name, x) -> bool:
+        return self.stage is not None and super()._wanted(target, name, x)
+
+
+def moe_model(**kw):
+    """``MOE_PRESET`` at ``MOE_SEQ`` with ``MOE_MODEL_KW`` and ``kw``."""
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+
+    return TransformerLM(get_preset(MOE_PRESET, max_seq_len=MOE_SEQ,
+                                    **{**MOE_MODEL_KW, **kw}))
+
+
+def moe_batch(vocab: int, rows: int) -> dict:
+    rng = np.random.default_rng(15)
+    return {"input_ids": rng.integers(0, vocab, (rows, MOE_SEQ))
+            .astype(np.int32)}
+
+
+class RoutedPairs:
+    """An expert-load tracker that keeps every report (one per MoE block
+    a forward)."""
+
+    def __init__(self):
+        self.seen = []
+
+    def observe(self, counts):
+        self.seen.append(np.asarray(counts))
+
+
+def moe_engine_run(torch, ctx, tag: str, **model_kw) -> dict:
+    """(a)/(b): ``initialize`` the model with ``TRAIN_CONFIG``'s optimizer
+    and clipping at micro ``MOE_MICRO``, ``MOE_STEPS`` ``train_batch``
+    steps and one ``fused_train_step`` on one fixed batch (the first
+    step's routed pairs counted); then, on the trained params, the aux
+    loss and the routed pairs of one forward."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.spec import num_params
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.parallel.cost_model import ModelProfile
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    model = moe_model(**model_kw)
+    cfg = model.cfg
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": MOE_MICRO}
+    ga = config["gradient_accumulation_steps"]
+    ctx["sync"]()
+    ctx["reset_peak"]()
+    t0 = time.perf_counter()
+    eng, *_ = tds.initialize(model, config, device=ctx["device"])
+    ctx["sync"]()
+    n = num_params(eng.params)
+    log(f"moe-train {tag}: {MOE_PRESET} D={cfg.hidden_size} "
+        f"L={cfg.num_layers} E={cfg.num_experts} top-{cfg.top_k} "
+        f"F={cfg.intermediate_size} H={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"V={cfg.vocab_size}, dispatch {cfg.moe_dispatch} kernel "
+        f"{cfg.moe_kernel}: {n / 1e9:.3f}B params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = moe_batch(cfg.vocab_size, MOE_MICRO)
+    losses, norms, step_s = [], [], []
+    first = RoutedPairs()      # the first step's routing (seed-0 weights)
+    for i in range(MOE_STEPS):
+        sharded_moe.set_expert_tracker(first if i == 0 else None)
+        t = time.perf_counter()
+        try:
+            losses.append(float(eng.train_batch(itertools.repeat(batch))))
+        finally:
+            sharded_moe.set_expert_tracker(None)
+        ctx["sync"]()
+        step_s.append(time.perf_counter() - t)
+        norms.append(float(eng.get_global_grad_norm()))
+    t = time.perf_counter()
+    losses.append(float(eng.fused_train_step(
+        {"input_ids": np.concatenate([batch["input_ids"]] * ga)})))
+    ctx["sync"]()
+    step_s.append(time.perf_counter() - t)
+    norms.append(float(eng.get_global_grad_norm()))
+    peak = ctx["peak"]() / 1e9
+    # the trained model's aux loss and routed pairs on the batch
+    pairs = RoutedPairs()
+    sharded_moe.set_expert_tracker(pairs)
+    try:
+        with torch.no_grad():
+            ids = torch.from_numpy(batch["input_ids"]).to(ctx["device"])
+            _, aux = eng.module.hidden_states_and_aux(eng.params, ids)
+            aux = float(aux)
+    finally:
+        sharded_moe.set_expert_tracker(None)
+    S = MOE_MICRO * MOE_SEQ
+
+    def dropped(reports):
+        kept = [int(c.sum()) for c in reports]
+        return kept, 1.0 - sum(kept) / (len(kept) * S * cfg.top_k)
+
+    kept, drop = dropped(pairs.seen)
+    kept0, drop0 = dropped(first.seen)
+    steady = float(np.median(step_s[1:]))
+    tokens = MOE_MICRO * ga * MOE_SEQ
+    active = ModelProfile.from_transformer_config(cfg, seq=MOE_SEQ).active
+    flops_per_token = 6 * active + 12 * cfg.num_layers * MOE_SEQ \
+        * cfg.hidden_size
+    tps = tokens / steady
+    log(f"moe-train {tag} [{ctx['card']}]: losses {losses}, grad norms "
+        f"{norms}, aux {aux:.6f} (coef {cfg.moe_aux_loss_coef}), routed "
+        f"pairs kept a layer of {S * cfg.top_k}: first step (a block a "
+        f"micro-batch) {kept0}, drop fraction {drop0:.4f}; after the last "
+        f"{kept}, drop fraction {drop:.4f}; step ms {[round(s * 1e3, 1) for s in step_s]} "
+        f"({MOE_STEPS} train_batch, then fused_train_step), median of the "
+        f"last {len(step_s) - 1} {steady * 1e3:.1f} ms = {tps:.1f} tokens/s "
+        f"({tokens} tokens/step), model-FLOPs share "
+        f"{tps * flops_per_token / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s "
+        f"({flops_per_token / 1e9:.3f} GFLOP/token on {active / 1e9:.3f}B "
+        f"active of {n / 1e9:.3f}B params), peak {peak:.2f} GB")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"moe-train {tag}: non-finite loss or grad "
+                             f"norm {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe-train {tag}: last loss {losses[-1]} not "
+                             f"below the first {losses[0]}")
+    if not aux > 0:
+        raise AssertionError(f"moe-train {tag}: aux loss {aux} not > 0")
+    if len(kept) != cfg.num_layers or len(kept0) != ga * cfg.num_layers:
+        raise AssertionError(f"moe-train {tag}: {len(kept0)} and "
+                             f"{len(kept)} expert-load reports for "
+                             f"{cfg.num_layers} layers")
+    del eng
+    free_card(torch, ctx["device"])
+    return dict(losses=losses, grad_norms=norms, aux=aux, drop=drop,
+                first_drop=drop0,
+                step_ms=[round(s * 1e3, 1) for s in step_s],
+                tokens_per_s=round(tps, 1), peak_gb=round(peak, 2),
+                mfu=tps * flops_per_token / BF16_FLOPS_PER_S)
+
+
+def moe_block_check(torch, ctx) -> dict:
+    """(c) one MoE block of the model's width on 1 x ``MOE_SEQ`` tokens in
+    bf16: grouped ``ragged`` vs ``padded`` (the same top-k indices; output
+    and the grads of x, router and the three stacks), capacity at
+    ``capacity_factor = E`` vs grouped, and two ragged launches bit for
+    bit."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    cfg = moe_model().cfg
+    dev, dt = ctx["device"], torch.bfloat16
+    D, Fd, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(151)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    x0 = randn(1, MOE_SEQ, D)
+    w0 = {"router": randn(D, E, scale=D ** -0.5),
+          "w_gate": randn(E, D, Fd, scale=D ** -0.5),
+          "w_up": randn(E, D, Fd, scale=D ** -0.5),
+          "w_down": randn(E, Fd, D, scale=Fd ** -0.5)}
+    dy = randn(1, MOE_SEQ, D)
+    route = sharded_moe._route
+    picks = []
+
+    def spy(*a, **k):
+        out = route(*a, **k)
+        picks.append(out[3])
+        return out
+
+    def run(fn, c):
+        x = x0.clone().requires_grad_(True)
+        w = {n: t.clone().requires_grad_(True) for n, t in w0.items()}
+        y, aux = fn(x, w, c)
+        grads = torch.autograd.grad(y, [x, *w.values()], grad_outputs=dy)
+        ctx["sync"]()
+        return [y.detach(), *grads], float(aux.detach())
+
+    names = ["out", "x", "router", "w_gate", "w_up", "w_down"]
+    grouped = dataclasses.replace(cfg, moe_dispatch="grouped")
+    sharded_moe._route = spy
+    try:
+        ragged, aux_r = run(sharded_moe.grouped_moe_mlp_block,
+                            dataclasses.replace(grouped, moe_kernel="ragged"))
+        padded, aux_p = run(sharded_moe.grouped_moe_mlp_block,
+                            dataclasses.replace(grouped, moe_kernel="padded"))
+    finally:
+        sharded_moe._route = route
+    again, _ = run(sharded_moe.grouped_moe_mlp_block,
+                   dataclasses.replace(grouped, moe_kernel="ragged"))
+    capacity, aux_c = run(sharded_moe.moe_mlp_block,
+                          dataclasses.replace(cfg, capacity_factor=float(E)))
+    res = {"same_topk": bool(torch.equal(picks[0], picks[1])),
+           "ragged_vs_padded": {n: leaf_rel(torch, a, b) for n, a, b in
+                                zip(names, ragged, padded)},
+           "capacity_vs_grouped": {n: leaf_rel(torch, a, b) for n, a, b in
+                                   zip(names, capacity, ragged)},
+           "bit_identical": all(torch.equal(a, b)
+                                for a, b in zip(ragged, again)),
+           "aux": (aux_r, aux_p, aux_c)}
+    log(f"moe-train (c) [{ctx['card']}]: one block, 1 x {MOE_SEQ} tokens "
+        f"bf16: same top-k {res['same_topk']}, ragged vs padded rel L2 "
+        f"{res['ragged_vs_padded']}, capacity (factor {E}) vs grouped "
+        f"{res['capacity_vs_grouped']}, two ragged launches bit-identical "
+        f"{res['bit_identical']}, aux {res['aux']}")
+    bad = {k: {n: r for n, r in res[k].items() if not r <= MOE_BLOCK_REL}
+           for k in ("ragged_vs_padded", "capacity_vs_grouped")}
+    if not res["same_topk"] or any(bad.values()) or not res["bit_identical"]:
+        raise AssertionError(f"moe-train (c): {res}")
+    del ragged, padded, again, capacity, w0, x0
+    free_card(torch, dev)
+    return res
+
+
+def moe_remat_check(torch, ctx) -> dict:
+    """(c) the model's grads under remat ``full`` against ``none``'s, bit
+    for bit, per dispatch; (d) the expert-load tracker installed for the
+    ``full`` grouped run's forward and backward: each layer reports once,
+    S * k routed pairs."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    out = {}
+    ids = torch.from_numpy(moe_batch(moe_model().cfg.vocab_size, 1)
+                           ["input_ids"]).to(ctx["device"])
+    for dispatch in ("capacity", "grouped"):
+        model = moe_model(moe_dispatch=dispatch)
+        cfg0 = model.cfg
+        params = model.init(seed=0, device=ctx["device"])
+        leaves = [t.requires_grad_(True) for _, t in _walk(params)]
+        ref, pairs = None, RoutedPairs()
+        for policy in ("none", "full"):
+            model.cfg = dataclasses.replace(cfg0, remat_policy=policy)
+            track = dispatch == "grouped" and policy == "full"
+            sharded_moe.set_expert_tracker(pairs if track else None)
+            try:
+                grads = torch.autograd.grad(
+                    model.loss_fn(params, {"input_ids": ids}), leaves)
+            finally:
+                sharded_moe.set_expert_tracker(None)
+            ctx["sync"]()
+            if ref is None:
+                ref = grads
+        out[dispatch] = all(torch.equal(a, b) for a, b in zip(grads, ref))
+        if dispatch == "grouped":
+            out["tracker"] = [int(c.sum()) for c in pairs.seen]
+        del params, leaves, grads, ref
+        free_card(torch, ctx["device"])
+    want = [MOE_SEQ * moe_model().cfg.top_k] * moe_model().cfg.num_layers
+    log(f"moe-train (c) [{ctx['card']}]: grads under remat full bit-equal "
+        f"to none's: capacity {out['capacity']}, grouped {out['grouped']}; "
+        f"(d) tracker under full, routed pairs a layer {out['tracker']} "
+        f"(want {want})")
+    if not (out["capacity"] and out["grouped"]):
+        raise AssertionError(f"moe-train (c): remat full grads differ from "
+                             f"none's {out}")
+    if out["tracker"] != want:
+        raise AssertionError(f"moe-train (d): tracker counts "
+                             f"{out['tracker']} != {want}")
+    return out
+
+
+def moe_train(torch, fa, KERNELS, reset_counts, device="cuda"):
+    """Phase 15: MoE training on ``MOE_PRESET`` at full width (2 of its
+    32 layers) -- (a) the capacity dispatch, (b) the grouped dispatch with
+    the ragged product, each through ``initialize``; (c) one block's
+    checks and the remat bit-equality; (d) the expert-load tracker.
+    Returns the phase's launches per kernel."""
+    cuda = torch.device(device).type == "cuda"
+    totals = {k: 0 for k in TRAIN_KERNELS}
+
+    def take():
+        for k in TRAIN_KERNELS:
+            totals[k] += KERNELS[k].launches
+        reset_counts()
+
+    ctx = dict(device=device, sync=(torch.cuda.synchronize if cuda
+                                    else lambda: None),
+               card=card_line() if cuda else device,
+               peak=(torch.cuda.max_memory_allocated if cuda
+                     else lambda: 0),
+               reset_peak=(torch.cuda.reset_peak_memory_stats if cuda
+                           else lambda: None))
+    free_card(torch, device)
+    t_phase = time.perf_counter()
+    reset_counts()
+    with MoETrainReplay(torch, fa) as replay:
+        replay.stage = "moe"
+        cap = moe_engine_run(torch, ctx, "(a) capacity")
+        take()
+        grp = moe_engine_run(torch, ctx, "(b) grouped", moe_dispatch="grouped",
+                             moe_kernel="ragged")
+        take()
+        replay.stage = None
+        block = moe_block_check(torch, ctx)
+        remat = moe_remat_check(torch, ctx)
+        take()
+    errs = replay.check()
+    del replay
+    missing = [k for k, v in totals.items() if not v] if cuda else []
+    if missing:
+        raise AssertionError(f"moe-train: kernels never launched {missing} "
+                             f"({totals})")
+    log(f"moe-train: launches {totals}; first launches at {MOE_PRESET}'s "
+        f"attention replayed vs plain, max abs err {errs}")
+    log(f"moe-train [{ctx['card']}]: phase {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    PHASE_NOTES["moe_train"] = dict(capacity=cap, grouped=grp, block=block,
+                                    remat=remat)
+    return totals
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -5593,6 +5949,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     feats = train_features(torch, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_train(torch, fa, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -5633,7 +5992,8 @@ def main() -> int:
                                              ("serving", srv),
                                              ("fleet", flt),
                                              ("checkpoint", ckpt),
-                                             ("train_features", feats))
+                                             ("train_features", feats),
+                                             ("moe_train", moe))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

@@ -3,6 +3,6 @@
 
 from deepspeed_tpu_torch.config.config import (  # noqa: F401
     DeepSpeedTpuConfig, FleetConfig, FrontendConfig, KVTierConfig,
-    MigrationConfig, ObservabilityConfig, PrefixCacheConfig,
+    MigrationConfig, MoEConfig, ObservabilityConfig, PrefixCacheConfig,
     ProfileTriggerConfig, RouterConfig, ServingConfig, SLOConfig,
     SpeculativeConfig, TracingConfig, from_config)

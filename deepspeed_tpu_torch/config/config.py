@@ -8,7 +8,7 @@ single-device training engine reads are ported: the batch triple,
 same thing on one device, as the reference does on a one-device mesh),
 ``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
 ``wall_clock_breakdown``, ``checkpoint``, ``resilience``,
-``data_efficiency``, ``progressive_layer_drop``,
+``data_efficiency``, ``progressive_layer_drop``, ``moe``,
 ``sanity_checks`` / ``sanity_check_batches`` and the serving layer's
 ``serving``. Keys are checked:
 a misspelled key raises ``ValueError`` naming it, and a section or option of
@@ -339,6 +339,43 @@ class _Checked(_Section):
             if not isinstance(val, sub):
                 setattr(self, key, sub.build(val, key))
         self.validate("")
+
+
+@dataclasses.dataclass
+class MoEConfig(_Checked):
+    """``moe`` (the reference's :425): the same fields, defaults and checks.
+    The model reads its MoE settings from its ``TransformerConfig``
+    (``num_experts``, ``top_k``, ``capacity_factor``, ``moe_dispatch``,
+    ``moe_kernel``, ...); this section is accepted and validated as the
+    reference's is. ``kernel`` picks the grouped dispatch's product
+    (``ragged`` or the ``padded`` einsum twin); ``a2a_bits`` /
+    ``a2a_slice`` and ``replica_slots`` configure expert parallelism,
+    which one device never uses."""
+
+    enabled: bool = False
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    drop_tokens: bool = True
+    use_rts: bool = True               # random token selection
+    noisy_gate_policy: Optional[str] = None   # None|Jitter|RSample
+    kernel: str = "ragged"
+    a2a_bits: int = 0
+    a2a_slice: int = 0
+    replica_slots: int = 0
+
+    def validate(self, path: str) -> None:
+        if self.kernel not in ("ragged", "padded"):
+            raise ValueError("moe.kernel must be 'ragged' or 'padded', "
+                             f"got {self.kernel!r}")
+        if self.a2a_bits not in (0, 4, 8):
+            raise ValueError("moe.a2a_bits must be 0, 4 or 8, got "
+                             f"{self.a2a_bits}")
+        if self.a2a_slice < 0 or self.replica_slots < 0:
+            raise ValueError("moe.a2a_slice and moe.replica_slots must "
+                             "be >= 0")
 
 
 @dataclasses.dataclass
@@ -868,6 +905,7 @@ class DeepSpeedTpuConfig(_Section):
         default_factory=DataEfficiencyConfig)
     progressive_layer_drop: ProgressiveLayerDropConfig = dataclasses.field(
         default_factory=ProgressiveLayerDropConfig)
+    moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
@@ -877,9 +915,9 @@ class DeepSpeedTpuConfig(_Section):
               "serving": ServingConfig, "checkpoint": CheckpointConfig,
               "resilience": ResilienceConfig,
               "data_efficiency": DataEfficiencyConfig,
-              "progressive_layer_drop": ProgressiveLayerDropConfig}
+              "progressive_layer_drop": ProgressiveLayerDropConfig,
+              "moe": MoEConfig}
     UNPORTED_ITEM = {
-        "moe": "MoE on one device",
         **{k: "Mesh, ZeRO and tensor parallelism" for k in (
             "pipeline", "comms_logger", "compression", "autotuning",
             "prescale_gradients", "gradient_predivide_factor")},

@@ -118,6 +118,16 @@ def generate_loop(step_fn, params, init_cache_fn, ids: np.ndarray, total: int,
     return seqs
 
 
+def refuse_moe(model, engine: str) -> None:
+    """An MoE model is not served yet (its cached forwards route with the
+    ``moe_valid`` lanes of MoE serving): raise before anything is built."""
+    if model is not None and model.cfg.num_experts > 1:
+        raise NotImplementedError(
+            f"{engine}: serving an MoE model is not ported yet (ROADMAP "
+            "section 1, \"MoE on one device\"); it trains, and "
+            "TransformerLM.logits runs its full-sequence forward")
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -138,6 +148,7 @@ class InferenceEngine:
             parse_weight_dtype, quantize_serving_params)
         from deepspeed_tpu_torch.utils import resolve_device
 
+        refuse_moe(model, "InferenceEngine")
         self.device = resolve_device(device)
         self.module = model
         self.cfg = model.cfg

@@ -63,7 +63,7 @@ import torch
 
 from deepspeed_tpu_torch.config.config import (PrefixCacheConfig,
                                                SpeculativeConfig)
-from deepspeed_tpu_torch.inference.engine import sample_token
+from deepspeed_tpu_torch.inference.engine import refuse_moe, sample_token
 from deepspeed_tpu_torch.inference.quant import quantize_serving_params
 from deepspeed_tpu_torch.inference.ragged import (CapacityError, PrefixCache,
                                                   SequenceManager)
@@ -159,6 +159,7 @@ class InferenceEngineV2:
         if topology is not None or mesh is not None:
             raise _unported("a mesh / tensor parallelism (topology=, mesh=)",
                             '"Mesh, ZeRO and tensor parallelism"')
+        refuse_moe(model, "InferenceEngineV2")
         if (moe_kernel, moe_a2a_bits, moe_a2a_slice) != (None, None, None) \
                 or moe_replica_slots:
             raise _unported("MoE serving (moe_kernel=, moe_a2a_bits=, "

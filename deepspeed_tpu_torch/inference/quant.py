@@ -53,8 +53,9 @@ def quantize_serving_params(params, cfg, bits: int):
     layers["attn"] = attn
     mlp = dict(layers["mlp"])
     if any(leaf.ndim == 4 for leaf in mlp.values()):
-        raise NotImplementedError("quantizing MoE expert stacks is not "
-                                  "ported (MoE layers are not ported yet)")
+        raise NotImplementedError(
+            "quantizing MoE expert stacks is not ported yet (ROADMAP "
+            "section 1, \"MoE on one device\")")
     if "w_gate" in mlp and "w_up" in mlp and "b_up" not in mlp:
         mlp["w_gateup"] = torch.cat([mlp.pop("w_gate"), mlp.pop("w_up")],
                                     dim=-1)

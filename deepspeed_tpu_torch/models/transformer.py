@@ -24,8 +24,15 @@ logits loss (``loss_tiling > 1``). The random draws come from host
 (:meth:`TransformerLM.ltd_positions`, :meth:`TransformerLM.pld_keep`): a
 valid draw, not the reference's ``jax.random`` one.
 
-Not ported yet (they raise ``NotImplementedError``): MoE layers,
-``act_quant_bits`` and the fpdt/ring/ulysses attention impls.
+MoE models (``num_experts > 1``) train and run the full-sequence forward:
+each layer's MLP is the ``moe_fn`` (``moe.moe_block_for(cfg)`` unless one
+is given), and a layer returns its router's aux loss beside its output, so
+a remat recompute never overwrites it; :meth:`TransformerLM.loss_fn` adds
+``moe_aux_loss_coef`` times their sum.
+
+Not ported yet (they raise ``NotImplementedError``): the cached serving
+entry points of an MoE model, ``act_quant_bits`` and the fpdt/ring/ulysses
+attention impls.
 """
 
 from __future__ import annotations
@@ -375,11 +382,14 @@ def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
                   freqs: Optional[torch.Tensor],
                   positions: Optional[torch.Tensor],
-                  attn_cache_fn: Callable) -> torch.Tensor:
+                  attn_cache_fn: Callable,
+                  moe_fn: Optional[Callable] = None):
     """One pre-norm decoder block: ``attn_cache_fn(q, k, v)`` owns the KV
     bookkeeping (serving) or is plain flash attention (training) and returns
     [B, t, H, hd]. Parallel residual, shared norm and biases as the
-    reference's block; ``positions`` None means ``arange(T)``."""
+    reference's block; ``positions`` None means ``arange(T)``. The MLP is
+    ``moe_fn(h, w, cfg) -> (out, aux)`` when given (an MoE layer), else
+    :func:`mlp_block`. Returns (h, the layer's aux loss or None)."""
     hn1 = _norm(h, wc["ln1"], cfg.norm, cfg.norm_eps)
     q, k, v = qkv_proj(hn1, wc["attn"], cfg)
     if cfg.use_rope:
@@ -389,40 +399,49 @@ def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
     if cfg.parallel_block:
         hn2 = (hn1 if cfg.parallel_shared_norm
                else _norm(h, wc["ln2"], cfg.norm, cfg.norm_eps))
-        return h + attn_out + mlp_block(hn2, wc["mlp"], cfg)
-    h = h + attn_out
-    hn2 = _norm(h, wc["ln2"], cfg.norm, cfg.norm_eps)
-    return h + mlp_block(hn2, wc["mlp"], cfg)
+    else:
+        h = h + attn_out
+        hn2 = _norm(h, wc["ln2"], cfg.norm, cfg.norm_eps)
+    if moe_fn is None:
+        mlp_out, aux = mlp_block(hn2, wc["mlp"], cfg), None
+    else:
+        mlp_out, aux = moe_fn(hn2, wc["mlp"], cfg)
+    if cfg.parallel_block:
+        return h + attn_out + mlp_out, aux
+    return h + mlp_out, aux
 
 
 def transformer_block(x: torch.Tensor, w: Params, cfg: TransformerConfig,
                       freqs: Optional[torch.Tensor],
-                      positions: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      positions: Optional[torch.Tensor] = None,
+                      moe_fn: Optional[Callable] = None):
     """One decoder block of the training forward over the whole sequence:
     the counterpart of ``transformer_block`` (:526) and ``attention_block``
     (:413, without the fpdt tier), causal flash attention with the layer's
     window. ``w`` holds one layer's weights in the compute dtype;
-    ``positions`` [B, T] overrides the rotary positions (random-LTD)."""
+    ``positions`` [B, T] overrides the rotary positions (random-LTD).
+    Returns (x, the layer's aux loss or None)."""
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
     def attend(q, k, v):
         return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
 
-    return _decode_block(x, w, cfg, freqs, positions, attend)
+    return _decode_block(x, w, cfg, freqs, positions, attend, moe_fn)
 
 
 def ltd_block(x: torch.Tensor, w: Params, cfg: TransformerConfig,
-              freqs: Optional[torch.Tensor],
-              pos: torch.Tensor) -> torch.Tensor:
+              freqs: Optional[torch.Tensor], pos: torch.Tensor,
+              moe_fn: Optional[Callable] = None):
     """A random-LTD layer: the block runs on the tokens at the sorted
     positions ``pos`` [keep] (causal among them, each at its own rotary
     position); the other rows pass through unchanged (the reference's
-    ``ltd_block``)."""
+    ``ltd_block``). An MoE layer routes only the kept tokens, and its aux
+    loss is theirs. Returns (x, aux or None)."""
     B, keep = x.shape[0], pos.shape[0]
-    y = transformer_block(x.index_select(1, pos), w, cfg, freqs,
-                          positions=pos[None].expand(B, keep))
-    return x.index_copy(1, pos, y)
+    y, aux = transformer_block(x.index_select(1, pos), w, cfg, freqs,
+                               positions=pos[None].expand(B, keep),
+                               moe_fn=moe_fn)
+    return x.index_copy(1, pos, y), aux
 
 
 def _mix_seed(seed: int, layer: int) -> int:
@@ -495,9 +514,8 @@ class TransformerLM:
     MAX_ATOM = 256       # widest prefill atom; engines chunk longer prompts
     PREFILL_MAX = 4096   # widest whole-prompt prefill
 
-    def __init__(self, cfg: TransformerConfig):
-        if cfg.num_experts > 1:
-            raise NotImplementedError("MoE layers are not ported yet")
+    def __init__(self, cfg: TransformerConfig,
+                 moe_fn: Optional[Callable] = None):
         # auto/flash: flash attention, which is kernel D on CUDA tensors and
         # its plain version on CPU ones. No knob moves card work elsewhere.
         if cfg.attention_impl not in ("auto", "flash"):
@@ -505,6 +523,13 @@ class TransformerLM:
                 f"attention_impl={cfg.attention_impl!r} is not ported "
                 "(the port has one attention path: auto/flash)")
         self.cfg = cfg
+        if moe_fn is None and cfg.num_experts > 1:
+            # the dispatch algebra follows cfg.moe_dispatch, so every
+            # construction path (direct, presets) honors it
+            from deepspeed_tpu_torch.moe import moe_block_for
+
+            moe_fn = moe_block_for(cfg)
+        self.moe_fn = moe_fn
         self._freqs: Dict[torch.device, torch.Tensor] = {}
         # random-LTD: when set, layers [start, end) process only `keep`
         # random tokens; progressive layer drop's static-depth mode: when set
@@ -600,14 +625,20 @@ class TransformerLM:
             attn["bv"] = const((L, K * hd), 0.0)
         if cfg.proj_bias:
             attn["bo"] = const((L, D), 0.0)
+        E = cfg.num_experts
+        ex = (E,) if E > 1 else ()       # an MoE layer stacks E experts
         if cfg.activation == "swiglu":
-            mlp = {"w_gate": stack(D, (D, Fd)), "w_up": stack(D, (D, Fd)),
-                   "w_down": stack(Fd, (Fd, D))}
+            mlp = {"w_gate": stack(D, ex + (D, Fd)),
+                   "w_up": stack(D, ex + (D, Fd)),
+                   "w_down": stack(Fd, ex + (Fd, D))}
         else:
-            mlp = {"w_up": stack(D, (D, Fd)), "w_down": stack(Fd, (Fd, D))}
-            if cfg.proj_bias:
+            mlp = {"w_up": stack(D, ex + (D, Fd)),
+                   "w_down": stack(Fd, ex + (Fd, D))}
+            if cfg.proj_bias and E == 1:
                 mlp["b_up"] = const((L, Fd), 0.0)
                 mlp["b_down"] = const((L, D), 0.0)
+        if E > 1:
+            mlp["router"] = stack(D, (D, E))
         layers: Params = {"ln1": norm_w(), "attn": attn, "mlp": mlp}
         if not cfg.parallel_shared_norm:
             layers["ln2"] = norm_w()
@@ -685,13 +716,25 @@ class TransformerLM:
                       ltd_seed: Optional[int] = None,
                       pld_theta: Optional[float] = None) -> torch.Tensor:
         """Final-norm hidden states [B, T, D] (the reference's
-        ``hidden_states`` :745, dense path): each layer runs under the
+        ``hidden_states`` :745): :meth:`hidden_states_and_aux` without the
+        aux loss."""
+        return self.hidden_states_and_aux(params, input_ids, ltd_seed,
+                                          pld_theta)[0]
+
+    def hidden_states_and_aux(self, params: Params, input_ids: torch.Tensor,
+                              ltd_seed: Optional[int] = None,
+                              pld_theta: Optional[float] = None):
+        """(final-norm hidden states [B, T, D], the MoE layers' summed aux
+        loss or None for a dense model): each layer runs under the
         ``remat_policy``'s activation checkpointing, with its window
         segment's config. With :meth:`set_random_ltd` (and keep < T) the
         layers in its range are LTD layers; with :meth:`set_pld_depth` only
         the first k layers run; with ``pld_theta`` each layer runs or is
         skipped outright by :meth:`pld_keep` (the reference computes and
-        masks it: the same function). ``ltd_seed`` seeds both draws."""
+        masks it: the same function). ``ltd_seed`` seeds both draws. The
+        aux loss sums the layers that ran, in layer order, whatever the
+        remat policy: an LTD layer's is its kept tokens', a skipped layer
+        adds nothing (the reference adds its masked 0)."""
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             checkpoint_wrapper)
 
@@ -715,6 +758,7 @@ class TransformerLM:
         seed = 0 if ltd_seed is None else int(ltd_seed)
         block = checkpoint_wrapper(transformer_block, cfg.remat_policy)
         lblock = checkpoint_wrapper(ltd_block, cfg.remat_policy)
+        aux_total = None
         for i, cseg in self._layers():
             if i >= n_run:
                 break
@@ -725,10 +769,14 @@ class TransformerLM:
                 p = self.ltd_positions(seed, i, T, self._ltd_keep)
                 p = (p.pin_memory().to(dev, non_blocking=True)
                      if dev.type == "cuda" else p.to(dev))
-                x = lblock(x, layer_at(i), cseg, freqs, p)
+                x, aux = lblock(x, layer_at(i), cseg, freqs, p, self.moe_fn)
             else:
-                x = block(x, layer_at(i), cseg, freqs)
-        return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+                x, aux = block(x, layer_at(i), cseg, freqs, None,
+                               self.moe_fn)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps), \
+            aux_total
 
     def logits(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
         """[B, T] ids -> [B, T, V] logits (the parity oracle of the serving
@@ -765,17 +813,31 @@ class TransformerLM:
         ``loss_fn`` :914): ``batch`` holds ``input_ids`` [B, T], optionally
         ``labels`` / ``attention_mask``, and the engine's per-row
         ``ltd_seed`` / ``pld_theta`` (read from their first row; host
-        tensors, so reading them costs no device sync)."""
+        tensors, so reading them costs no device sync). An MoE model adds
+        ``moe_aux_loss_coef`` times its layers' aux loss."""
         seed, pld = batch.get("ltd_seed"), batch.get("pld_theta")
-        hidden = self.hidden_states(
+        hidden, aux = self.hidden_states_and_aux(
             params, batch["input_ids"],
             ltd_seed=None if seed is None else int(seed.reshape(-1)[0]),
             pld_theta=None if pld is None else float(pld.reshape(-1)[0]))
         if self.cfg.loss_tiling > 1:
-            return self._tiled_loss(params, batch, hidden)
-        return lm_loss(self.cfg, self._head_proj(params, hidden), batch)
+            loss = self._tiled_loss(params, batch, hidden)
+        else:
+            loss = lm_loss(self.cfg, self._head_proj(params, hidden), batch)
+        if aux is not None:                  # MoE: the load-balancing loss
+            loss = loss + self.cfg.moe_aux_loss_coef * aux
+        return loss
 
     # ---- paged serving path ----------------------------------------------
+    def _dense_serving(self, entry: str) -> None:
+        """Refuse a cached serving entry point of an MoE model: its routing
+        needs the ``moe_valid`` lanes of MoE serving, not ported yet."""
+        if self.cfg.num_experts > 1:
+            raise NotImplementedError(
+                f"TransformerLM.{entry} of an MoE model is not ported yet: "
+                "it routes with the moe_valid lanes of MoE serving (ROADMAP "
+                "section 1, \"MoE on one device\")")
+
     def init_paged_kv_cache(self, num_blocks: int, block_size: int = 128,
                             device="cuda", quantize: bool = False,
                             bits: int = 8) -> Dict[str, torch.Tensor]:
@@ -835,6 +897,7 @@ class TransformerLM:
         positions of padded rows). Writes at positions past the cache are
         dropped, as the reference's scatter drops them. Attention is
         :func:`_cached_attention`."""
+        self._dense_serving("forward_with_cache")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, t = input_ids.shape
@@ -860,7 +923,7 @@ class TransformerLM:
                 cv[wb, wp] = v[inside].to(cv.dtype)
                 return _cached_attention(q, ck, cv, _m)
 
-            x = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
         x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), {
             "k": cache["k"], "v": cache["v"],
@@ -887,6 +950,7 @@ class TransformerLM:
             raise NotImplementedError(
                 "the dense-tile escape hatch does not support the int8 KV "
                 "pool; use the packed path (packed=True)")
+        self._dense_serving("forward_with_paged_cache")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         t = input_ids.shape[1]
@@ -904,7 +968,7 @@ class TransformerLM:
                                        block_tables, pos, window=_w,
                                        layer=_i)
 
-            x = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
         x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), cache
 
@@ -923,6 +987,7 @@ class TransformerLM:
         to fold into the pool with one scatter."""
         from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
+        self._dense_serving("forward_prefill")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, T = input_ids.shape
@@ -941,7 +1006,7 @@ class TransformerLM:
                 kr[_i], vr[_i] = k, v
                 return flash_attention(q, k, v, causal=True, window=_w)
 
-            x = _decode_block(x, wc, cseg, freqs, positions, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
         last = torch.clamp(lengths.long() - 1, 0, T - 1)
         xg = x[torch.arange(B, device=dev), last]
         xg = _norm(xg, params["final_norm"], cfg.norm, cfg.norm_eps)
@@ -967,6 +1032,7 @@ class TransformerLM:
         from deepspeed_tpu_torch.ops.paged_attention import (
             cache_append, ragged_paged_attention)
 
+        self._dense_serving("forward_with_packed_cache")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         kv = dict(kv_scale=cache.get("kv_scale"), kv_bits=self._kv_bits(cache))
@@ -1012,7 +1078,7 @@ class TransformerLM:
                 out = parts[0] if len(parts) == 1 else torch.cat(parts)
                 return out[:, None]                              # [N,1,H,d]
 
-            x = _decode_block(x, wc, cseg, freqs, positions, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
         cache_append(cache, krows, vrows, block_tables, tok_slot, tok_pos,
                      valid)
         x = _norm(x[:, 0][gather_idx.long()], params["final_norm"], cfg.norm,
@@ -1035,6 +1101,7 @@ class TransformerLM:
         from deepspeed_tpu_torch.ops.paged_attention import (
             decode_pool_partials)
 
+        self._dense_serving("forward_decode_tail")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B = toks.shape[0]
@@ -1084,6 +1151,6 @@ class TransformerLM:
                 out = torch.where(valid[:, None, None], out, 0.0)
                 return out.to(q.dtype)[:, None]                  # [B,1,H,d]
 
-            x = _decode_block(x, wc, cseg, freqs, positions, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
         x = _norm(x[:, 0], params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), tail

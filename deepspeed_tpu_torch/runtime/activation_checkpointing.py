@@ -30,6 +30,9 @@ back to the device when the recompute asks for it: the tensor that
 selective checkpointing keeps is the host copy itself, which no saved-
 tensors hook could reach. ``OFFLOAD_STATS`` counts the bytes sent to the
 host.
+
+:func:`recomputing` tells code inside a block whether this call is the
+backward's recompute (the MoE expert-load tracker counts a forward once).
 """
 
 from __future__ import annotations
@@ -56,6 +59,15 @@ DOTS_NO_BATCH = frozenset({"aten::mm", "aten::addmm"})
 #: bytes and tensors the offload policies sent to the host (process-wide;
 #: reset by the caller)
 OFFLOAD_STATS = {"bytes": 0, "tensors": 0}
+
+# recomputes in progress (the backward runs them on autograd's threads)
+_RECOMPUTES = [0]
+
+
+def recomputing() -> bool:
+    """True while a checkpointed block is being recomputed for its
+    backward."""
+    return _RECOMPUTES[0] > 0
 
 
 class SavePolicy(NamedTuple):
@@ -184,11 +196,24 @@ def checkpoint_wrapper(function: Callable, policy: str = "full") -> Callable:
     def checkpointed(*args):
         import torch.utils.checkpoint
 
+        calls = [0]
+
+        def run(*a):
+            # the first call is the forward; any later one the recompute
+            calls[0] += 1
+            if calls[0] == 1:
+                return function(*a)
+            _RECOMPUTES[0] += 1
+            try:
+                return function(*a)
+            finally:
+                _RECOMPUTES[0] -= 1
+
         if save is None:
-            return torch.utils.checkpoint.checkpoint(function, *args,
+            return torch.utils.checkpoint.checkpoint(run, *args,
                                                      use_reentrant=False)
         return torch.utils.checkpoint.checkpoint(
-            function, *args, use_reentrant=False,
+            run, *args, use_reentrant=False,
             context_fn=lambda: _contexts(save))
 
     return checkpointed

@@ -249,6 +249,10 @@ def scenario_sigterm_drain(workdir, device):
     return ok, details
 
 
+class _PremiseFailed(Exception):
+    """A drill's setup did not reach the state its gate assumes."""
+
+
 def scenario_frontend_storm(workdir, device):
     """Real HTTP load (stdlib client, real sockets) against a 2-replica
     router behind the network front-end: a storm of concurrent
@@ -265,8 +269,11 @@ def scenario_frontend_storm(workdir, device):
                                              Replica, ReplicaRouter,
                                              ServingFrontend)
 
-    b0 = _make_batcher(device, max_queue_depth=8, default_max_new_tokens=3)
-    b1 = _make_batcher(device, max_queue_depth=8, default_max_new_tokens=3)
+    depth = 8                          # each replica's max_queue_depth
+    b0 = _make_batcher(device, max_queue_depth=depth,
+                       default_max_new_tokens=3)
+    b1 = _make_batcher(device, max_queue_depth=depth,
+                       default_max_new_tokens=3)
     r0, r1 = Replica("r0", b0), Replica("r1", b1)
     router = ReplicaRouter([r0, r1], RouterConfig()).start()
     fe = ServingFrontend(router, FrontendConfig(
@@ -280,6 +287,19 @@ def scenario_frontend_storm(workdir, device):
                 return True
             time.sleep(0.05)
         return False
+
+    def queued():
+        return (r0.stats["queue_depth"] + r1.stats["queue_depth"]
+                + sum(1 for r in results if r[0] == "err"))
+
+    def establish(ok, what):
+        """Fail the drill with the reason when its premise does not
+        hold, instead of running a phase whose gate then misreads."""
+        if not ok:
+            raise _PremiseFailed(
+                f"{what} (r0 queue {r0.stats['queue_depth']}, r1 queue "
+                f"{r1.stats['queue_depth']}, refused "
+                f"{sum(1 for r in results if r[0] == 'err')})")
 
     def unary(i, key):
         cli = GenerateClient(fe.url, api_key=key, timeout_s=180)
@@ -303,7 +323,7 @@ def scenario_frontend_storm(workdir, device):
             with lock:
                 results.append(("err", e))
 
-    timings = {}
+    timings, premise, threads = {}, None, []
     try:
         # phase 1 — storm: queues fill while the workers hold, the shed
         # storm lands on full queues, the overflow 429s at submit time
@@ -313,8 +333,8 @@ def scenario_frontend_storm(workdir, device):
             for i in range(20)]
         for t in threads:
             t.start()
-        wait_for(lambda: r0.stats["queue_depth"] + r1.stats["queue_depth"]
-                 + sum(1 for r in results if r[0] == "err") >= 20)
+        establish(wait_for(lambda: queued() >= 20),
+                  "phase 1: 20 requests not all queued or refused in 120 s")
         set_injector(FaultInjector([{"kind": "shed_storm", "times": 2}]))
         r0.paused = r1.paused = False
         for t in threads:
@@ -322,18 +342,26 @@ def scenario_frontend_storm(workdir, device):
         _fresh_injector()
         errs_p1 = [r[1] for r in results if r[0] == "err"]
 
-        # phase 2 — SIGTERM drain of r0 mid-flight, queued work migrates
+        # phase 2 — SIGTERM drain of r0 mid-flight, queued work migrates.
+        # Its premise: r0's queue holds requests and r1 has room for some
+        # of them. The clients start one at a time, each once the one
+        # before it is queued, so the router's least-loaded choice reads
+        # fresh queue depths and splits them 6 / 6; started at once under
+        # load, stale depths could send 8 to r1, leaving it no room.
         results.clear()
         r0.paused = r1.paused = True
         threads = ([threading.Thread(target=unary, args=(i, "gold"))
                     for i in range(6)]
                    + [threading.Thread(target=streamer, args=(i,))
                       for i in range(6)])
-        for t in threads:
+        for i, t in enumerate(threads):
             t.start()
-        wait_for(lambda: r0.stats["queue_depth"]
-                 + r1.stats["queue_depth"] >= 12)
+            establish(wait_for(lambda: queued() >= i + 1, timeout=30.0),
+                      f"phase 2: request {i + 1} of 12 not queued in 30 s")
         queued_r0 = r0.stats["queue_depth"]
+        establish(queued_r0 >= 1 and r1.stats["queue_depth"] < depth,
+                  "phase 2: the drain needs requests queued on r0 and room "
+                  "on r1")
         router.install_signal_handlers(drain="r0")
         t_drain = time.monotonic()
         os.kill(os.getpid(), signal.SIGTERM)
@@ -349,6 +377,11 @@ def scenario_frontend_storm(workdir, device):
             lambda: all(r.stats["active"] == 0
                         and r.stats["queue_depth"] == 0
                         for r in (r0, r1)))
+    except _PremiseFailed as e:
+        premise = str(e)
+        r0.paused = r1.paused = False
+        for t in threads:
+            t.join(timeout=180)
     finally:
         _fresh_injector()
         router.restore_signal_handlers()
@@ -357,6 +390,8 @@ def scenario_frontend_storm(workdir, device):
         router.close()
         router.close()
 
+    if premise is not None:
+        return False, {"premise_failed": premise}
     oks = [r[1] for r in results if r[0] == "ok"]
     streams = [r[1] for r in results if r[0] == "stream"]
     errs_p2 = [r[1] for r in results if r[0] == "err"]

@@ -78,6 +78,9 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.tools.elastic_drill\n"
         "import deepspeed_tpu_torch.utils.io\n"
         "import deepspeed_tpu_torch.utils.tensor_fragment\n"
+        "import deepspeed_tpu_torch.moe\n"
+        "import deepspeed_tpu_torch.moe.sharded_moe\n"
+        "import deepspeed_tpu_torch.moe.balancer\n"
         "import deepspeed_tpu_torch.runtime.checkpoint\n"
         "import deepspeed_tpu_torch.runtime.sanity\n"
         "import deepspeed_tpu_torch.resilience.retry\n"

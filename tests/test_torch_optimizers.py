@@ -107,7 +107,7 @@ def _roadmap_section_1() -> str:
 
 
 @pytest.mark.parametrize("raw", [
-    {"moe": {}}, {"pipeline": {}}, {"offload": {}},
+    {"elasticity": {}}, {"pipeline": {}}, {"offload": {}},
     {"sequence_parallel": {}}, {"monitor_config": {}}, {"compression": {}},
     {"mesh": {"tp": 2}}, {"mesh": "auto"},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},

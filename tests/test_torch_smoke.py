@@ -630,3 +630,32 @@ def test_train_features_phase_runs_on_a_tiny_cpu_model(monkeypatch):
     assert notes["curriculum"] == [16, 32, 48, 64]
     assert notes["pld"]["depths"][0] == 4 and min(notes["pld"]["depths"]) < 4
     assert len(notes["remat"]) == 9 and len(notes["optimizers"]) == 6
+
+
+# ---------------------------------------------------------------------------
+# phase 15 (moe-train) at a tiny width on the CPU
+# ---------------------------------------------------------------------------
+
+MOE_TINY = dict(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                intermediate_size=128, vocab_size=512, num_experts=4,
+                dtype="float32", param_dtype="float32")
+
+
+def test_moe_train_phase_runs_on_a_tiny_cpu_model(monkeypatch):
+    """Phase 15 on mixtral-8x7b's preset cut to 2 layers of width 64 and 4
+    experts in fp32 on the CPU, rows cut to 64: every gate that does not
+    read the card passes -- (a) and (b) lower the loss with aux > 0, the
+    capacity path drops pairs and the grouped path none, (c)'s block
+    checks and remat bit-equality, (d)'s tracker counts -- and the replay
+    captures D, E and F."""
+    monkeypatch.setattr(chip_smoke, "MOE_MODEL_KW", MOE_TINY)
+    monkeypatch.setattr(chip_smoke, "MOE_SEQ", 64)
+    from deepspeed_tpu_torch.ops import _build
+
+    counts = chip_smoke.moe_train(torch, tfa, _build.KERNELS,
+                                  _build.reset_counts, device="cpu")
+    assert set(counts) == set(chip_smoke.TRAIN_KERNELS)
+    notes = chip_smoke.PHASE_NOTES["moe_train"]
+    assert notes["capacity"]["drop"] > 0 and notes["grouped"]["drop"] == 0
+    assert notes["block"]["bit_identical"] and notes["block"]["same_topk"]
+    assert notes["remat"]["tracker"] == [64 * 2] * 2

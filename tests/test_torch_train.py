@@ -315,7 +315,7 @@ def test_misspelled_key_names_the_field(raw, where):
      "zero_quantized_weights"),
     ({"mesh": {"fsdp": 4}}, "mesh.fsdp"),
     ({"mesh": "auto"}, "mesh"),
-    ({"moe": {"enabled": True}}, "moe"),
+    ({"compression": {"enabled": True}}, "compression"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"monitor_config": {"csv_monitor": {"enabled": True}}},
