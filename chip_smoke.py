@@ -381,6 +381,47 @@ Phases, in order (any failure raises and the script exits non-zero):
               must launch; the first launch of each in (a) is replayed
               through its plain version.
 
+16. moe-serve -- MoE serving on ``mixtral-8x7b`` at full width, cut to 8
+              of its 32 layers (its bf16 experts are 2.82 GB a layer),
+              seed-0 weights drawn on the card at the init scale, engines
+              of max_seq_len 2048, 8 slots, block 128, phase 4's traffic,
+              each engine freed before the next. The cross-path and
+              cross-engine gates run under pinned routing (each row's
+              experts fixed by its position, token and layer, the
+              router's own gates as weights): a random router's near-tie
+              top-2 choices flip under bf16 noise between batch layouts,
+              and the w_down product's bits depend on an expert's row
+              count below 256 (split-K); the free-running readings are
+              printed beside. Each engine runs its traffic once untimed
+              first. (a) the packed engine, grouped dispatch,
+              ``ragged`` product, ``enable_metrics`` on: the 1100-token
+              prompt's chunked logits vs a whole ``put`` of it and the
+              129-token prompt's in the batch vs alone, rel L2 <= 2e-2,
+              and a control whose chunk atoms drop their newest past
+              token past twice that; every call's routed pairs (the
+              expert-load tracker's reports) equal its real tokens x 2 x
+              8 layers -- padding and idle lanes route nothing; the first
+              launches of A-D replayed through their plain versions; a
+              4-sequence decode ``put``'s device launches with the
+              tracker on and off printed. (b) ``moe_kernel="padded"``:
+              the 4-prompt ``put``'s logits vs (a)'s rel L2 <= 2e-2. (c)
+              the capacity dispatch at the preset's factor (pairs at most
+              real x 2 x 8, the drop fraction over real tokens printed),
+              then at factor E (nothing drops: pairs exact, logits vs (a)
+              <= 2e-2). (d) ``weight_dtype="int8", kv_dtype="int8"``: the
+              expert leaves are int8 ``_q`` / bf16 ``_s`` pairs, never
+              fused, each layer's stacks dequantize within 2e-2 of their
+              max |w|; logits vs (a) within 0.6 of the max |logit| (a
+              random router flips top-2 under int8 noise); first
+              launches of G, H and A/B int8 replayed. (e) phase 7's
+              2-layer cross-check on a seed-0 tree of 2 layers: the
+              ``packed=False``, ``paged=False`` and v1 engines vs the
+              packed engine within 2e-2, each control (newest column
+              dropped) past twice that. Each engine prints prompt, mixed
+              and decode tokens/s, its served tree's bytes, peak memory
+              and the ragged product's host syncs a call (one a layer a
+              forward). A-D, G, H, A/B int8 and I must launch.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -1960,13 +2001,17 @@ def v1_generate(eng, ids, new_tokens: int):
         steps.append(dict(enumerate(last)))
         return logits, cache
 
+    wrapped = "forward_with_cache" in vars(model)     # a harness wrapper
     model.forward_with_cache = capture
     try:
         t = time.perf_counter()
         gen = eng.generate(ids, max_new_tokens=new_tokens)
         dt = time.perf_counter() - t
     finally:
-        del model.forward_with_cache
+        if wrapped:
+            model.forward_with_cache = real
+        else:
+            del model.forward_with_cache
     T, V = ids.shape[1], model.cfg.vocab_size
     if gen.shape != (len(ids), T + new_tokens) or gen.min() < 0 \
             or gen.max() >= V or not np.array_equal(gen[:, :T], ids):
@@ -5881,6 +5926,594 @@ def moe_train(torch, fa, KERNELS, reset_counts, device="cuda"):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 16: MoE serving -- mixtral-8x7b at full width, 8 of 32 layers
+# ---------------------------------------------------------------------------
+
+MOE_SERVE_KW = {"num_layers": 8}   # overrides of the preset (depth cut)
+MOE_SERVE_CUT = 2              # (e): layers of the dense-engine cut
+MOE_SERVE_STEPS = 32           # decode_batch steps
+MOE_SERVE_REL_L2 = 2e-2        # cross-path and cross-engine logits
+MOE_INT8_MAX_REL = 0.6         # (d): max |int8 - bf16| / max |bf16| logits
+MOE_RECON_REL = 2e-2           # (d): a stack's dequant, of its max |w|
+MOE_SERVE_ENGINE = dict(max_sequences=8, max_seq_len=2048, block_size=128)
+MOE_SERVE_KERNELS = SERVE_KERNELS + ("qmm", "qmm_stacked",
+                                     "paged_decode_int8", "paged_past_int8",
+                                     "paged_tile")
+
+
+class MoEServeReplay(Replay):
+    """Phase 16's :class:`Replay` of kernels A-D: phase 4's stages, and no
+    capture outside them (the cross-path puts)."""
+
+    def _wanted(self, target, name, x) -> bool:
+        return self.stage is not None and super()._wanted(target, name, x)
+
+
+class RaggedSyncs:
+    """Counts the calls of the grouped ragged product (``sharded_moe.
+    _ragged_ffn``), each of which reads its group sizes on the host: one
+    device-to-host sync an MoE layer a forward."""
+
+    def __init__(self, sharded_moe):
+        self.mod, self.calls = sharded_moe, 0
+
+    def __enter__(self):
+        real = self.mod._ragged_ffn
+
+        def counted(*a, **k):
+            self.calls += 1
+            return real(*a, **k)
+
+        counted.__wrapped__ = real
+        self.mod._ragged_ffn = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ragged_ffn = self.mod._ragged_ffn.__wrapped__
+
+
+class PinnedRouting:
+    """Every MoE layer of ``model`` routes each row to experts fixed by
+    the row's (position, token, layer) -- the same experts on every
+    engine and batch layout -- with the router's own gates at them as
+    combine weights, renormalised and masked by ``valid`` as ``_route``
+    does. A random router's top-2 has near ties that bf16 noise between
+    two batch layouts flips, and one flipped choice moves the logits far
+    past 2e-2: with the choices pinned, a cross-path gate reads the
+    attention, cache and expert-product paths alone. Wraps the model's
+    five cached entry points and its full-sequence ``logits`` (each
+    records its rows' positions and tokens) and ``sharded_moe._route``;
+    restores both on exit."""
+
+    ENTRIES = ("forward_with_cache", "forward_with_paged_cache",
+               "forward_prefill", "forward_with_packed_cache",
+               "forward_decode_tail", "logits")
+
+    def __init__(self, torch, model, sharded_moe):
+        self.torch, self.model, self.mod = torch, model, sharded_moe
+        self.rows, self.layer = None, 0
+
+    def _keys(self, name, a):
+        """(positions, tokens) of the rows a forward routes, flattened as
+        its MoE layers flatten them."""
+        torch = self.torch
+        ids = a[2]                      # a: the entry's arguments from self
+        if name in ("forward_prefill", "logits"):
+            pos = torch.arange(ids.shape[1], device=ids.device).expand_as(ids)
+        elif name == "forward_with_packed_cache":
+            pos = a[6]                                          # tok_pos
+        elif name == "forward_decode_tail":
+            pos = a[8] + a[5]                                   # pos_base + t
+        else:            # forward_with_cache: cache["pos"]; paged: pos
+            base = a[3]["pos"] if name == "forward_with_cache" else a[5]
+            pos = base.long()[:, None] + torch.arange(ids.shape[1],
+                                                      device=ids.device)
+        return pos.reshape(-1).long(), ids.reshape(-1).long()
+
+    def __enter__(self):
+        torch = self.torch
+        for name in self.ENTRIES:
+            real = getattr(self.model, name)
+
+            def entry(*a, _name=name, _real=real, **k):
+                self.rows, self.layer = self._keys(_name, (None,) + a), 0
+                return _real(*a, **k)
+
+            setattr(self.model, name, entry)
+        real_route = self.mod._route
+
+        def route(logits, k, rng=None, noise_std=0.0, valid=None):
+            gates, aux, _, _ = real_route(logits, k, rng, noise_std, valid)
+            E = gates.shape[-1]
+            if k > 2 or k >= E:
+                raise ValueError(f"pinned routing takes top-1/2 of > 2 "
+                                 f"experts, got top-{k} of {E}")
+            pos, tok = self.rows
+            h = (pos * 40503 + tok * 9973 + self.layer * 7919 + 12345) \
+                % 1000003
+            self.layer += 1
+            e0 = h % E
+            step = 1 + (h // E) % (E - 1)
+            idx = torch.stack([(e0 + j * step) % E for j in range(k)], -1)
+            vals = gates.gather(1, idx)
+            vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            if valid is not None:
+                vals = vals * valid[:, None].to(vals.dtype)
+            return gates, aux, vals, idx
+
+        route.__wrapped__ = real_route
+        self.mod._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.mod._route.__wrapped__
+        for name in self.ENTRIES:
+            vars(self.model).pop(name, None)
+
+
+def drops_newest_past(fn):
+    """A faulty kernel-B stand-in ((a)'s control): ``fn`` with each chunk
+    atom's newest past token dropped."""
+    def faulty(q, k_pool, v_pool, layer, block_tables, atom_slot, atom_pos0,
+               tq, **kw):
+        return fn(q, k_pool, v_pool, layer, block_tables, atom_slot,
+                  atom_pos0 - 1, tq, **kw)
+    return faulty
+
+
+def moe_serve_model(**kw):
+    """``MOE_PRESET`` cut to ``MOE_SERVE_KW``, bf16 parameters, the serve
+    phases' ``max_seq_len``; grouped ragged dispatch unless ``kw`` says
+    otherwise."""
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+
+    kw = {"moe_dispatch": "grouped", "moe_kernel": "ragged",
+          "param_dtype": "bfloat16",
+          "max_seq_len": MOE_SERVE_ENGINE["max_seq_len"], **MOE_SERVE_KW,
+          **kw}
+    return TransformerLM(get_preset(MOE_PRESET, **kw))
+
+
+def watch_tracker(eng):
+    """``enable_metrics`` on ``eng`` (a fresh registry: its expert-load
+    tracker installed) with each of the tracker's reports kept: the routed
+    pairs of one MoE block (each report is one device-to-host copy)."""
+    from deepspeed_tpu_torch.observability import MetricsRegistry
+
+    eng.enable_metrics(registry=MetricsRegistry())
+    tracker, reports = eng._moe_tracker, []
+    real = tracker.observe
+
+    def observe(counts):
+        reports.append(int(np.asarray(counts).sum()))
+        real(counts)
+
+    tracker.observe = observe
+    return reports
+
+
+def moe_traffic(ctx, eng, prompts, steps: int = 0, mixed: bool = True,
+                whole: bool = False, replay=None, stages=None):
+    """Phase 4's traffic on ``eng``: the first prompts in one ``put``;
+    with ``mixed`` a mixed ``put`` (a decode token of each beside the
+    fresh prompts, chunked); with ``steps`` ``decode_batch`` of every uid;
+    with ``whole`` the last fresh prompt put whole and the third first
+    prompt put alone. Every uid is flushed at the end. With the tracker
+    watched (:func:`watch_tracker`) each call's reports and ragged-product
+    syncs are kept beside its real tokens, and its seconds (card
+    synchronised)."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    firsts, fresh = prompts
+    reports = ctx.get("reports")
+    res = {"calls": {}, "seconds": {}}
+    uids = list(range(len(firsts) + len(fresh)))
+
+    def call(name, real, fn):
+        if replay is not None:
+            replay.stage = stages.get(name)
+        if reports is not None:
+            reports.clear()
+        with RaggedSyncs(sharded_moe) as syncs:
+            ctx["sync"]()
+            t = time.perf_counter()
+            out = fn()
+            ctx["sync"]()
+            res["seconds"][name] = time.perf_counter() - t
+        res["calls"][name] = dict(real=real, syncs=syncs.calls,
+                                  reports=None if reports is None
+                                  else list(reports))
+        return out
+
+    V, n_first = eng.cfg.vocab_size, len(firsts)
+    res["put"] = call("put", sum(map(len, firsts)),
+                      lambda: eng.put(uids[:n_first], firsts))
+    check_logits(res["put"], V)
+    used = uids[:n_first]
+    if mixed:
+        nxt = [int(np.argmax(res["put"][u])) for u in used]
+        res["mixed"] = call("mixed", n_first + sum(map(len, fresh)),
+                            lambda: eng.put(uids, [np.array([x], np.int32)
+                                                   for x in nxt]
+                                            + list(fresh)))
+        check_logits(res["mixed"], V)
+        used = uids
+    if steps:
+        nxt = [int(np.argmax(res["mixed"][u])) for u in uids]
+        res["decode"] = call("decode_batch", len(uids) * steps,
+                             lambda: eng.decode_batch(uids, nxt,
+                                                      steps=steps))
+    if whole:
+        u = len(uids)
+        res["whole"] = call("whole", len(fresh[-1]),
+                            lambda: eng.put([u], [fresh[-1]]))[u]
+        res["alone"] = call("alone", len(firsts[2]),
+                            lambda: eng.put([u + 1], [firsts[2]]))[u + 1]
+        used = used + [u, u + 1]
+    eng.flush(used)
+    return res
+
+
+def warm_up(ctx, eng, prompts, steps: int, mixed: bool = True) -> None:
+    """The engine's traffic once before its timed run (its first calls
+    pay one-time costs at each new shape), decode cut to 2 steps."""
+    moe_traffic(ctx, eng, prompts, min(steps, 2), mixed=mixed)
+
+
+def cross_path(prompts, res) -> tuple:
+    """(the last fresh prompt's chunked vs whole-prompt logits, the third
+    first prompt's in the batch vs alone), rel L2."""
+    return (rel_l2(res["mixed"][len(prompts[0]) + len(prompts[1]) - 1],
+                   res["whole"]),
+            rel_l2(res["put"][2], res["alone"]))
+
+
+def put_rel(res, ref) -> float:
+    """The largest rel L2 of a first-prompts ``put``'s logits vs ``ref``'s."""
+    return max(rel_l2(res["put"][u], ref["put"][u]) for u in ref["put"])
+
+
+def check_pairs(tag: str, res, k: int, L: int, exact: bool) -> dict:
+    """Each call's routed pairs (the tracker's reports) against its real
+    tokens x ``k`` x ``L``: equal (``exact``, dropless) or at most that
+    (capacity: drops). Returns {call: (pairs, real x k x L, reports)}."""
+    out = {}
+    for name, c in res["calls"].items():
+        want = c["real"] * k * L
+        got = sum(c["reports"])
+        out[name] = (got, want, len(c["reports"]))
+        if not c["reports"] or (got != want if exact else got > want):
+            raise AssertionError(f"moe-serve {tag}: {name} routed {got} "
+                                 f"pairs in {len(c['reports'])} reports, "
+                                 f"real tokens x {k} x {L} = {want}")
+    return out
+
+
+def moe_engine_line(ctx, tag: str, eng, res, prompts, peak: float,
+                    built_s: float) -> str:
+    firsts, fresh = prompts
+    sec = res["seconds"]
+    parts = [f"moe-serve {tag} [{ctx['card']}]: prompt put "
+             f"{sum(map(len, firsts)) / sec['put']:.1f} tokens/s "
+             f"({sec['put'] * 1e3:.1f} ms)"]
+    for name, what in (("mixed", "mixed put"),
+                       ("decode_batch", "decode_batch")):
+        if name in sec:
+            n = res["calls"][name]["real"]
+            parts.append(f"{what} {n / sec[name]:.1f} tokens/s ({n} "
+                         f"tokens, {sec[name] * 1e3:.1f} ms)")
+    parts.append(f"served tree {tree_bytes(eng.params) / 1e9:.3f} GB, "
+                 f"peak {peak:.2f} GB, built in {built_s:.1f} s")
+    parts.append("ragged-product host syncs " + str(
+        {n: c["syncs"] for n, c in res["calls"].items()}))
+    return "; ".join(parts)
+
+
+def stack_reconstruction(torch, tree, qtree) -> dict:
+    """(d): each layer's int8 expert stack dequantized (``_expert_weight``)
+    against the dense stack it came from: max abs error / max |w|."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    mlp, qmlp = tree["layers"]["mlp"], qtree["layers"]["mlp"]
+    worst = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        for i in range(mlp[name].shape[0]):
+            w = mlp[name][i]
+            r = sharded_moe._expert_weight(
+                {name + "_q": qmlp[name + "_q"][i],
+                 name + "_s": qmlp[name + "_s"][i]}, name, w.dtype)
+            rel = float((r.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+            worst[name] = max(worst.get(name, 0.0), rel)
+            del r
+    return worst
+
+
+def moe_serve(torch, pa, fa, qm, KERNELS, reset_counts, device="cuda",
+              prompts=None, steps: int = MOE_SERVE_STEPS, max_atom=None,
+              engine_kw=None, **model_kw):
+    """Phase 16: MoE serving on ``MOE_PRESET`` at full width, cut to
+    ``MOE_SERVE_KW``'s layers, seed-0 weights drawn on the card at the
+    init scale, phase 4's traffic. (a) the packed engine,
+    grouped ``ragged``, tracker on; (b) ``moe_kernel="padded"``; (c) the
+    capacity dispatch, and at ``capacity_factor`` E (nothing drops); (d)
+    int8 weights and pool; (e) the dense-tile engines and v1 at
+    ``MOE_SERVE_CUT`` layers against the packed engine. Cross-path and
+    cross-engine logits are gated under :class:`PinnedRouting` and
+    printed free-running beside; each gate of (a) and (e) has a control
+    that drops the newest past token. Returns the phase's launches per
+    kernel.
+    ``device``, ``prompts``, ``steps``, ``max_atom``, ``engine_kw`` and
+    ``model_kw`` size it down for the CPU."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import InferenceEngineV2, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import QuantizedWeight
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    cuda = torch.device(device).type == "cuda"
+    kw = dict(engine_kw or MOE_SERVE_ENGINE, device=device)
+    totals = dict.fromkeys(MOE_SERVE_KERNELS, 0)
+
+    def take():
+        for k in MOE_SERVE_KERNELS:
+            totals[k] += KERNELS[k].launches
+        reset_counts()
+
+    ctx = dict(device=device, sync=(torch.cuda.synchronize if cuda
+                                    else lambda: None),
+               card=card_line() if cuda else device)
+    peak = (lambda: torch.cuda.max_memory_allocated() / 1e9) if cuda \
+        else (lambda: 0.0)
+
+    def reset_peak():
+        free_card(torch, device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def gate(tag, rels):
+        bad = {n: r for n, r in rels.items() if not r <= MOE_SERVE_REL_L2}
+        if bad:
+            raise AssertionError(f"moe-serve {tag}: rel L2 {bad} over "
+                                 f"{MOE_SERVE_REL_L2} (pinned routing)")
+
+    def pinned(m):
+        return PinnedRouting(torch, m, sharded_moe)
+
+    free_card(torch, device)
+    t_phase = time.perf_counter()
+    model = moe_serve_model(**model_kw)
+    cfg = model.cfg
+    if max_atom:
+        model.MAX_ATOM = max_atom
+    k, L, E = cfg.top_k, cfg.num_layers, cfg.num_experts
+    prompts = prompts or serve_prompts(cfg.vocab_size)
+    t = time.perf_counter()
+    tree = model.init(seed=0, device=device)
+    ctx["sync"]()
+    t_tree = time.perf_counter() - t
+    stacks = [tree["layers"]["mlp"][n] for n in ("w_gate", "w_up", "w_down")]
+    expert_b = sum(w.nbytes for w in stacks)
+    expert_n = sum(w.numel() for w in stacks)
+    log(f"moe-serve: {MOE_PRESET} D={cfg.hidden_size} F="
+        f"{cfg.intermediate_size} E={E} top-{k} H={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} V={cfg.vocab_size}, {L} of 32 layers: "
+        f"{cfg.param_dtype} tree {tree_bytes(tree) / 1e9:.3f} GB (experts "
+        f"{expert_b / 1e9:.3f} GB, {expert_b / L / 1e9:.3f} GB a layer; "
+        f"their int8 copy {expert_n / 1e9:.3f} GB), drawn in {t_tree:.1f} s")
+    del stacks
+    res = {}
+    reset_counts()
+
+    # (a) packed, grouped ragged, tracker on
+    reset_peak()
+    t = time.perf_counter()
+    eng = InferenceEngineV2(model, tree, **kw)
+    built = time.perf_counter() - t
+    warm_up(ctx, eng, prompts, steps)
+    ctx["reports"] = watch_tracker(eng)
+    try:
+        with MoEServeReplay(torch, pa, fa) as replay:
+            a = moe_traffic(ctx, eng, prompts, steps, whole=True,
+                            replay=replay,
+                            stages={"put": "put", "mixed": "put",
+                                    "decode_batch": "decode_batch"})
+        a["peak"] = peak()
+        a["pairs"] = check_pairs("(a)", a, k, L, exact=True)
+        if cuda:
+            dec = [np.array([int(np.argmax(a["put"][u]))], np.int32)
+                   for u in range(len(prompts[0]))]
+            uids = list(range(len(dec)))
+            eng.put(uids, prompts[0])
+            on = step_launches(torch, lambda: eng.put(uids, dec))
+            sharded_moe.set_expert_tracker(None)
+            off = step_launches(torch, lambda: eng.put(uids, dec))
+            a["launches_per_decode_put"] = {"tracker on": on,
+                                            "tracker off": off}
+            eng.flush(uids)
+    finally:
+        sharded_moe.set_expert_tracker(None)
+        ctx["reports"] = None
+    with pinned(model):
+        a["pinned"] = moe_traffic(ctx, eng, prompts, whole=True)
+        take()
+        with swapped(pa, "past_partials", drops_newest_past):
+            a["control"] = cross_path(prompts, moe_traffic(
+                ctx, eng, prompts, whole=True))[0]
+        reset_counts()
+    a["replay"] = replay.check()
+    a["free"] = cross_path(prompts, a)
+    a["gated"] = cross_path(prompts, a["pinned"])
+    log(moe_engine_line(ctx, "(a) grouped ragged", eng, a, prompts,
+                        a["peak"], built))
+    log(f"moe-serve (a): {len(prompts[1][-1])}-token prompt chunked vs "
+        f"whole, and the {len(prompts[0][2])}-token prompt in the batch vs "
+        f"alone, rel L2: pinned routing {a['gated']} (gate "
+        f"{MOE_SERVE_REL_L2}), free-running {a['free']} (no gate: bf16 "
+        f"noise can flip a near-tie top-2 choice); control (chunk atoms "
+        f"drop their newest past token, pinned) chunked vs whole "
+        f"{a['control']:.3e} (past {DENSE_CONTROL_MARGIN} x the gate); "
+        f"routed pairs (got, real x "
+        f"{k} x {L}, reports) {a['pairs']}; replayed first launches vs "
+        f"plain, max abs err {a['replay']}; device launches of a "
+        f"{len(prompts[0])}-sequence decode put "
+        f"{a.get('launches_per_decode_put')}")
+    gate("(a)", dict(zip(("chunked vs whole", "alone vs batched"),
+                         a["gated"])))
+    gate_controls("moe-serve (a)", {"chunked": a["control"]},
+                  {"chunked": MOE_SERVE_REL_L2}, DENSE_CONTROL_MARGIN)
+    del eng, replay
+    res["a"] = a
+
+    # (b) the padded twin of the grouped product
+    reset_peak()
+    t = time.perf_counter()
+    eng = InferenceEngineV2(model, tree, moe_kernel="padded", **kw)
+    built = time.perf_counter() - t
+    warm_up(ctx, eng, prompts, 0, mixed=False)
+    b = moe_traffic(ctx, eng, prompts, mixed=False)
+    b["peak"] = peak()
+    with pinned(model):
+        b["pinned"] = moe_traffic(ctx, eng, prompts, mixed=False)
+    take()
+    b["free"] = put_rel(b, a)
+    b["rel"] = put_rel(b["pinned"], a["pinned"])
+    log(moe_engine_line(ctx, "(b) grouped padded", eng, b, prompts,
+                        b["peak"], built))
+    log(f"moe-serve (b): prompt put logits vs (a)'s, largest rel L2: "
+        f"pinned routing {b['rel']:.3e} (gate {MOE_SERVE_REL_L2}), "
+        f"free-running {b['free']:.3e}")
+    if eng.moe_kernel != "padded":
+        raise AssertionError(f"moe-serve (b): kernel {eng.moe_kernel}")
+    gate("(b)", {"padded vs ragged": b["rel"]})
+    del eng
+    res["b"] = b
+
+    # (c) the capacity dispatch, then at capacity_factor E (dropless)
+    for tag, cf in (("(c)", cfg.capacity_factor),
+                    ("(c) at factor E", float(E))):
+        cmodel = TransformerLM(dataclasses.replace(
+            cfg, moe_dispatch="capacity", capacity_factor=cf))
+        cmodel.MAX_ATOM = model.MAX_ATOM
+        reset_peak()
+        t = time.perf_counter()
+        eng = InferenceEngineV2(cmodel, tree, **kw)
+        built = time.perf_counter() - t
+        dropless = cf == E
+        warm_up(ctx, eng, prompts, 0 if dropless else steps,
+                mixed=not dropless)
+        ctx["reports"] = watch_tracker(eng)
+        try:
+            with contextlib.ExitStack() as stack:
+                if dropless:
+                    stack.enter_context(pinned(cmodel))
+                c = moe_traffic(ctx, eng, prompts, 0 if dropless else steps,
+                                mixed=not dropless)
+        finally:
+            sharded_moe.set_expert_tracker(None)
+            ctx["reports"] = None
+        c["peak"] = peak()
+        take()
+        c["pairs"] = check_pairs(tag, c, k, L, exact=dropless)
+        got = sum(p[0] for p in c["pairs"].values())
+        want = sum(p[1] for p in c["pairs"].values())
+        c["drop"] = 1.0 - got / want
+        c["rel"] = put_rel(c, a["pinned"] if dropless else a)
+        log(moe_engine_line(ctx, f"{tag} capacity {cf}", eng, c, prompts,
+                            c["peak"], built))
+        log(f"moe-serve {tag}: drop fraction over real tokens {c['drop']:.4f}"
+            f"; routed pairs (got, real x {k} x {L}, reports) {c['pairs']}; "
+            f"prompt put logits vs (a)'s, largest rel L2 {c['rel']:.3e}"
+            + (f" (pinned routing, gate {MOE_SERVE_REL_L2})" if dropless
+               else " (free-running; no gate: drops)"))
+        if dropless:
+            gate(tag, {"capacity vs grouped": c["rel"]})
+        del eng
+        res[tag] = c
+
+    # (d) int8 weights (int8 expert pairs, G/H elsewhere) over an int8 pool
+    reset_peak()
+    t = time.perf_counter()
+    eng = InferenceEngineV2(model, tree, weight_dtype="int8",
+                            kv_dtype="int8", **kw)
+    built = time.perf_counter() - t
+    mlp = eng.params["layers"]["mlp"]
+    names = sorted(mlp)
+    bad = [n for n in names if n != "router" and not (
+        n.endswith(("_q", "_s")) and (mlp[n].dtype == torch.int8)
+        == n.endswith("_q"))]
+    if bad or "w_gateup" in mlp or not isinstance(
+            eng.params["layers"]["attn"]["wqkv"], QuantizedWeight):
+        raise AssertionError(f"moe-serve (d): expert leaves {names}")
+    recon = stack_reconstruction(torch, tree, eng.params)
+    warm_up(ctx, eng, prompts, steps)
+    with QuantReplay(torch, pa, qm, 8) as qreplay:
+        d = moe_traffic(ctx, eng, prompts, steps, replay=qreplay,
+                        stages={"put": "put", "mixed": "mixed",
+                                "decode_batch": "decode_batch"})
+    d["peak"] = peak()
+    take()
+    d["replay"] = qreplay.check()
+    d["max_rel"] = max(float(np.abs(d["put"][u] - a["put"][u]).max()
+                             / np.abs(a["put"][u]).max()) for u in a["put"])
+    log(moe_engine_line(ctx, "(d) int8 weights, int8 pool", eng, d, prompts,
+                        d["peak"], built))
+    log(f"moe-serve (d): expert leaves {names}; stacks' dequant max abs err "
+        f"/ max |w| {recon} (gate {MOE_RECON_REL}); prompt put logits vs "
+        f"(a)'s, largest max-relative {d['max_rel']:.3e} (gate "
+        f"{MOE_INT8_MAX_REL}: a random router flips top-2 under int8 noise)"
+        f"; replayed first launches vs plain, max abs err {d['replay']}")
+    if max(recon.values()) > MOE_RECON_REL \
+            or not d["max_rel"] <= MOE_INT8_MAX_REL:
+        raise AssertionError(f"moe-serve (d): dequant {recon}, logits "
+                             f"max-relative {d['max_rel']}")
+    del eng, mlp, qreplay
+    res["d"] = d
+
+    # (e) the dense-tile engines and v1 at MOE_SERVE_CUT layers: phase 7's
+    # cross-check, on a seed-0 tree of that depth as there
+    del tree
+    free_card(torch, device)
+    cut = min(MOE_SERVE_CUT, L)
+    model2 = moe_serve_model(**{**model_kw, "num_layers": cut})
+    tree2 = model2.init(seed=0, device=device)
+    rng = np.random.default_rng(2)
+    v1_ids = [rng.integers(1, cfg.vocab_size, 128).astype(np.int32)
+              for _ in range(4)]
+    e_kw = {n: v for n, v in kw.items() if n != "device"}
+    free = dense_runs(torch, pa, model2, tree2, prompts[0], v1_ids, 4,
+                      device=device, **e_kw)["rel"]
+    with pinned(model2):
+        e = dense_runs(torch, pa, model2, tree2, prompts[0], v1_ids, 4,
+                       device=device, **e_kw)
+        take()
+        e["faulty"] = dense_controls(torch, pa, model2, tree2, prompts[0],
+                                     e.pop("ref"), device=device, **e_kw)
+    reset_counts()
+    e["free"] = free
+    limits = dict.fromkeys(("forward", "a", "b", "c"), MOE_SERVE_REL_L2)
+    log(f"moe-serve (e) at {cut} layers: logits vs the packed engine, rel "
+        f"L2: pinned routing {e['rel']} (gate {MOE_SERVE_REL_L2}), "
+        f"free-running {free}; controls (newest column dropped, pinned) "
+        f"{e['faulty']} (past {DENSE_CONTROL_MARGIN} x the gate); I's first "
+        f"launch replayed, max abs err {e['replay']}")
+    gate_rel("moe-serve (e)", e["rel"], limits)
+    gate_controls("moe-serve (e)", e["faulty"], limits, DENSE_CONTROL_MARGIN)
+    res["e"] = e
+    del tree2
+    free_card(torch, device)
+    missing = [n for n, c in totals.items() if not c] if cuda else []
+    if missing:
+        raise AssertionError(f"moe-serve: kernels never launched {missing} "
+                             f"({totals})")
+    log(f"moe-serve: launches {totals}")
+    log(f"moe-serve [{ctx['card']}]: phase {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    PHASE_NOTES["moe_serve"] = res
+    return totals
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -5952,6 +6585,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = moe_train(torch, fa, _build.KERNELS, _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_srv = moe_serve(torch, pa, fa, qm, _build.KERNELS,
+                        _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -5993,7 +6630,8 @@ def main() -> int:
                                              ("fleet", flt),
                                              ("checkpoint", ckpt),
                                              ("train_features", feats),
-                                             ("moe_train", moe))
+                                             ("moe_train", moe),
+                                             ("moe_serve", moe_srv))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

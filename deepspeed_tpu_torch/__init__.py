@@ -86,10 +86,8 @@ def init_inference(model=None, config=None, checkpoint=None, dtype=None,
     (``config.json`` + safetensors) is not ported yet and raises."""
     import os
 
-    from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
-                                                      refuse_moe)
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
-    refuse_moe(model, "init_inference")
     if checkpoint is not None and "params" not in kwargs:
         if os.path.exists(os.path.join(checkpoint, "config.json")):
             raise NotImplementedError(

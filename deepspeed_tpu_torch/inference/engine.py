@@ -8,9 +8,11 @@ dense ``init_kv_cache``, attention the plain ``_cached_attention`` (the
 reference computes it in XLA, outside any Pallas kernel); ``forward`` is
 the model's full-sequence ``logits`` (flash kernel D on the card).
 ``dtype="int8"|"int4"`` serves packed weights through kernels G/H, as the
-reference's ``init_inference(dtype=torch.int8)``. Random draws come from an
-explicit ``torch.Generator`` seeded with ``seed`` (the reference's JAX key):
-the same seed gives other draws than JAX's, from the same distribution.
+reference's ``init_inference(dtype=torch.int8)``. An MoE model serves
+through its ``moe_fn``, every lane of the batch routed. Random draws come
+from an explicit ``torch.Generator`` seeded with ``seed`` (the reference's
+JAX key): the same seed gives other draws than JAX's, from the same
+distribution.
 """
 
 from __future__ import annotations
@@ -118,16 +120,6 @@ def generate_loop(step_fn, params, init_cache_fn, ids: np.ndarray, total: int,
     return seqs
 
 
-def refuse_moe(model, engine: str) -> None:
-    """An MoE model is not served yet (its cached forwards route with the
-    ``moe_valid`` lanes of MoE serving): raise before anything is built."""
-    if model is not None and model.cfg.num_experts > 1:
-        raise NotImplementedError(
-            f"{engine}: serving an MoE model is not ported yet (ROADMAP "
-            "section 1, \"MoE on one device\"); it trains, and "
-            "TransformerLM.logits runs its full-sequence forward")
-
-
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -148,7 +140,6 @@ class InferenceEngine:
             parse_weight_dtype, quantize_serving_params)
         from deepspeed_tpu_torch.utils import resolve_device
 
-        refuse_moe(model, "InferenceEngine")
         self.device = resolve_device(device)
         self.module = model
         self.cfg = model.cfg

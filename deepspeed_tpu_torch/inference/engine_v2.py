@@ -1,9 +1,11 @@
 """Continuous-batching inference engine over a paged KV pool (counterpart of
 ``deepspeed_tpu/inference/engine_v2.py`` ``InferenceEngineV2``).
 
-Ported scope: everything the reference engine does on one device outside
-MoE and tensor parallelism. Weights in the compute dtype or int8/int4
-(``weight_dtype``: kernels G/H through the model's ``linear()`` seam).
+Ported scope: everything the reference engine does on one device, MoE
+models included. Weights in the compute dtype or int8/int4
+(``weight_dtype``: kernels G/H through the model's ``linear()`` seam; an
+MoE model's expert stacks as int8 leaf pairs that the dispatch
+dequantizes).
 Three engines, as the reference's flags pick them:
 
 * ``paged=True, packed=True`` (default): a KV pool in the compute dtype or
@@ -48,11 +50,22 @@ difference: the port never fuses a promote into a step, so it emits no
 ``promote_fence_fused`` instant and ``inference/decode_prologue_promotes``
 stays 0.
 
-Not ported yet (they raise): MoE serving and meshes / tensor parallelism.
+MoE: on a grouped-dispatch model the engine resolves ``moe_kernel``
+(argument, else the model's) and binds it into ``model.moe_fn``, as the
+reference does; ``moe_a2a_bits``, ``moe_a2a_slice`` and
+``moe_replica_slots`` shape expert parallelism, which one device never
+enters, so they are accepted and change nothing, and ``rebalance_moe``
+returns None. ``enable_metrics`` on an MoE model installs the expert-load
+tracker (``moe/expert_tokens``, ``moe/imbalance``; one device-to-host copy
+of E counts a layer a forward).
+
+Not ported yet (they raise): meshes / tensor parallelism, and with them
+expert parallelism.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -63,7 +76,7 @@ import torch
 
 from deepspeed_tpu_torch.config.config import (PrefixCacheConfig,
                                                SpeculativeConfig)
-from deepspeed_tpu_torch.inference.engine import refuse_moe, sample_token
+from deepspeed_tpu_torch.inference.engine import sample_token
 from deepspeed_tpu_torch.inference.quant import quantize_serving_params
 from deepspeed_tpu_torch.inference.ragged import (CapacityError, PrefixCache,
                                                   SequenceManager)
@@ -159,12 +172,6 @@ class InferenceEngineV2:
         if topology is not None or mesh is not None:
             raise _unported("a mesh / tensor parallelism (topology=, mesh=)",
                             '"Mesh, ZeRO and tensor parallelism"')
-        refuse_moe(model, "InferenceEngineV2")
-        if (moe_kernel, moe_a2a_bits, moe_a2a_slice) != (None, None, None) \
-                or moe_replica_slots:
-            raise _unported("MoE serving (moe_kernel=, moe_a2a_bits=, "
-                            "moe_a2a_slice=, moe_replica_slots=)",
-                            '"MoE on one device"')
         if weight_dtype not in ("bf16", "int8", "int4"):
             raise ValueError(f"weight_dtype must be bf16|int8|int4, got "
                              f"{weight_dtype!r}")
@@ -181,6 +188,26 @@ class InferenceEngineV2:
         self.max_seq_len = max_seq_len or self.cfg.max_seq_len
         self.state = SequenceManager(max_sequences, self.max_seq_len,
                                      block_size, num_blocks=num_blocks)
+        # MoE: the grouped product's kernel is resolved once and bound into
+        # the model's moe_fn (the reference's :200-218). The a2a wire
+        # format and replica slots shape expert parallelism, which needs an
+        # "ep" mesh axis: on one device they ride the partial unused.
+        self.moe_kernel: Optional[str] = None
+        self.moe_kernel_reason = ""
+        self._moe_tracker = None
+        if self.cfg.num_experts > 1 and self.cfg.moe_dispatch == "grouped":
+            from deepspeed_tpu_torch.moe import sharded_moe
+
+            self.moe_kernel, self.moe_kernel_reason = \
+                sharded_moe.resolve_moe_kernel(
+                    self.cfg.moe_kernel if moe_kernel is None
+                    else moe_kernel)
+            model.moe_fn = functools.partial(
+                sharded_moe.grouped_moe_mlp_block, kernel=self.moe_kernel,
+                a2a_bits=int(self.cfg.moe_a2a_bits if moe_a2a_bits is None
+                             else moe_a2a_bits),
+                a2a_slice=int(self.cfg.moe_a2a_slice if moe_a2a_slice is None
+                              else moe_a2a_slice))
         cdt = torch_dtype(self.cfg.dtype)
         if params is None:
             params = model.init(seed=seed, device=self.device)
@@ -339,7 +366,9 @@ class InferenceEngineV2:
         histograms, token counters). Off by default: with it off the put
         path pays one ``is None`` check. Every reading is a host clock
         around work the call already waits on (the logits or tokens to
-        host): no synchronisation is added."""
+        host): no synchronisation is added, but on an MoE model, whose
+        expert-load tracker (``moe/*``, process-wide, installed here) copies
+        each layer's E counts to the host, one sync a layer a forward."""
         from deepspeed_tpu_torch.observability import get_registry
 
         r = registry if registry is not None else get_registry()
@@ -365,6 +394,21 @@ class InferenceEngineV2:
                 "inference/decode_prologue_promotes",
                 "tier promotions folded into a fused step prologue"),
         }
+        if self.cfg.num_experts > 1:
+            from deepspeed_tpu_torch.moe import balancer, sharded_moe
+
+            self._moe_tracker = balancer.ExpertLoadTracker(
+                self.cfg.num_experts, registry=r)
+            sharded_moe.set_expert_tracker(self._moe_tracker)
+            self._obs["moe_rebalances"] = r.counter(
+                "moe/rebalances", "applied expert placement rebalances")
+
+    def rebalance_moe(self, counts=None, min_gain: float = 0.0):
+        """The AutoEP control step: re-place experts over the expert-
+        parallel shards from observed load. One device has no expert-
+        parallel placement, so there is nothing to move: None, as the
+        reference returns without an "ep" mesh axis (its :523-524)."""
+        return None
 
     def _observe_put(self, chunks) -> None:
         if self._obs is not None:
@@ -1224,7 +1268,7 @@ class InferenceEngineV2:
             pos = self._pos
         else:             # k, v written in place; every row's pos + t_max
             logits, _ = self.module.forward_with_cache(
-                self.params, self._t(tile), self.cache)
+                self.params, self._t(tile), self.cache, self._t(valid))
             pos = self.cache["pos"].cpu().numpy().copy()
         out = logits[slots, ends].float().cpu().numpy()
         del logits

@@ -24,14 +24,20 @@ logits loss (``loss_tiling > 1``). The random draws come from host
 (:meth:`TransformerLM.ltd_positions`, :meth:`TransformerLM.pld_keep`): a
 valid draw, not the reference's ``jax.random`` one.
 
-MoE models (``num_experts > 1``) train and run the full-sequence forward:
-each layer's MLP is the ``moe_fn`` (``moe.moe_block_for(cfg)`` unless one
-is given), and a layer returns its router's aux loss beside its output, so
-a remat recompute never overwrites it; :meth:`TransformerLM.loss_fn` adds
-``moe_aux_loss_coef`` times their sum.
+MoE models (``num_experts > 1``) train, run the full-sequence forward and
+serve: each layer's MLP is the ``moe_fn`` (``moe.moe_block_for(cfg)``
+unless one is given, or the engine binds one), and a layer returns its
+router's aux loss beside its output, so a remat recompute never overwrites
+it; :meth:`TransformerLM.loss_fn` adds ``moe_aux_loss_coef`` times their
+sum. The five cached serving entry points hand the router the real lanes
+of their batch (``moe_fn(..., valid=)``, the reference's ``moe_valid``):
+padding and idle lanes take no expert capacity, shift no routing and reach
+no expert-load tracker. Serving drops the aux loss.
 
-Not ported yet (they raise ``NotImplementedError``): the cached serving
-entry points of an MoE model, ``act_quant_bits`` and the fpdt/ring/ulysses
+``act_quant_bits`` fake-quantizes the dense MLP's input with
+straight-through gradients (``compression.compress.ste_quantize``).
+
+Not ported yet (they raise ``NotImplementedError``): the fpdt/ring/ulysses
 attention impls.
 """
 
@@ -350,7 +356,11 @@ _ACTS = {"gelu": lambda h: F.gelu(h, approximate="tanh"),
 def mlp_block(x: torch.Tensor, w: Params, cfg: TransformerConfig
               ) -> torch.Tensor:
     if cfg.act_quant_bits:
-        raise NotImplementedError("act_quant_bits is not ported yet")
+        # activation quantization: fake-quantize the block input, gradients
+        # straight through
+        from deepspeed_tpu_torch.compression.compress import ste_quantize
+
+        x = ste_quantize(x, bits=cfg.act_quant_bits)
     if cfg.activation == "swiglu":
         if "w_gateup" in w:              # serving-fused gate|up
             g, u = linear(x, w["w_gateup"]).chunk(2, dim=-1)
@@ -383,13 +393,16 @@ def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
                   freqs: Optional[torch.Tensor],
                   positions: Optional[torch.Tensor],
                   attn_cache_fn: Callable,
-                  moe_fn: Optional[Callable] = None):
+                  moe_fn: Optional[Callable] = None,
+                  moe_valid: Optional[torch.Tensor] = None):
     """One pre-norm decoder block: ``attn_cache_fn(q, k, v)`` owns the KV
     bookkeeping (serving) or is plain flash attention (training) and returns
     [B, t, H, hd]. Parallel residual, shared norm and biases as the
     reference's block; ``positions`` None means ``arange(T)``. The MLP is
-    ``moe_fn(h, w, cfg) -> (out, aux)`` when given (an MoE layer), else
-    :func:`mlp_block`. Returns (h, the layer's aux loss or None)."""
+    ``moe_fn(h, w, cfg, valid=moe_valid) -> (out, aux)`` when given (an
+    MoE layer; ``moe_valid`` [B, t] marks the serving paths' real lanes,
+    None every lane), else :func:`mlp_block`. Returns (h, the layer's aux
+    loss or None)."""
     hn1 = _norm(h, wc["ln1"], cfg.norm, cfg.norm_eps)
     q, k, v = qkv_proj(hn1, wc["attn"], cfg)
     if cfg.use_rope:
@@ -405,7 +418,7 @@ def _decode_block(h: torch.Tensor, wc: Params, cfg: TransformerConfig,
     if moe_fn is None:
         mlp_out, aux = mlp_block(hn2, wc["mlp"], cfg), None
     else:
-        mlp_out, aux = moe_fn(hn2, wc["mlp"], cfg)
+        mlp_out, aux = moe_fn(hn2, wc["mlp"], cfg, valid=moe_valid)
     if cfg.parallel_block:
         return h + attn_out + mlp_out, aux
     return h + mlp_out, aux
@@ -829,15 +842,6 @@ class TransformerLM:
         return loss
 
     # ---- paged serving path ----------------------------------------------
-    def _dense_serving(self, entry: str) -> None:
-        """Refuse a cached serving entry point of an MoE model: its routing
-        needs the ``moe_valid`` lanes of MoE serving, not ported yet."""
-        if self.cfg.num_experts > 1:
-            raise NotImplementedError(
-                f"TransformerLM.{entry} of an MoE model is not ported yet: "
-                "it routes with the moe_valid lanes of MoE serving (ROADMAP "
-                "section 1, \"MoE on one device\")")
-
     def init_paged_kv_cache(self, num_blocks: int, block_size: int = 128,
                             device="cuda", quantize: bool = False,
                             bits: int = 8) -> Dict[str, torch.Tensor]:
@@ -888,16 +892,16 @@ class TransformerLM:
                                    device=device)}
 
     def forward_with_cache(self, params: Params, input_ids: torch.Tensor,
-                           cache: Dict[str, torch.Tensor]):
-        """Prefill/decode step over the dense cache (the reference's :943,
-        whose ``valid`` only feeds MoE routing, not ported): append
-        ``input_ids`` [B, t] at each row's ``cache["pos"]`` and return
+                           cache: Dict[str, torch.Tensor],
+                           valid: Optional[torch.Tensor] = None):
+        """Prefill/decode step over the dense cache (the reference's :943):
+        append ``input_ids`` [B, t] at each row's ``cache["pos"]`` and return
         (logits [B, t, V], ``{k, v, pos + t}``). ``k``/``v`` are written in
         place; every row advances by ``t`` (the engine restores the true
         positions of padded rows). Writes at positions past the cache are
         dropped, as the reference's scatter drops them. Attention is
-        :func:`_cached_attention`."""
-        self._dense_serving("forward_with_cache")
+        :func:`_cached_attention`. ``valid`` [B, t] marks the real lanes an
+        MoE layer routes (None: every lane)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, t = input_ids.shape
@@ -923,7 +927,8 @@ class TransformerLM:
                 cv[wb, wp] = v[inside].to(cv.dtype)
                 return _cached_attention(q, ck, cv, _m)
 
-            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend,
+                                 self.moe_fn, valid)
         x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), {
             "k": cache["k"], "v": cache["v"],
@@ -938,7 +943,8 @@ class TransformerLM:
         """Continuous-batching step of the ``packed=False`` engine over the
         paged pool (the reference's :1047): ``input_ids`` [B, t] a dense
         tile (per-slot chunks right-padded), ``block_tables`` [B, nb_max],
-        ``pos`` [B] tokens cached per slot, ``valid`` [B, t] real lanes.
+        ``pos`` [B] tokens cached per slot, ``valid`` [B, t] real lanes (also
+        the lanes an MoE layer routes).
         Each layer first writes the tile's K/V into its blocks
         (:func:`paged_update`; invalid lanes to the scratch block), then
         runs kernel I (:func:`paged_attention`) over them. Returns (logits
@@ -950,7 +956,6 @@ class TransformerLM:
             raise NotImplementedError(
                 "the dense-tile escape hatch does not support the int8 KV "
                 "pool; use the packed path (packed=True)")
-        self._dense_serving("forward_with_paged_cache")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         t = input_ids.shape[1]
@@ -968,7 +973,8 @@ class TransformerLM:
                                        block_tables, pos, window=_w,
                                        layer=_i)
 
-            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, rope_pos, attend,
+                                 self.moe_fn, valid)
         x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), cache
 
@@ -987,7 +993,6 @@ class TransformerLM:
         to fold into the pool with one scatter."""
         from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
-        self._dense_serving("forward_prefill")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B, T = input_ids.shape
@@ -995,6 +1000,9 @@ class TransformerLM:
         positions = torch.arange(T, device=dev)[None].expand(B, T)
         x = self._embed(params, input_ids, positions)
         freqs = self.freqs(dev)
+        # an MoE layer routes the real rows only
+        moe_valid = (positions < lengths.long()[:, None]
+                     if self.moe_fn is not None else None)
         K, hd = cfg.num_kv_heads, cfg.head_dim
         kr = torch.empty(cfg.num_layers, B, T, K, hd, dtype=dt, device=dev)
         vr = torch.empty_like(kr)
@@ -1006,7 +1014,8 @@ class TransformerLM:
                 kr[_i], vr[_i] = k, v
                 return flash_attention(q, k, v, causal=True, window=_w)
 
-            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend,
+                                 self.moe_fn, moe_valid)
         last = torch.clamp(lengths.long() - 1, 0, T - 1)
         xg = x[torch.arange(B, device=dev), last]
         xg = _norm(xg, params["final_norm"], cfg.norm, cfg.norm_eps)
@@ -1032,7 +1041,6 @@ class TransformerLM:
         from deepspeed_tpu_torch.ops.paged_attention import (
             cache_append, ragged_paged_attention)
 
-        self._dense_serving("forward_with_packed_cache")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         kv = dict(kv_scale=cache.get("kv_scale"), kv_bits=self._kv_bits(cache))
@@ -1078,7 +1086,9 @@ class TransformerLM:
                 out = parts[0] if len(parts) == 1 else torch.cat(parts)
                 return out[:, None]                              # [N,1,H,d]
 
-            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
+            # each packed row is its own [1]-token sequence to the router
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend,
+                                 self.moe_fn, valid[:, None])
         cache_append(cache, krows, vrows, block_tables, tok_slot, tok_pos,
                      valid)
         x = _norm(x[:, 0][gather_idx.long()], params["final_norm"], cfg.norm,
@@ -1101,7 +1111,6 @@ class TransformerLM:
         from deepspeed_tpu_torch.ops.paged_attention import (
             decode_pool_partials)
 
-        self._dense_serving("forward_decode_tail")
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         B = toks.shape[0]
@@ -1151,6 +1160,8 @@ class TransformerLM:
                 out = torch.where(valid[:, None, None], out, 0.0)
                 return out.to(q.dtype)[:, None]                  # [B,1,H,d]
 
-            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend)
+            # idle slots of a padded decode batch route nothing
+            x, _ = _decode_block(x, wc, cseg, freqs, positions, attend,
+                                 self.moe_fn, valid[:, None])
         x = _norm(x[:, 0], params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head_proj(params, x), tail

@@ -25,8 +25,10 @@ are bit-identical.
 Not here: the expert-parallel dispatch (``_grouped_moe_ep``) waits for a
 mesh (ROADMAP section 1, "Mesh, ZeRO and tensor parallelism"); on one
 device the reference never enters it. ``a2a_bits`` / ``a2a_slice`` are
-accepted and unused, as there. Quantized expert stacks (``w_*_q`` /
-``w_*_s`` leaves) raise (ROADMAP section 1, "MoE on one device").
+accepted and unused, as there. A serving engine's int8 expert stacks
+(``w_*_q`` / ``w_*_s`` leaves, ``inference/quant.py``) are dequantized to
+the compute dtype before the products (:func:`_expert_weight`), as the
+reference's are.
 """
 
 from __future__ import annotations
@@ -189,12 +191,17 @@ def top1_gating(logits: torch.Tensor, **kw):
 
 def _expert_weight(w: Dict[str, torch.Tensor], name: str,
                    dt: torch.dtype) -> torch.Tensor:
-    """Expert stack [E, D, F] in the compute dtype."""
-    if name not in w and name + "_q" in w:
-        raise NotImplementedError(
-            f"quantized MoE expert stacks ({name}_q / {name}_s) are not "
-            "ported yet (ROADMAP section 1, \"MoE on one device\")")
-    return w[name].to(dt)
+    """Expert stack [E, D, F] in the compute dtype: the dense leaf, or a
+    serving engine's int8 ``name+"_q"`` [E, D, F] times its per-group
+    scales ``name+"_s"`` [E, G, F] (each scale covers D / G rows),
+    multiplied in ``dt`` as the reference does."""
+    if name in w:
+        return w[name].to(dt)
+    q, s = w[name + "_q"], w[name + "_s"]
+    E, D, F = q.shape
+    G = s.shape[1]
+    return (q.to(dt).reshape(E, G, D // G, F)
+            * s.to(dt).reshape(E, G, 1, F)).reshape(E, D, F)
 
 
 def _has_gate(w: Dict[str, torch.Tensor]) -> bool:

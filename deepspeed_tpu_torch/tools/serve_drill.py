@@ -9,9 +9,10 @@ the repo's ``tools/serve_drill.py``, which drives the JAX package).
 
 Scenarios: ``deadline-storm``, ``shed-under-kv-pressure``,
 ``sigterm-drain``, ``frontend-storm``, ``prefix-storm``, ``kv-tier``,
-``slo-storm``, ``crash-migrate``. ``moe-storm`` needs MoE serving, which
-is not ported yet (ROADMAP section 1, "MoE on one device"); asking for it
-raises ``NotImplementedError``.
+``slo-storm``, ``crash-migrate``. ``moe-storm`` serves an MoE model
+expert-parallel on an ``{"ep": 4, "dp": 2}`` mesh and rebalances its
+experts, which needs a mesh (ROADMAP section 1, "Mesh, ZeRO and tensor
+parallelism"); asking for it raises ``NotImplementedError``.
 
 Invariants asserted after EVERY drill:
 
@@ -937,10 +938,12 @@ def _shared_tier_files(shared):
 
 def scenario_moe_storm(workdir, device):
     """Expert-parallel MoE serving under a skewed router with faults
-    injected mid-dispatch: needs MoE serving, not ported yet."""
+    injected mid-dispatch: needs an "ep" mesh, not ported yet (MoE itself
+    serves on one device)."""
     raise NotImplementedError(
-        "serve_drill moe-storm needs MoE serving, which is not ported yet "
-        '(ROADMAP section 1, "MoE on one device")')
+        "serve_drill moe-storm serves MoE expert-parallel on an ep mesh, "
+        'which is not ported yet (ROADMAP section 1, "Mesh, ZeRO and '
+        'tensor parallelism")')
 
 
 SCENARIOS = {

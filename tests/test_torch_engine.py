@@ -171,15 +171,16 @@ def test_capacity_and_unported_options():
                      (dict(weight_dtype="fp8"), "weight_dtype")):
         with pytest.raises(ValueError, match=what):
             InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
-    # sampling, the prefix cache, speculation, tiers and pause/resume are
-    # ported (tests/test_torch_engine_features.py and the prefix-cache and
-    # KV-tier tests); MoE serving and meshes still raise, naming their
-    # ROADMAP items
-    for kw, item in ((dict(mesh={"tp": 2}),
-                      '"Mesh, ZeRO and tensor parallelism"'),
-                     (dict(moe_kernel="ragged"), '"MoE on one device"')):
-        with pytest.raises(NotImplementedError, match=item):
-            InferenceEngineV2(tm, device="cpu", **kw, **ENGINE_KW)
+    # sampling, the prefix cache, speculation, tiers, pause/resume and MoE
+    # serving are ported (tests/test_torch_engine_features.py, the
+    # prefix-cache, KV-tier and MoE serving tests); a mesh still raises,
+    # naming its ROADMAP item. The MoE options change nothing on a dense
+    # model, as in the reference (it resolves them on a grouped MoE model)
+    with pytest.raises(NotImplementedError,
+                       match='"Mesh, ZeRO and tensor parallelism"'):
+        InferenceEngineV2(tm, device="cpu", mesh={"tp": 2}, **ENGINE_KW)
+    assert InferenceEngineV2(tm, device="cpu", moe_kernel="ragged",
+                             **ENGINE_KW).moe_kernel is None
     eng.put([0], [np.arange(1, 5, dtype=np.int32)])
     toks = eng.decode_batch([0], [3], steps=2, temperature=0.7, seed=1)[0]
     assert toks.shape == (2,) and 0 <= toks.min() and toks.max() < 256

@@ -344,13 +344,11 @@ class TestPromoteFence:
         assert toks["torch"] == toks["jax"]
 
 
-MESH, MOE = "Mesh, ZeRO and tensor parallelism", "MoE on one device"
+MESH = "Mesh, ZeRO and tensor parallelism"
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh={"tp": 2}), MESH), (dict(topology=object()), MESH),
-    (dict(moe_kernel="ragged"), MOE), (dict(moe_a2a_bits=8), MOE),
-    (dict(moe_replica_slots=1), MOE)])
+    (dict(mesh={"tp": 2}), MESH), (dict(topology=object()), MESH)])
 def test_unported_options_name_their_roadmap_item(kw, item):
     """Each refusal names its ROADMAP section 1 item by title (a number
     would go stale as items close), and the title is an item there."""
@@ -361,17 +359,42 @@ def test_unported_options_name_their_roadmap_item(kw, item):
         InferenceEngineV2(tm, device="cpu", **KW, **kw)
 
 
+@pytest.mark.parametrize("kw", [dict(moe_kernel="ragged"),
+                                dict(moe_a2a_bits=8),
+                                dict(moe_replica_slots=1)],
+                         ids=["moe_kernel", "moe_a2a_bits",
+                              "moe_replica_slots"])
+def test_moe_options_serve_on_one_device(kw):
+    """The engine's MoE options are accepted on a grouped MoE model: the
+    kernel it names runs (the preset's own here), and the expert-parallel
+    wire format and replica slots change nothing on one device -- greedy
+    tokens equal those of an engine built without the option."""
+    tm = TransformerLM(get_preset("tiny-moe", dtype="float32",
+                                  moe_dispatch="grouped"))
+    tree = tm.init(seed=3, device="cpu")
+    prompt = np.random.default_rng(4).integers(1, 256, 12).astype(np.int32)
+    toks = []
+    for extra in ({}, kw):
+        eng = InferenceEngineV2(tm, tree, device="cpu", **KW, **extra)
+        first = int(np.argmax(eng.put([0], [prompt])[0]))
+        toks.append([first] + _ints(eng.decode_batch([0], [first],
+                                                     steps=6)[0]))
+        assert eng.moe_kernel == "ragged" and eng.rebalance_moe() is None
+    assert toks[0] == toks[1]
+
+
 def _refuse_moe_storm():
     from deepspeed_tpu_torch.tools.serve_drill import run_scenario
 
     run_scenario("moe-storm", device="cpu")
 
 
-@pytest.mark.parametrize("refuse,item", [(_refuse_moe_storm, MOE)],
+@pytest.mark.parametrize("refuse,item", [(_refuse_moe_storm, MESH)],
                          ids=["moe-storm"])
 def test_unported_serving_parts_name_their_roadmap_item(refuse, item):
-    """The serving layer's refusal -- the ``moe-storm`` drill -- names its
-    ROADMAP section 1 item too."""
+    """The serving layer's refusal -- the ``moe-storm`` drill, which serves
+    MoE expert-parallel on an ep mesh -- names its ROADMAP section 1 item
+    too."""
     assert f"**{item}" in _roadmap_section_1()
     with pytest.raises(NotImplementedError, match=f'ROADMAP section 1, '
                                                   f'"{item}"'):

@@ -107,12 +107,14 @@ def test_mlp_block(overrides):
 
 
 def test_unported_features_raise():
-    # an MoE model builds and trains; its cached serving forwards refuse
-    moe = TransformerLM(get_preset("tiny-moe"))
-    with pytest.raises(NotImplementedError, match="MoE on one device"):
-        moe.forward_prefill(moe.init(seed=0, device="cpu"),
-                            torch.ones(1, 4, dtype=torch.long),
-                            torch.tensor([4]))
+    # an MoE model serves: its cached forwards route the real lanes
+    # (tests/test_torch_moe_serving.py holds them against the reference)
+    moe = TransformerLM(get_preset("tiny-moe", dtype="float32"))
+    logits, kv = moe.forward_prefill(moe.init(seed=0, device="cpu"),
+                                     torch.ones(2, 4, dtype=torch.long),
+                                     torch.tensor([4, 2]))
+    assert logits.shape == (2, 256) and torch.isfinite(logits).all()
+    assert kv["k"].shape == (2, 2, 4, 4, 16)
     # one attention path: no impl selector may route card work elsewhere
     for impl in ("fpdt", "xla"):
         with pytest.raises(NotImplementedError):

@@ -9,8 +9,10 @@ the model's loss and per-leaf gradients under both dispatch algebras
 (also under remat, random-LTD and progressive layer drop on the
 reference's draws); 4 engine steps against the reference's engine (losses
 1e-5 relative, params within 2e-6 + 1e-4 relative); the balancer's units;
-the ``moe`` config section; and the refusals that name "MoE on one
-device". Widths are ``tiny-moe``'s (D 64, E 4, 2 layers)."""
+the ``moe`` config section; int8 expert stacks and the cached serving
+entry points on an MoE model (their values against the reference in
+``tests/test_torch_moe_serving.py``). Widths are ``tiny-moe``'s (D 64, E 4,
+2 layers)."""
 
 import dataclasses
 import functools
@@ -286,13 +288,25 @@ def test_kernel_names_are_checked_and_never_swapped():
         tsm.moe_block_for(get_preset("tiny-moe", moe_dispatch="sparse"))
 
 
-def test_quantized_expert_stacks_refuse():
-    _, tw = _pair(_weights(0))
-    q = {"router": tw["router"], "w_gate_q": tw["w_gate"],
-         "w_gate_s": tw["w_gate"], "w_up": tw["w_up"],
-         "w_down": tw["w_down"]}
-    with pytest.raises(NotImplementedError, match='"MoE on one device"'):
-        tsm.moe_mlp_block(torch.zeros(1, 4, D), q, Cfg())
+def test_quantized_expert_stacks_dequantize():
+    """int8 ``w_gate_q`` / ``w_gate_s`` leaves in place of ``w_gate``: the
+    block runs on their dequantized stack, as it runs on that stack dense
+    (the reference's ``_expert_weight``; its bit-identity is held in
+    tests/test_torch_moe_serving.py)."""
+    from deepspeed_tpu_torch.ops.quant_matmul import quantize_matmul_weight
+
+    _, tw = _pair(_weights(0, d=128))
+    pairs = [quantize_matmul_weight(w, bits=8) for w in tw["w_gate"]]
+    q = {"router": tw["router"], "w_up": tw["w_up"], "w_down": tw["w_down"],
+         "w_gate_q": torch.stack([p for p, _ in pairs]),
+         "w_gate_s": torch.stack([s for _, s in pairs])}
+    dense = dict(q, w_gate=tsm._expert_weight(q, "w_gate", torch.float32))
+    del dense["w_gate_q"], dense["w_gate_s"]
+    assert _rel(dense["w_gate"], tw["w_gate"]) <= 1e-2
+    h = torch.from_numpy(_h((1, 6), d=128))
+    for block in (tsm.moe_mlp_block, tsm.grouped_moe_mlp_block):
+        y, _ = block(h, q, Cfg())
+        assert torch.equal(y, block(h, dense, Cfg())[0])
 
 
 def test_moe_layer_wrapper_matches_the_reference():
@@ -640,7 +654,10 @@ def test_preset_overrides_reach_the_model():
             mix.cfg.intermediate_size) == (8, 2, 4096, 14336)
 
 
-def test_cached_entry_points_and_engines_refuse_an_moe_model():
+def test_cached_entry_points_and_engines_serve_an_moe_model():
+    """Each cached entry point and both engine constructors run an MoE model
+    (tests/test_torch_moe_serving.py holds their values against the
+    reference's)."""
     tm = TransformerLM(get_preset("tiny-moe", dtype="float32"))
     p = tm.init(seed=0, device="cpu")
     ids = torch.ones(1, 4, dtype=torch.long)
@@ -663,15 +680,13 @@ def test_cached_entry_points_and_engines_refuse_an_moe_model():
                 2, 1, 2, 4, 16)}, 0, torch.zeros(1, 2, dtype=torch.int32),
             one, one)}
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError,
-                           match=f'{name} of an MoE model.*"MoE on one '
-                                 'device"'):
-            call()
-    for build in (lambda: InferenceEngineV2(tm, device="cpu"),
-                  lambda: tds.init_inference(tm, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match='serving an MoE model.*"MoE on one '
-                                 'device"'):
-            build()
+        logits = call()[0]
+        assert torch.isfinite(logits).all() and logits.shape[-1] == 256, name
+    prompt = [np.arange(1, 6, dtype=np.int32)]
+    for eng in (InferenceEngineV2(tm, p, device="cpu", max_seq_len=64),
+                tds.init_inference(tm, params=p, device="cpu")):
+        out = (eng.put([0], prompt)[0] if hasattr(eng, "put")
+               else eng.generate(prompt, max_new_tokens=2))
+        assert np.isfinite(out).all()
     # the full-sequence forward runs
     assert tm.logits(p, ids).shape == (1, 4, 256)

@@ -47,6 +47,9 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.ops.quant_matmul\n"
         "import deepspeed_tpu_torch.ops.rms_norm\n"
         "import deepspeed_tpu_torch.inference.quant\n"
+        "import deepspeed_tpu_torch.ops.quantization\n"
+        "import deepspeed_tpu_torch.compression\n"
+        "import deepspeed_tpu_torch.compression.compress\n"
         "import deepspeed_tpu_torch.inference.engine\n"
         "import deepspeed_tpu_torch.inference.kv_tier\n"
         "import deepspeed_tpu_torch.inference.speculative\n"

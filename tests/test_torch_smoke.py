@@ -659,3 +659,46 @@ def test_moe_train_phase_runs_on_a_tiny_cpu_model(monkeypatch):
     assert notes["capacity"]["drop"] > 0 and notes["grouped"]["drop"] == 0
     assert notes["block"]["bit_identical"] and notes["block"]["same_topk"]
     assert notes["remat"]["tracker"] == [64 * 2] * 2
+
+
+# ---------------------------------------------------------------------------
+# phase 16 (moe-serve) at a tiny width on the CPU
+# ---------------------------------------------------------------------------
+
+MOE_SERVE_TINY = dict(hidden_size=128, num_layers=2, num_heads=4,
+                      num_kv_heads=2, intermediate_size=256, vocab_size=512,
+                      num_experts=4, dtype="float32", param_dtype="float32")
+
+
+def test_moe_serve_phase_runs_on_a_tiny_cpu_model():
+    """Phase 16 on mixtral-8x7b's preset cut to 2 layers of width 128 and 4
+    experts in fp32 on the CPU, its traffic cut (prompts of 5-140 tokens
+    chunked at 32, 8 decode steps): every gate that does not read the card
+    passes -- (a) chunked vs whole, alone vs batched and the routed pairs
+    of every call, (b) padded vs ragged, (c) the capacity path's drops and
+    at factor E its exact pairs, (d) the int8 expert leaves and their
+    dequantization, (e) the dense engines and v1 and their controls --
+    and the replays capture A-D and G, H and A/B's int8 modes."""
+    from deepspeed_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(0)
+    prompts = ([rng.integers(1, 512, n).astype(np.int32)
+                for n in (5, 16, 17, 90)],
+               [rng.integers(1, 512, n).astype(np.int32) for n in (40, 140)])
+    counts = chip_smoke.moe_serve(
+        torch, tpa, tfa, tqm, _build.KERNELS, _build.reset_counts,
+        device="cpu", prompts=prompts, steps=8, max_atom=32,
+        engine_kw=dict(max_sequences=8, max_seq_len=256, block_size=16),
+        **MOE_SERVE_TINY)
+    assert set(counts) == set(chip_smoke.MOE_SERVE_KERNELS)
+    notes = chip_smoke.PHASE_NOTES["moe_serve"]
+    a = notes["a"]
+    assert a["pairs"]["decode_batch"][:2] == (6 * 8 * 2 * 2,) * 2
+    assert a["calls"]["decode_batch"]["syncs"] == 8 * 2
+    assert notes["(c)"]["drop"] > 0 and notes["(c) at factor E"]["drop"] == 0
+    assert notes["b"]["rel"] < 1e-5 and notes["d"]["max_rel"] < 0.6
+    assert max(notes["e"]["rel"].values()) < 1e-5
+    # fp32: the free-running paths agree too, and pinning moved the routing
+    assert max(a["free"] + a["gated"]) < 1e-5
+    assert max(notes["e"]["free"].values()) < 1e-5
+    assert chip_smoke.rel_l2(a["pinned"]["put"][0], a["put"][0]) > 1e-3
