@@ -294,7 +294,8 @@ Phases, in order (any failure raises and the script exits non-zero):
               power limit.
 
 13. checkpoint -- engine checkpoints and the resilience layer. (a)
-              ``llama3-1b`` at full width and depth with phase 5's config
+              ``llama3-1b`` at full width, 4 of its 16 layers (a depth
+              cut for the script's time limit), with phase 5's config
               and batch (plus a WarmupLR schedule, so its state rides the
               tag): engine A (seed 0) takes 2 ``train_batch`` steps, saves
               synchronously (tag ``global_step2``: params, AdamW's moments
@@ -422,6 +423,43 @@ Phases, in order (any failure raises and the script exits non-zero):
               and the ragged product's host syncs a call (one a layer a
               forward). A-D, G, H, A/B int8 and I must launch.
 
+17. offload -- ZeRO-Offload through ``initialize`` with
+              ``zero_optimization.offload_optimizer`` (fp32 masters and Adam
+              moments on the host, ``csrc/cpu_adam.cpp``'s OpenMP loop,
+              page-locked masters and grad buffers, only the params back
+              to the card), phase 5's ``TRAIN_CONFIG`` and batch: (a)
+              llama3-1b at full width and depth -- the host Adam on flat
+              fp32 buffers against its plain twin (rtol 1e-5, atol 1e-6;
+              the OpenMP runtimes in the process and the loop's time at
+              1, half and all threads printed), three steps
+              against on-card AdamW from the same init (first loss
+              bit-equal, the rest rtol 5e-3), every param on the card
+              equal to its host master bit for bit, ``offload.aio.
+              upload_overlap`` on and off bit-equal; each step's split
+              (grad copy, Adam, upload; fwd+bwd) printed; (b)
+              ``zenflow.overlap_step``: the first two losses within 1e-6,
+              the next one the synchronous run's (shifted by one step,
+              within 2e-2), and every loss from the second on equal, bit
+              for bit, to a synchronous engine's whose step k takes step
+              k-1's gradient (the overlapped host Adam reads a gradient
+              one step stale; at phase 5's lr the plain synchronous run
+              is 7.5% away by the third shifted step, so it is printed,
+              not gated, past that); step times beside (a)'s; the OpenMP
+              threads' cost to the forward and backward printed; and the
+              top-k split (ratio 0.1,
+              update interval 2: unselected columns of ``wo`` move only at
+              the boundary step, selected ones every step); (c) at 2 of
+              16 layers in the run's temporary directory, the NVMe tier
+              serial and at depth 2 against the CPU tier, masters, m and
+              v bit for bit after 2 steps, then the CPU-tier engine saved
+              (``host_optimizer.npz`` beside ``state/``), one more step,
+              and the same step of a fresh engine loaded from the tag,
+              bit-equal; (d) llama3-8b at full width, 16 of 32 layers (a
+              constant: the host holds 16 B a param), micro 2, three
+              steps: finite losses, peak card memory below the card's;
+              MemAvailable, host RSS, the split and on-card AdamW's 16 B a
+              param printed. D, E and F must launch.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``; the card's name and power
 limit are printed before them. Imports neither JAX nor ``deepspeed_tpu``.
@@ -436,6 +474,7 @@ import itertools
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -4478,7 +4517,9 @@ def fleet(torch, pa, qm, fa, KERNELS, reset_counts, device="cuda"):
 # ---------------------------------------------------------------------------
 
 CKPT_KERNELS = TRAIN_KERNELS   # D, E, F while training (v1 serving: counted)
-CKPT_MODEL_KW: dict = {}       # overrides of phase 5's model (CPU tests)
+# overrides of phase 5's model: 4 of its 16 layers (a depth cut that keeps
+# the whole script inside its time limit; every gate is depth-free)
+CKPT_MODEL_KW: dict = {"num_layers": 4}
 CKPT_SEQ = None                # tokens a row (None: phase 5's TRAIN_SEQ)
 CKPT_STEPS = 2                 # train_batch steps before the save, and after
 CKPT_SCHEDULE = {"type": "WarmupLR", "params": {
@@ -5019,7 +5060,8 @@ def ckpt_serve(torch, a, device, card):
 
 def checkpoint(torch, fa, KERNELS, reset_counts, device="cuda"):
     """Phase 13: engine checkpoints and the resilience layer -- (a) the
-    round trip at phase 5's width and depth, (b) the async save, (c) the
+    round trip at phase 5's width (``CKPT_MODEL_KW``'s depth), (b) the
+    async save, (c) the
     resilience drill on tiny engines, (d) crash and resume in subprocesses,
     (e) serving the checkpoint. Returns the phase's launches per kernel."""
     import shutil
@@ -6514,6 +6556,569 @@ def moe_serve(torch, pa, fa, qm, KERNELS, reset_counts, device="cuda",
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 17: offload -- ZeRO-Offload on one card (host Adam, NVMe tier,
+# ZenFlow), llama3-1b at full width and depth, llama3-8b cut in depth
+# ---------------------------------------------------------------------------
+
+OFFLOAD_STEPS = 3              # steps of (a), (b)'s top-k run and (d)
+OFFLOAD_ADAM_N = 1 << 24       # (a) 1: elements of the flat buffers
+OFFLOAD_ADAM_TOL = dict(rtol=1e-5, atol=1e-6)  # host Adam vs plain twin
+OFFLOAD_LOSS_RTOL = 5e-3       # (a) 3: steps 2-3 vs the on-card AdamW
+OFFLOAD_FIRST_RTOL = 1e-6      # (b): overlap's first two losses
+OFFLOAD_SHIFT_RTOL = 2e-2      # (b): overlap vs sync, shifted one step
+OFFLOAD_TOPK = {"topk_ratio": 0.1, "update_interval": 2,
+                "select_interval": 4}
+OFFLOAD_TOPK_LEAF = "layers/attn/wo"
+OFFLOAD_NVME_LAYERS = 2        # (c): llama3-1b cut to 2 of 16 layers
+OFFLOAD_NVME_STEPS = 2
+OFFLOAD_MODEL_KW = {}          # overrides of both presets (the CPU test)
+OFFLOAD_SEQ = None             # tokens a row (None: phase 5's TRAIN_SEQ)
+OFFLOAD_BIG = "llama3-8b"      # (d): the model on-card AdamW cannot hold
+# (d)'s depth: the host holds 16 B a param (fp32 masters, m, v and the
+# page-locked grad buffers); the card's machine has 108 GB of RAM (~80 GB
+# available by (d) in the whole script), so 32 layers (7.50B params, 120
+# GB) do not fit, 16 (4.02B, 64.2 GB) do
+OFFLOAD_BIG_LAYERS = 16
+OFFLOAD_BIG_MICRO = 2          # rows a micro-batch of (d) (GA 2)
+
+
+def offload_model(name: str = None, **kw):
+    """``name`` (phase 5's preset by default) at ``OFFLOAD_SEQ`` with
+    ``OFFLOAD_MODEL_KW`` and ``kw``."""
+    from deepspeed_tpu_torch import TransformerLM, get_preset
+    from deepspeed_tpu_torch.tools.train_profile import (TRAIN_PRESET,
+                                                         TRAIN_SEQ)
+
+    return TransformerLM(get_preset(
+        name or TRAIN_PRESET, max_seq_len=OFFLOAD_SEQ or TRAIN_SEQ,
+        **{**OFFLOAD_MODEL_KW, **kw}))
+
+
+def offload_config(device: str = "cpu", zenflow=None, aio=None,
+                   nvme_path=None, **extra) -> dict:
+    """Phase 5's ``TRAIN_CONFIG`` (with ``extra``) and the optimizer on
+    ``device`` (None: on the card)."""
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    config = {**TRAIN_CONFIG, **extra}
+    if device is not None:
+        off = {"device": device}
+        if nvme_path:
+            off["nvme_path"] = nvme_path
+        config["zero_optimization"] = {"offload_optimizer": off}
+        if zenflow:
+            config["zero_optimization"]["zenflow"] = zenflow
+        if aio:
+            config["offload"] = {"aio": aio}
+    return config
+
+
+def offload_batch(vocab: int, rows: int = None) -> dict:
+    """Phase 5's ``fixed_batch`` cut to ``OFFLOAD_SEQ`` columns and
+    ``rows`` rows."""
+    from deepspeed_tpu_torch.tools.train_profile import fixed_batch
+
+    ids = fixed_batch(vocab)["input_ids"]
+    return {"input_ids": np.ascontiguousarray(
+        ids[:rows, :OFFLOAD_SEQ or ids.shape[1]])}
+
+
+def host_gb(field: str, path: str = "/proc/self/status") -> float:
+    """A ``kB`` field of ``/proc/self/status`` (VmRSS, VmHWM) or
+    ``/proc/meminfo`` (MemAvailable), in GB."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def openmp_runtimes() -> list:
+    """The OpenMP runtime libraries mapped into this process (torch's
+    bundled one and the one ``csrc/cpu_adam.cpp``'s ``-fopenmp`` links)."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if re.search(r"lib(g|i)?omp[^/]*\.so", line)})
+
+
+def offload_steps(ctx, eng, batch, n: int) -> dict:
+    """``n`` steps of ``eng`` on ``batch`` (GA micro-steps, then
+    ``step()``; the card synchronised around each part): losses (mean of
+    a step's micro-losses), grad norms, fwd+bwd ms, step() ms, and the
+    offload report after each step."""
+    ga = eng.gradient_accumulation_steps()
+    out = {k: [] for k in ("losses", "norms", "fwd_bwd_ms", "opt_ms",
+                           "split")}
+    for _ in range(n):
+        ctx["sync"]()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(ga):
+            loss = eng.forward(batch)
+            eng.backward(loss)
+            losses.append(float(loss.detach()))
+        ctx["sync"]()
+        t1 = time.perf_counter()
+        eng.step()
+        ctx["sync"]()
+        t2 = time.perf_counter()
+        out["losses"].append(float(np.mean(losses)))
+        out["norms"].append(eng.get_global_grad_norm())
+        out["fwd_bwd_ms"].append(round((t1 - t0) * 1e3, 1))
+        out["opt_ms"].append(round((t2 - t1) * 1e3, 1))
+        rep = eng.offload_report()
+        if rep["enabled"]:
+            out["split"].append({k: rep[f"last_{k}_ms"]
+                                 for k in ("d2h", "adam", "upload")})
+    return out
+
+
+def stale_steps(ctx, eng, batch, n: int, after_first=None) -> list:
+    """ZenFlow overlap's trajectory replayed on a synchronous engine: step
+    k's update takes the gradient of step k-1's forward (step 0's its
+    own), as an overlapped step's host Adam reads a gradient one step
+    stale. Returns the losses, which equal an ``overlap_step`` run's from
+    its second step on, bit for bit; ``after_first()`` runs after step 0,
+    a plain synchronous step."""
+    ga = eng.gradient_accumulation_steps()
+    losses, prev = [], None
+    for k in range(n):
+        step = []
+        for _ in range(ga):
+            loss = eng.forward(batch)
+            eng.backward(loss)
+            step.append(float(loss.detach()))
+        # a copy: the step divides the accumulated .grad in place
+        fresh = [p.grad.detach().to("cpu", copy=True) for p in eng._leaves]
+        if prev is not None:
+            for p, g in zip(eng._leaves, prev):
+                p.grad = g.to(p.device)
+        eng.step()
+        ctx["sync"]()
+        prev = fresh
+        losses.append(float(np.mean(step)))
+        if k == 0 and after_first is not None:
+            after_first()
+    return losses
+
+
+def masters_equal_params(torch, eng) -> list:
+    """Leaves whose param on the device differs from its host master."""
+    from deepspeed_tpu_torch.runtime.checkpoint import flatten_tree
+
+    off = eng._offload
+    return [n for n, p in flatten_tree(eng.params).items()
+            if not torch.equal(p.detach().cpu(),
+                               off.master[f"{n}#0"].view(p.shape))]
+
+
+def host_tier(eng) -> dict:
+    """Own copies of the host optimizer's masters and moments."""
+    return {k: np.array(v, copy=True)
+            for k, v in eng._offload.state_dict().items()}
+
+
+def offload_adam_check(torch, ctx) -> dict:
+    """(a) 1: the host Adam on flat fp32 buffers against its plain twin on
+    the same buffers, 3 steps at ``TRAIN_CONFIG``'s AdamW."""
+    from deepspeed_tpu_torch.offload.cpu_adam import (DeepSpeedCPUAdam,
+                                                      adam_step_plain)
+    from deepspeed_tpu_torch.tools.train_profile import TRAIN_CONFIG
+
+    kw = dict(TRAIN_CONFIG["optimizer"]["params"])
+    g = torch.Generator().manual_seed(17)
+    n = OFFLOAD_ADAM_N
+    p0 = torch.randn(n, generator=g)
+    grads = [torch.randn(n, generator=g) * 1e-2 for _ in range(3)]
+    adam = DeepSpeedCPUAdam(lr=kw["lr"], weight_decay=kw["weight_decay"])
+    got = [p0.clone(), torch.zeros(n), torch.zeros(n)]
+    want = [p0.clone(), torch.zeros(n), torch.zeros(n)]
+    ms, plain_ms = [], []
+    for s, gr in enumerate(grads, 1):
+        t = time.perf_counter()
+        adam.step(*got[:1], gr, *got[1:])
+        ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        adam_step_plain(*want[:1], gr, *want[1:], step=s, lr=kw["lr"],
+                        weight_decay=kw["weight_decay"])
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+    # the loop's OpenMP team follows the calling thread's thread count
+    threads = torch.get_num_threads()
+    scaling = {}
+    scratch = [t.clone() for t in got]
+    try:
+        for nt in sorted({1, max(1, threads // 2), threads}):
+            torch.set_num_threads(nt)
+            t = time.perf_counter()
+            adam.step(*scratch[:1], grads[0], *scratch[1:], increment=False)
+            scaling[nt] = round((time.perf_counter() - t) * 1e3, 2)
+    finally:
+        torch.set_num_threads(threads)
+    err = {}
+    for name, a, b in zip(("params", "m", "v"), got, want):
+        torch.testing.assert_close(a, b, **OFFLOAD_ADAM_TOL,
+                                   msg=f"offload (a): host Adam {name}")
+        err[name] = float((a - b).abs().max())
+    gbs = 28 * n / (min(ms) / 1e3) / 1e9
+    omp = openmp_runtimes()
+    env = {k: v for k, v in os.environ.items()
+           if k.startswith(("OMP_", "GOMP_", "KMP_"))}
+    log(f"offload (a) 1: host Adam vs its plain twin, {n} elements, 3 "
+        f"steps: max abs err {err} (rtol {OFFLOAD_ADAM_TOL['rtol']}, atol "
+        f"{OFFLOAD_ADAM_TOL['atol']}); a call {[round(m, 2) for m in ms]} "
+        f"ms = {gbs:.1f} GB/s of 28 B an element (plain twin "
+        f"{[round(m, 2) for m in plain_ms]} ms); ms a call by OpenMP "
+        f"threads {scaling}; OpenMP runtimes in the process {omp}, env "
+        f"{env}, torch threads {threads}, {os.cpu_count()} CPUs, "
+        f"{len(os.sched_getaffinity(0))} in the affinity mask")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, gb_s=gbs, openmp=omp,
+                threads_ms=scaling)
+
+
+def offload_full(torch, ctx) -> dict:
+    """(a) llama3-1b at full width and depth, the optimizer on the host,
+    against phase 5's on-card AdamW; (b) overlap_step and the top-k
+    split."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.spec import num_params
+    from deepspeed_tpu_torch.runtime.checkpoint import flatten_tree
+
+    res = {"adam": offload_adam_check(torch, ctx)}
+    vocab = offload_model().cfg.vocab_size
+    batch = offload_batch(vocab)
+
+    def build(tag, device="cpu", **kw):
+        ctx["sync"]()
+        t = time.perf_counter()
+        eng, *_ = tds.initialize(offload_model(),
+                                 offload_config(device, **kw),
+                                 device=ctx["device"])
+        ctx["sync"]()
+        res.setdefault("build_s", {})[tag] = round(time.perf_counter() - t, 2)
+        return eng
+
+    card = build("card", device=None)
+    n = num_params(card.params)
+    ref = offload_steps(ctx, card, batch, OFFLOAD_STEPS)
+    card.shutdown()
+    del card   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    ctx["reset_peak"]()
+    eng = build("offload")
+    sync = offload_steps(ctx, eng, batch, 1)
+    kept = {k: p.detach().to("cpu", copy=True)
+            for k, p in flatten_tree(eng.params).items()}
+    for k, v in offload_steps(ctx, eng, batch, OFFLOAD_STEPS - 1).items():
+        sync[k] += v
+    peak = ctx["peak"]() / 1e9
+    differ = masters_equal_params(torch, eng)
+    rss = host_gb("VmRSS")
+    eng.shutdown()
+    del eng   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    # upload_overlap off: its first step bit-equal to the streamed one's;
+    # then it replays (b)'s overlapped trajectory with stale gradients
+    plain = build("upload_overlap off", aio={"upload_overlap": False})
+    overlap_differ, serial = [], {}
+
+    def first_step():
+        overlap_differ.extend(
+            k for k, p in flatten_tree(plain.params).items()
+            if not torch.equal(p.detach().cpu(), kept[k]))
+        rep = plain.offload_report()
+        serial.update({k: rep[f"last_{k}_ms"]
+                       for k in ("d2h", "adam", "upload")})
+
+    stale = stale_steps(ctx, plain, batch, OFFLOAD_STEPS,
+                        after_first=first_step)
+    plain.shutdown()
+    del plain   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    del kept
+    split = sync["split"][-1]
+    log(f"offload (a) [{ctx['card']}]: {n / 1e9:.3f}B params, on-card "
+        f"AdamW losses {ref['losses']} step ms "
+        f"{[a + b for a, b in zip(ref['fwd_bwd_ms'], ref['opt_ms'])]}; "
+        f"offload losses {sync['losses']}, grad norms {sync['norms']}; "
+        f"fwd+bwd ms {sync['fwd_bwd_ms']}, step() ms {sync['opt_ms']}, "
+        f"last split d2h {split['d2h']} adam {split['adam']} upload "
+        f"{split['upload']} ms (all steps {sync['split']}); upload_overlap "
+        f"off (its first step): split {serial}; "
+        f"peak card {peak:.2f} GB, host RSS {rss:.2f} GB, builds "
+        f"{res['build_s']} s")
+    if differ:
+        raise AssertionError(f"offload (a): params on the card differ from "
+                             f"their host masters: {differ[:5]}")
+    if sync["losses"][0] != ref["losses"][0]:
+        raise AssertionError(f"offload (a): first loss {sync['losses'][0]} "
+                             f"!= on-card AdamW's {ref['losses'][0]}")
+    np.testing.assert_allclose(sync["losses"], ref["losses"],
+                               rtol=OFFLOAD_LOSS_RTOL,
+                               err_msg="offload (a): losses vs on-card AdamW")
+    if overlap_differ:
+        raise AssertionError(f"offload (a): upload_overlap on and off give "
+                             f"other params: {overlap_differ[:5]}")
+    if stale[0] != sync["losses"][0]:
+        raise AssertionError(f"offload (a): upload_overlap on and off give "
+                             f"other losses {sync['losses']} {stale}")
+    res.update(params=n, card=ref, sync=sync, no_upload_overlap=serial,
+               peak_gb=round(peak, 2), host_rss_gb=round(rss, 2))
+
+    # (b) overlap_step: the host step of step N runs during step N+1's
+    # forward and backward
+    eng = build("overlap_step", zenflow={"overlap_step": True})
+    over = offload_steps(ctx, eng, batch, OFFLOAD_STEPS + 1)
+    eng.shutdown()
+    del eng   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    shift = [abs(a - b) / abs(b) for a, b in
+             zip(over["losses"][1:], sync["losses"])]
+    log(f"offload (b) overlap_step [{ctx['card']}]: losses "
+        f"{over['losses']}; the synchronous run {sync['losses']} (shifted "
+        f"one step: rel diff {shift}); replayed with one-step-stale "
+        f"gradients {stale}; fwd+bwd ms "
+        f"{over['fwd_bwd_ms']} (sync {sync['fwd_bwd_ms']}: the C++ loop's "
+        f"OpenMP threads run beside it), step() ms {over['opt_ms']} "
+        f"(sync {sync['opt_ms']}), step ms "
+        f"{[a + b for a, b in zip(over['fwd_bwd_ms'], over['opt_ms'])]} "
+        f"(sync {[a + b for a, b in zip(sync['fwd_bwd_ms'], sync['opt_ms'])]})")
+    np.testing.assert_allclose(over["losses"][1], over["losses"][0],
+                               rtol=OFFLOAD_FIRST_RTOL,
+                               err_msg="offload (b): overlap's first losses")
+    # the first shifted step is the synchronous run's exactly; later ones
+    # read a stale gradient, which the replay reproduces bit for bit
+    np.testing.assert_allclose(over["losses"][1:3], sync["losses"][:2],
+                               rtol=OFFLOAD_SHIFT_RTOL,
+                               err_msg="offload (b): overlap vs sync shifted")
+    if over["losses"][1:] != stale:
+        raise AssertionError(f"offload (b): overlap losses {over['losses']} "
+                             f"are not the stale-gradient replay's {stale}")
+    res["overlap"] = dict(over, stale=stale, shift=shift)
+
+    # (b) the top-k split: unselected columns move only at a boundary
+    eng = build("topk", zenflow=dict(OFFLOAD_TOPK))
+    leaf = flatten_tree(eng.params)[OFFLOAD_TOPK_LEAF]
+    moved = []
+    topk = {k: [] for k in ("losses", "fwd_bwd_ms", "opt_ms")}
+    for step in range(OFFLOAD_STEPS):
+        before = leaf.detach().clone()
+        r = offload_steps(ctx, eng, batch, 1)
+        for k in topk:
+            topk[k] += r[k]
+        idx = eng._offload._idx[OFFLOAD_TOPK_LEAF]
+        keep = torch.zeros(leaf.shape[-1], dtype=torch.bool,
+                           device=leaf.device)
+        keep[idx] = True
+        delta = (leaf.detach() - before).abs()
+        moved.append((float(delta[..., keep].max()),
+                      float(delta[..., ~keep].max())))
+    k, cols = int(keep.sum()), leaf.shape[-1]
+    del leaf, before, delta, idx
+    eng.shutdown()
+    del eng   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    log(f"offload (b) top-k {OFFLOAD_TOPK} [{ctx['card']}]: losses "
+        f"{topk['losses']}, step ms "
+        f"{[a + b for a, b in zip(topk['fwd_bwd_ms'], topk['opt_ms'])]}; "
+        f"{OFFLOAD_TOPK_LEAF}'s {k} selected / {cols - k} other "
+        f"columns, max |change| a step {moved}")
+    interval = OFFLOAD_TOPK["update_interval"]
+    for step, (sel, other) in enumerate(moved):
+        boundary = (step + 1) % interval == 0
+        if not sel > 0 or (other > 0) != boundary:
+            raise AssertionError(f"offload (b): top-k step {step} "
+                                 f"(boundary {boundary}) moved selected "
+                                 f"{sel}, other {other}")
+    res["topk"] = dict(topk, moved=moved, selected=k)
+    return res
+
+
+def offload_nvme(torch, ctx) -> dict:
+    """(c) the NVMe tier in the run's temporary directory at
+    ``OFFLOAD_NVME_LAYERS`` layers: serial and depth 2 against the CPU
+    tier bit for bit; then a checkpoint of the CPU-tier engine after its
+    last step, loaded into a fresh engine: the next step bit-equal."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.spec import num_params
+    from deepspeed_tpu_torch.runtime.checkpoint import flatten_tree
+
+    tmp = tempfile.mkdtemp(prefix="offload_phase_")
+    model = offload_model(num_layers=OFFLOAD_NVME_LAYERS)
+    batch = offload_batch(model.cfg.vocab_size)
+    res = {"fs": fs_type(tmp)}
+    try:
+        runs = {}
+        for tag, device, aio in (("cpu", "cpu", None),
+                                 ("nvme serial", "nvme",
+                                  {"prefetch_depth": 0}),
+                                 ("nvme depth 2", "nvme",
+                                  {"prefetch_depth": 2})):
+            path = os.path.join(tmp, tag.replace(" ", "_"))
+            t = time.perf_counter()
+            eng, *_ = tds.initialize(
+                offload_model(num_layers=OFFLOAD_NVME_LAYERS),
+                offload_config(device, aio=aio, nvme_path=path),
+                device=ctx["device"])
+            built = time.perf_counter() - t
+            r = offload_steps(ctx, eng, batch, OFFLOAD_NVME_STEPS)
+            r["build_s"] = round(built, 2)
+            r["state"] = host_tier(eng)
+            r["report"] = eng.offload_report()
+            runs[tag] = r
+            if tag != "cpu":
+                eng.shutdown()
+                del eng   # the last reference: its card and host memory go
+                free_card(torch, ctx["device"])
+                continue
+            n = num_params(eng.params)
+            base = eng
+        want = runs["cpu"]["state"]
+        same = {tag: [k for k in want if not np.array_equal(
+            runs[tag]["state"][k], want[k])] for tag in runs}
+        for tag, r in runs.items():
+            log(f"offload (c) {tag} [{ctx['card']}]: {n / 1e9:.3f}B params "
+                f"({OFFLOAD_NVME_LAYERS} layers), {res['fs']} temp dir: "
+                f"losses {r['losses']}, step() ms {r['opt_ms']}, split "
+                f"{r['split']}, built in {r['build_s']} s, stall fraction "
+                f"{r['report']['pipeline_stall_fraction']}; keys differing "
+                f"from the CPU tier {same[tag][:5]}")
+        bad = {t: s for t, s in same.items() if s}
+        if bad:
+            raise AssertionError(f"offload (c): NVMe tiers differ from the "
+                                 f"CPU tier after {OFFLOAD_NVME_STEPS} "
+                                 f"steps: {bad}")
+        # resume: save after the last step, one more step, and the same
+        # step from the loaded tag
+        ckpt = os.path.join(tmp, "ckpt")
+        t = time.perf_counter()
+        base.save_checkpoint(ckpt)
+        save_s = time.perf_counter() - t
+        tag_dir = os.path.join(ckpt, f"global_step{OFFLOAD_NVME_STEPS}")
+        host_file = os.path.join(tag_dir, "host_optimizer.npz")
+        after = offload_steps(ctx, base, batch, 1)
+        want = {k: p.detach().to("cpu", copy=True) for k, p in
+                flatten_tree(base.params).items()}
+        base.shutdown()
+        del base   # the last reference: its card and host memory go
+        free_card(torch, ctx["device"])
+        fresh, *_ = tds.initialize(
+            offload_model(num_layers=OFFLOAD_NVME_LAYERS),
+            offload_config("cpu", seed=5), device=ctx["device"])
+        t = time.perf_counter()
+        fresh.load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t
+        resumed = offload_steps(ctx, fresh, batch, 1)
+        differ = [k for k, p in flatten_tree(fresh.params).items()
+                  if not torch.equal(p.detach().cpu(), want[k])]
+        fresh.shutdown()
+        del fresh   # the last reference: its card and host memory go
+        free_card(torch, ctx["device"])
+        log(f"offload (c) resume: tag {dir_bytes(tag_dir) / 1e9:.3f} GB "
+            f"(host_optimizer.npz {os.path.getsize(host_file) / 1e9:.3f} "
+            f"GB), save {save_s:.1f} s, load {load_s:.1f} s; step "
+            f"{OFFLOAD_NVME_STEPS + 1} loss uninterrupted {after['losses']} "
+            f"resumed {resumed['losses']}; params differing {differ[:5]}")
+        if resumed["losses"] != after["losses"] or differ:
+            raise AssertionError(f"offload (c): the resumed step differs: "
+                                 f"{resumed['losses']} vs {after['losses']},"
+                                 f" params {differ[:5]}")
+        res.update(runs={t: {k: v for k, v in r.items() if k != "state"}
+                         for t, r in runs.items()},
+                   params=n, save_s=save_s, load_s=load_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def offload_big(torch, ctx) -> dict:
+    """(d) ``OFFLOAD_BIG`` at full width, ``OFFLOAD_BIG_LAYERS`` layers,
+    the optimizer on the host: three steps, finite losses, the card's peak
+    below its memory."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.spec import num_params
+
+    avail = host_gb("MemAvailable", "/proc/meminfo")
+    model = offload_model(OFFLOAD_BIG, num_layers=OFFLOAD_BIG_LAYERS)
+    cfg = model.cfg
+    ctx["reset_peak"]()
+    t = time.perf_counter()
+    eng, *_ = tds.initialize(model, offload_config(
+        "cpu", train_micro_batch_size_per_gpu=OFFLOAD_BIG_MICRO),
+        device=ctx["device"])
+    ctx["sync"]()
+    built = time.perf_counter() - t
+    n = num_params(eng.params)
+    batch = offload_batch(cfg.vocab_size, OFFLOAD_BIG_MICRO)
+    r = offload_steps(ctx, eng, batch, OFFLOAD_STEPS)
+    peak = ctx["peak"]() / 1e9
+    rss = host_gb("VmRSS")
+    hwm = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    total = (torch.cuda.get_device_properties(0).total_memory / 1e9
+             if ctx["device"] == "cuda" else float("inf"))
+    eng.shutdown()
+    del eng   # the last reference: its card and host memory go
+    free_card(torch, ctx["device"])
+    log(f"offload (d) [{ctx['card']}]: {OFFLOAD_BIG} D={cfg.hidden_size} "
+        f"L={cfg.num_layers} of {offload_model(OFFLOAD_BIG).cfg.num_layers}"
+        f" (a constant; MemAvailable {avail:.2f} GB at the start of (d), "
+        f"16 B a param on the host), {n / 1e9:.3f}B params, micro "
+        f"{OFFLOAD_BIG_MICRO} x {batch['input_ids'].shape[1]}, built in "
+        f"{built:.1f} s: losses {r['losses']}, fwd+bwd ms "
+        f"{r['fwd_bwd_ms']}, step() ms {r['opt_ms']}, split {r['split']}; "
+        f"peak card {peak:.2f} of {total:.2f} GB, host RSS {rss:.2f} GB "
+        f"(peak {hwm:.2f}); on-card AdamW would hold {16 * n / 1e9:.1f} GB "
+        f"of params, grads, m and v (offload: {8 * n / 1e9:.1f})")
+    if not np.isfinite(r["losses"]).all():
+        raise AssertionError(f"offload (d): non-finite losses {r['losses']}")
+    if not peak < total:
+        raise AssertionError(f"offload (d): peak {peak} GB not below the "
+                             f"card's {total} GB")
+    return dict(r, params=n, peak_gb=round(peak, 2), rss_gb=round(rss, 2),
+                hwm_gb=round(hwm, 2), mem_available_gb=round(avail, 2),
+                layers=cfg.num_layers, build_s=round(built, 1))
+
+
+def offload(torch, KERNELS, reset_counts, device="cuda"):
+    """Phase 17: ZeRO-Offload on one card -- (a) llama3-1b with the
+    optimizer on the host against on-card AdamW, (b) ZenFlow's
+    overlap_step and top-k split, (c) the NVMe tier and a resume, (d)
+    llama3-8b cut in depth. Returns the phase's launches per kernel."""
+    cuda = torch.device(device).type == "cuda"
+    ctx = dict(device=device, sync=(torch.cuda.synchronize if cuda
+                                    else lambda: None),
+               card=card_line() if cuda else device,
+               peak=(torch.cuda.max_memory_allocated if cuda
+                     else lambda: 0),
+               reset_peak=(torch.cuda.reset_peak_memory_stats if cuda
+                           else lambda: None))
+    free_card(torch, device)
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if cuda and empty_host is not None:
+        # earlier phases' page-locked tensors (pin_memory=True) stay cached
+        # in torch's host allocator: give them back before (d)'s 64 GB
+        empty_host()
+    log(f"offload: MemAvailable {host_gb('MemAvailable', '/proc/meminfo'):.2f}"
+        f" GB, host RSS {host_gb('VmRSS'):.2f} GB at the start")
+    t_phase = time.perf_counter()
+    reset_counts()
+    full = offload_full(torch, ctx)
+    nvme = offload_nvme(torch, ctx)
+    big = offload_big(torch, ctx)
+    counts = {k: KERNELS[k].launches for k in TRAIN_KERNELS}
+    missing = [k for k, v in counts.items() if not v] if cuda else []
+    if missing:
+        raise AssertionError(f"offload: kernels never launched {missing} "
+                             f"({counts})")
+    log(f"offload: launches {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{ctx['card']}]")
+    PHASE_NOTES["offload"] = dict(full=full, nvme=nvme, big=big)
+    return counts
+
+
 def main() -> int:
     # the train phase follows the 8B serve phase in one process
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -6589,6 +7194,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_srv = moe_serve(torch, pa, fa, qm, _build.KERNELS,
                         _build.reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = offload(torch, _build.KERNELS, _build.reset_counts)
 
     def entry(r):
         e = {"max_abs_err": r["err"], "ms": r["ms"],
@@ -6631,7 +7239,8 @@ def main() -> int:
                                              ("checkpoint", ckpt),
                                              ("train_features", feats),
                                              ("moe_train", moe),
-                                             ("moe_serve", moe_srv))
+                                             ("moe_serve", moe_srv),
+                                             ("offload", off))
                     if c.get(name)}
         e = {"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": sum(by_phase.values()),

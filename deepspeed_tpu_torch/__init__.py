@@ -21,10 +21,13 @@ Ported so far, all on one device:
   engine checkpoints (``runtime/checkpoint.py``), the resilience layer
   (``resilience/``: checkpoint manager, step guard, retries, coordinator,
   heartbeat watchdog), ``runtime/sanity.py`` and ``utils/tensor_fragment``;
-  :func:`init_inference` serves an engine checkpoint;
+  :func:`init_inference` serves an engine checkpoint; ZeRO-Offload
+  (``offload/``: the optimizer's fp32 masters and Adam moments on the
+  host or NVMe, updated by the host C++ loop, with ZenFlow's overlapped
+  step and top-k split);
 - the op-builder registry (``ops.get_op_builder``: flash attention, the
-  fused RMSNorm and the ``async_io`` library of the NVMe swapper,
-  ``offload.swap``) and the card's measured memory rates
+  fused RMSNorm, the ``async_io`` library of the NVMe swapper,
+  ``offload.swap``, and the ``cpu_adam`` host optimizer library) and the card's measured memory rates
   (``tools.hbm_bandwidth``).
 Every TPU kernel of the reference has a hand-written counterpart here.
 """

@@ -6,6 +6,8 @@ single-device training engine reads are ported: the batch triple,
 ``optimizer``, ``scheduler``, ``fp16`` / ``bf16``, ``gradient_clipping``,
 ``steps_per_print``, ``seed``, ``zero_optimization.stage`` (0-3 compute the
 same thing on one device, as the reference does on a one-device mesh),
+``zero_optimization.offload_optimizer`` / ``zenflow`` / ``offload_param``
+and ``offload`` (the host / NVMe optimizer tier),
 ``mesh`` (every axis 1), ``activation_checkpointing``, ``observability``,
 ``wall_clock_breakdown``, ``checkpoint``, ``resilience``,
 ``data_efficiency``, ``progressive_layer_drop``, ``moe``,
@@ -154,12 +156,122 @@ class BF16Config(_Section):
     immediate_grad_update: bool = True
 
 
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+def _check_offload_device(path: str, device) -> None:
+    if device not in OFFLOAD_DEVICES:
+        raise ValueError(f"{path}.device must be one of {OFFLOAD_DEVICES}, "
+                         f"got {device!r}")
+
+
+@dataclasses.dataclass
+class OffloadParamConfig(_Section):
+    """``zero_optimization.offload_param`` (ZeRO-Infinity param offload):
+    accepted with the reference's fields and, as in the reference, read by
+    nothing."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+    def validate(self, path: str) -> None:
+        _check_offload_device(path, self.device)
+
+
+@dataclasses.dataclass
+class OffloadOptimizerConfig(_Section):
+    """``zero_optimization.offload_optimizer`` (ZeRO-Offload / Infinity):
+    ``device`` ``cpu`` keeps the fp32 masters and Adam moments in host RAM,
+    ``nvme`` the moments in files under ``nvme_path``; the update runs in
+    the host C++ loop (``offload/optimizer.py``). ``buffer_count`` is the
+    NVMe tier's AIO thread count when ``offload.aio.threads`` is 0 and
+    autotune is off; the other knobs are accepted, as in the reference."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+    def validate(self, path: str) -> None:
+        _check_offload_device(path, self.device)
+
+
+@dataclasses.dataclass
+class ZenFlowConfig(_Section):
+    """``zero_optimization.zenflow`` (the reference's): two mechanisms on
+    top of ``offload_optimizer``, one at a time --
+
+    * ``overlap_step``: the whole host Adam step runs on a background
+      worker with 1-step bounded staleness, beside the card's next
+      forward and backward;
+    * ``topk_ratio > 0``: the top-k most important gradient columns update
+      on the card every step through a selective Adam, the rest accumulate
+      on the card and go through the host Adam every ``update_interval``
+      steps; columns are reselected every ``select_interval`` steps.
+      ``"auto"`` intervals resolve to update 4, select 4 x update."""
+
+    overlap_step: bool = False
+    topk_ratio: float = 0.0
+    select_strategy: str = "auto"
+    select_interval: Any = AUTO
+    update_interval: Any = AUTO
+    full_warm_up_rounds: int = 0
+
+    def validate(self, path: str) -> None:
+        if not (0.0 <= self.topk_ratio <= 1.0):
+            raise ValueError("zenflow.topk_ratio must be in [0, 1]")
+        if self.select_strategy not in ("auto", "step"):
+            raise ValueError(
+                "zenflow.select_strategy: 'epoch' needs steps_per_epoch which "
+                "the engine does not track — use 'step' with select_interval "
+                "in steps, or 'auto'")
+        for f in ("select_interval", "update_interval"):
+            v = getattr(self, f)
+            if not (v == AUTO or (isinstance(v, int) and v >= 1)):
+                raise ValueError(f"zenflow.{f} must be 'auto' or a positive "
+                                 "integer")
+        if self.select_strategy == "step" and self.select_interval == AUTO:
+            raise ValueError(
+                "zenflow.select_strategy='step' requires an explicit integer "
+                "select_interval (in steps)")
+        if self.topk_ratio > 0 and self.overlap_step:
+            raise ValueError(
+                "zenflow: overlap_step and the top-k selective split are "
+                "alternative overlap mechanisms — enable one, not both")
+        if self.topk_ratio == 0 and not self.overlap_step:
+            raise ValueError(
+                "zero_optimization.zenflow is enabled but both mechanisms "
+                "are off (overlap_step=False, topk_ratio=0) — the block "
+                "would be a no-op. Set overlap_step=true or topk_ratio>0 "
+                "(overlap_step's default changed from true to false to "
+                "match the reference default).")
+
+    def resolved_update_interval(self) -> int:
+        return 4 if self.update_interval == AUTO else int(self.update_interval)
+
+    def resolved_select_interval(self) -> int:
+        if self.select_interval == AUTO:
+            return 4 * self.resolved_update_interval()
+        return int(self.select_interval)
+
+
 @dataclasses.dataclass
 class ZeroConfig(_Section):
     """``zero_optimization``: ``stage`` 0-3, which on one device all keep
-    whole fp32 params, grads and optimizer state and compute the same step.
-    The bucket and overlap knobs tune collectives that one device does not
-    have; they are accepted."""
+    whole fp32 params and grads and compute the same step;
+    ``offload_optimizer`` moves the optimizer (fp32 masters and moments)
+    to the host or NVMe, ``zenflow`` overlaps or splits that host step,
+    ``offload_param`` is accepted and read by nothing, as in the
+    reference. The bucket and overlap knobs tune collectives that one
+    device does not have; they are accepted."""
 
     stage: int = 0
     contiguous_gradients: bool = True
@@ -168,6 +280,9 @@ class ZeroConfig(_Section):
     allgather_partitions: bool = True
     allgather_bucket_size: int = 500_000_000
     overlap_comm: Optional[bool] = None
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    zenflow: Optional[ZenFlowConfig] = None
     sub_group_size: int = 1_000_000_000
     param_persistence_threshold: int = 100_000
     model_persistence_threshold: int = 9999999999
@@ -178,15 +293,15 @@ class ZeroConfig(_Section):
     ignore_unused_parameters: bool = True
     use_multi_rank_bucket_allreduce: bool = True
 
-    UNPORTED = {"offload_optimizer": _SECTION, "offload_param": _SECTION,
-                "zenflow": _SECTION, "zero_pp": _SECTION,
+    NESTED = {"offload_param": OffloadParamConfig,
+              "offload_optimizer": OffloadOptimizerConfig,
+              "zenflow": ZenFlowConfig}
+    UNPORTED = {"zero_pp": _SECTION,
                 "zero_quantized_weights": False,
                 "zero_quantized_gradients": False,
                 "zero_hpz_partition_size": 1, "mics_shard_size": -1,
                 "mics_hierarchical_params_gather": False}
-    UNPORTED_ITEM = {**{k: "Mesh, ZeRO and tensor parallelism"
-                        for k in UNPORTED},
-                     "offload_optimizer": "Offload", "offload_param": "Offload"}
+    UNPORTED_ITEM = {k: "Mesh, ZeRO and tensor parallelism" for k in UNPORTED}
 
     def validate(self, path: str) -> None:
         if not 0 <= int(self.stage) <= 3:
@@ -871,6 +986,42 @@ class ResilienceConfig(_Section):
 
 
 @dataclasses.dataclass
+class AioConfig(_Section):
+    """``offload.aio``: the swap pipeline's IO shape (the reference's) --
+    ``threads`` AIO workers per swapper (0: the autotuned value when
+    ``autotune`` is on, else ``offload_optimizer.buffer_count``),
+    ``chunk_mb`` the per-op IO size (0: autotuned or 8 MB),
+    ``prefetch_depth`` k of the optimizer's read-ahead pipeline (0:
+    strictly serial), ``autotune`` a first-use ``aio_bench`` sweep,
+    ``o_direct`` page-cache bypass, ``upload_overlap`` the upload of
+    finished leaves while later leaves are still in the host Adam."""
+
+    threads: int = 0
+    chunk_mb: int = 0
+    prefetch_depth: int = 2
+    autotune: bool = False
+    autotune_cache: str = ""
+    o_direct: bool = False
+    upload_overlap: bool = True
+
+    def validate(self, path: str) -> None:
+        if self.threads < 0 or self.chunk_mb < 0 or self.prefetch_depth < 0:
+            raise ValueError(
+                "offload.aio: threads/chunk_mb/prefetch_depth must be >= 0 "
+                "(0 means auto/serial)")
+
+
+@dataclasses.dataclass
+class OffloadConfig(_Section):
+    """``offload``: how the host/NVMe offload tier moves bytes (which tier
+    is offloaded lives under ``zero_optimization.offload_optimizer``)."""
+
+    aio: AioConfig = dataclasses.field(default_factory=AioConfig)
+
+    NESTED = {"aio": AioConfig}
+
+
+@dataclasses.dataclass
 class DeepSpeedTpuConfig(_Section):
     """The root config. Build it with :func:`from_config`."""
 
@@ -906,6 +1057,7 @@ class DeepSpeedTpuConfig(_Section):
     progressive_layer_drop: ProgressiveLayerDropConfig = dataclasses.field(
         default_factory=ProgressiveLayerDropConfig)
     moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
+    offload: OffloadConfig = dataclasses.field(default_factory=OffloadConfig)
 
     NESTED = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
               "fp16": FP16Config, "bf16": BF16Config,
@@ -916,12 +1068,11 @@ class DeepSpeedTpuConfig(_Section):
               "resilience": ResilienceConfig,
               "data_efficiency": DataEfficiencyConfig,
               "progressive_layer_drop": ProgressiveLayerDropConfig,
-              "moe": MoEConfig}
+              "moe": MoEConfig, "offload": OffloadConfig}
     UNPORTED_ITEM = {
         **{k: "Mesh, ZeRO and tensor parallelism" for k in (
             "pipeline", "comms_logger", "compression", "autotuning",
             "prescale_gradients", "gradient_predivide_factor")},
-        "offload": "Offload",
         "sequence_parallel": "Long context",
         **{k: "Remainder" for k in (
             "monitor_config", "tensorboard", "csv_monitor", "wandb",

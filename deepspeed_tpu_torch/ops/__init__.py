@@ -3,7 +3,8 @@ PyTorch version beside it (counterpart of ``deepspeed_tpu/ops``), and the
 op-builder registry (``OpBuilder``, ``ALL_OPS``, ``get_op_builder``,
 ``op_report``: the reference's ``ds_report`` / ``OpBuilder.load()``
 surface), which also builds the host AIO library of the NVMe swapper
-(``async_io``).
+(``async_io``) and the host optimizer loops of the offload tier
+(``cpu_adam``).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from a CUDA tensor
@@ -125,6 +126,29 @@ class AsyncIOBuilder(OpBuilder):
         return host_library("aio")
 
 
+class CPUAdamBuilder(OpBuilder):
+    """The host optimizer loops (the reference's ``CPUAdamBuilder``): the
+    repo's ``csrc/cpu_adam.cpp`` compiled with ``g++ -march=native
+    -fopenmp`` at first ``load()`` into the port's build directory
+    (``_build.host_library``); ``load()`` returns the ``ctypes`` library
+    and raises when the build fails."""
+
+    NAME = "cpu_adam"
+
+    def is_compatible(self, verbose: bool = False) -> bool:
+        import shutil
+
+        from deepspeed_tpu_torch.ops._build import _host_source
+
+        return shutil.which("g++") is not None and \
+            _host_source("cpu_adam").exists()
+
+    def load(self):
+        from deepspeed_tpu_torch.ops._build import host_library
+
+        return host_library("cpu_adam")
+
+
 class _Unported(OpBuilder):
     """An op of the reference the port does not have yet: listed under its
     reference name, not compatible, and ``load()`` names the ROADMAP item
@@ -154,7 +178,7 @@ class RingAttentionBuilder(_Unported):
 ALL_OPS: Dict[str, Type[OpBuilder]] = {
     b.NAME: b for b in (FlashAttentionBuilder, RMSNormBuilder,
                         QuantizerBuilder, RingAttentionBuilder,
-                        AsyncIOBuilder)
+                        AsyncIOBuilder, CPUAdamBuilder)
 }
 
 

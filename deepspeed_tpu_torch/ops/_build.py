@@ -11,7 +11,9 @@ CPU-only machine does nothing.
 
 Host libraries (C++ with a plain C interface, no CUDA) are built the same
 way with ``g++`` by :func:`host_library`: the repo's ``csrc/aio.cpp``, the
-native AIO threadpool of the KV tiers' NVMe swapper.
+native AIO threadpool of the NVMe swapper, and ``csrc/cpu_adam.cpp``, the
+host optimizer loops of the offload tier (with the reference builder's
+``-march=native -fopenmp``).
 
 Every kernel of the ported paths has a :class:`Kernel` record in
 :data:`KERNELS`. :meth:`Kernel.launch` is the one place a kernel is launched:
@@ -228,9 +230,18 @@ def library(name: str):
 
 
 # host C++ libraries: name -> source under the repo's csrc/ (read-only; the
-# JAX package's builder compiles the same file for its own swapper)
-_HOST_SOURCES = {"aio": "aio.cpp"}
+# JAX package's builder compiles the same files for its own swapper and
+# host optimizer)
+_HOST_SOURCES = {"aio": "aio.cpp", "cpu_adam": "cpu_adam.cpp"}
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# flags of one library beyond GXX_FLAGS (part of its hash): the Adam loops
+# are the reference builder's vectorised OpenMP build
+_HOST_FLAGS = {"cpu_adam": ("-march=native", "-fopenmp")}
+
+
+def host_flags(name: str) -> tuple:
+    """The ``g++`` flags of the host library ``name``."""
+    return GXX_FLAGS + _HOST_FLAGS.get(name, ())
 
 
 def _host_source(name: str) -> Path:
@@ -250,7 +261,8 @@ def host_library(name: str):
     import subprocess
 
     src = _host_source(name)
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    flags = host_flags(name)
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(src.read_bytes())
     path = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
     with _lock:
@@ -264,7 +276,7 @@ def host_library(name: str):
                                    f"{name!r} is built from {src}")
             path.parent.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([gxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+            proc = subprocess.run([gxx, *flags, str(src), "-o", str(tmp)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"host library {name!r} build failed "
@@ -280,7 +292,8 @@ def host_library(name: str):
 def _declare_host(lib, name: str) -> None:
     import ctypes
 
-    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    P, I, I64, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
     io = [P, ctypes.c_char_p, P, I64, I64, I]   # handle path buf n off o_direct
     sigs = {
         "aio": {
@@ -295,6 +308,17 @@ def _declare_host(lib, name: str) -> None:
             "ds_aio_wait": ([P], I64),
             "ds_aio_pending": ([P], I64),
             "ds_aio_stats": ([P, ctypes.POINTER(I64)], None),
+        },
+        "cpu_adam": {
+            # params grads exp_avg exp_avg_sq n lr beta1 beta2 eps
+            # weight_decay adamw_mode step
+            "ds_adam_step": ([P, P, P, P, I64, F, F, F, F, F, I, I], None),
+            # params grads exp_avg_sq n lr eps weight_decay
+            "ds_adagrad_step": ([P, P, P, I64, F, F, F], None),
+            # params grads exp_avg n lr beta1 beta2 weight_decay
+            "ds_lion_step": ([P, P, P, I64, F, F, F, F], None),
+            "ds_fp32_to_bf16": ([P, P, I64], None),     # src dst n
+            "ds_bf16_to_fp32": ([P, P, I64], None),
         },
     }[name]
     for fn, (args, res) in sigs.items():

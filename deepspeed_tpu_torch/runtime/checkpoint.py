@@ -18,10 +18,17 @@ The reference's on-disk contract, with a PyTorch payload in place of Orbax:
   ``torch.load(weights_only=True)``: no pickled objects. Every leaf
   round-trips bit for bit.
 
+* with the offload optimizer (``engine._offload``), its host tier as
+  ``<tag>/host_optimizer.npz`` with the reference's keys (``step``,
+  ``master/<path>``, ``m/<path>``, ``v/<path>``; ZenFlow's ``zf/*`` too),
+  so either package reads the other's by name; the device
+  ``opt_state.pt`` is then empty, as the reference's is.
+
 ``checkpoint.async_save`` keeps the reference's split: the device-to-host
 copy happens in the caller, the file writes and the ``latest`` commit on a
 non-daemon thread; :func:`finalize_pending` joins it and re-raises its
-error. :func:`consolidate_to_fp32` and :func:`save_16bit_model` write
+error. The caller's stage also copies the host optimizer tier: the next
+step's C++ Adam writes the masters and moments in place. :func:`consolidate_to_fp32` and :func:`save_16bit_model` write
 ``.npz`` files under the reference's names, so either package reads the
 other's by name.
 """
@@ -40,9 +47,10 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 LATEST_FILE = "latest"
 STATE_DIR = "state"
+HOST_OPTIMIZER_FILE = "host_optimizer.npz"
 TREES = ("params", "opt_state", "scaler")
 
-__all__ = ["LATEST_FILE", "consolidate_to_fp32", "finalize_pending",
+__all__ = ["HOST_OPTIMIZER_FILE", "LATEST_FILE", "consolidate_to_fp32", "finalize_pending",
            "flatten_tree", "load_checkpoint", "load_params_only",
            "read_latest_tag", "save_16bit_model", "save_checkpoint",
            "unflatten_tree", "write_latest_atomic"]
@@ -143,6 +151,23 @@ def _write_tree(path: str, flat: Dict[str, torch.Tensor]) -> None:
         os.fsync(f.fileno())
 
 
+def _host_optimizer_state(engine, copy: bool) -> Optional[Dict[str, Any]]:
+    """The offload optimizer's state dict (None without one). ``copy``: own
+    arrays, not views of the buffers the next step's Adam writes."""
+    off = getattr(engine, "_offload", None)
+    if off is None:
+        return None
+    sd = off.state_dict()
+    return {k: np.array(v, copy=True) for k, v in sd.items()} if copy else sd
+
+
+def _write_npz(path: str, arrays: Dict[str, Any]) -> None:
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+
+
 def _read_tree(tag_dir: str, tree: str, device) -> Dict[str, torch.Tensor]:
     return torch.load(os.path.join(tag_dir, STATE_DIR, f"{tree}.pt"),
                       map_location=device, weights_only=True)
@@ -184,12 +209,17 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     os.makedirs(state_dir, exist_ok=True)
     async_save = bool(engine.config.checkpoint.async_save)
     host = _host_state(engine)     # synchronous device -> host copy
+    # the host optimizer tier lives outside the device trees; an async
+    # save copies it now, before the next step's Adam writes it in place
+    host_opt = _host_optimizer_state(engine, copy=async_save)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(_meta(engine, client_state), f, indent=2, default=str)
 
     def _write():
         for tree in TREES:
             _write_tree(os.path.join(state_dir, f"{tree}.pt"), host[tree])
+        if host_opt is not None:
+            _write_npz(os.path.join(path, HOST_OPTIMIZER_FILE), host_opt)
         if write_latest:
             write_latest_atomic(save_dir, tag)
 
@@ -284,6 +314,11 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if load_optimizer_states:
         _restore_opt_state(engine, _read_tree(path, "opt_state",
                                               engine.device))
+        host_path = os.path.join(path, HOST_OPTIMIZER_FILE)
+        if getattr(engine, "_offload", None) is not None \
+                and os.path.exists(host_path):
+            with np.load(host_path) as z:
+                engine._offload.load_state_dict(dict(z))
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(path, "meta.json")
     if os.path.exists(meta_path):

@@ -51,10 +51,21 @@ The reference's imperative UX with its semantics:
   ``sanity_checks`` runs ``runtime/sanity.py`` at construction and on the
   first batch.
 
+* Offload (the reference's :171-183, :732-815, :1051): with
+  ``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme`` the
+  update runs in ``offload/optimizer.py``'s ``HostOffloadOptimizer``: the
+  fp32 masters and Adam moments live on the host (the moments on disk for
+  ``nvme``), the device keeps its params and grads and an empty
+  ``opt_state``, and each step copies the grads out and the updated params
+  back. ``zenflow.overlap_step`` runs that host step in the background,
+  collected at the next boundary (and before a save, a load, an emergency
+  save and ``shutdown``); ``zenflow.topk_ratio`` selects
+  ``ZenFlowSelectiveOptimizer``. ``offload_report()`` reads the data path.
+
 One device: params, grads and optimizer state stay whole on it, so ZeRO
 stages 0-3 compute the same step, as they do in the reference on a
-one-device mesh. Monitor (and so the registry-to-monitor bridge), offload,
-1-bit optimizers and ZeRO++ are not in this slice.
+one-device mesh. Monitor (and so the registry-to-monitor bridge), 1-bit
+optimizers and ZeRO++ are not in this slice.
 """
 
 from __future__ import annotations
@@ -71,10 +82,12 @@ import torch
 
 from deepspeed_tpu_torch.config import DeepSpeedTpuConfig
 from deepspeed_tpu_torch.models.spec import tree_leaves
+from deepspeed_tpu_torch.runtime.checkpoint import flatten_tree
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedTpuDataLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedulerShim,
                                                       build_schedule)
-from deepspeed_tpu_torch.runtime.optimizers import build_optimizer, global_norm
+from deepspeed_tpu_torch.runtime.optimizers import (ONE_BIT, build_optimizer,
+                                                    global_norm)
 from deepspeed_tpu_torch.utils import resolve_device
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
@@ -136,6 +149,17 @@ class DeepSpeedTpuEngine:
             schedule_fn = lr_scheduler
             self.lr_scheduler = LRSchedulerShim(schedule_fn, engine=self)
         opt_cfg = config.optimizer
+        zcfg = config.zero_optimization
+        off = zcfg.offload_optimizer
+        offload = off is not None and off.device in ("cpu", "nvme")
+        if zcfg.zenflow is not None and not offload:
+            raise ValueError(
+                "zero_optimization.zenflow requires offload_optimizer "
+                "(device cpu|nvme) — there is no host step to overlap")
+        if offload and opt_cfg is not None and opt_cfg.type.lower().replace(
+                "_", "") in ONE_BIT:
+            raise ValueError("1-bit optimizers do not compose with "
+                             "offload_optimizer")
         self.tx = build_optimizer(
             opt_cfg.type if opt_cfg else "adamw",
             dict(opt_cfg.params) if opt_cfg else {}, lr_schedule=schedule_fn,
@@ -149,7 +173,13 @@ class DeepSpeedTpuEngine:
             params = model_parameters
         self.params = _own_params(params, self.device)
         self._leaves = list(tree_leaves(self.params))
-        self.opt_state = self.tx.init(self._leaves)
+        self._offload = None
+        if offload:
+            # the optimizer state lives on the host: none on the device
+            self.opt_state = {}
+            self._configure_offload_optimizer(off, schedule_fn)
+        else:
+            self.opt_state = self.tx.init(self._leaves)
         self.scaler_state = self._init_scaler_state()
         self._pending: Optional[torch.Tensor] = None
         self._grad_acc_count = 0
@@ -405,17 +435,25 @@ class DeepSpeedTpuEngine:
         return self._grad_acc_count >= int(
             self.config.gradient_accumulation_steps)
 
-    @torch.no_grad()
-    def _apply(self, ga: float) -> Tuple[torch.Tensor, bool]:
-        """Unscale -> global norm -> (fp16) overflow skip + scaler update ->
-        clip and update (the reference's ``apply_step``). Returns (norm of
-        the unscaled gradients, skipped); clears the accumulation buffer."""
+    def _take_grads(self, ga: float):
+        """The accumulated gradients, unscaled by ``scale * ga``, in leaf
+        order; clears the accumulation buffer (the leaves' ``.grad``)."""
         denom = self.scaler_state["scale"] * ga
         grads = []
         for p in self._leaves:
             g = torch.zeros_like(p) if p.grad is None else p.grad
             p.grad = None
             grads.append(g.float().div_(denom))
+        return grads
+
+    @torch.no_grad()
+    def _apply(self, ga: float) -> Tuple[torch.Tensor, bool]:
+        """Unscale -> global norm -> (fp16) overflow skip + scaler update ->
+        clip and update (the reference's ``apply_step``). Returns (norm of
+        the unscaled gradients, skipped); clears the accumulation buffer."""
+        grads = self._take_grads(ga)
+        if self._offload is not None:
+            return self._offload_apply(grads)
         gnorm = global_norm(grads)
         if self.fp16_enabled:
             finite = bool(torch.isfinite(gnorm))
@@ -424,6 +462,94 @@ class DeepSpeedTpuEngine:
                 return gnorm, True
         self.tx.update(self._leaves, grads, self.opt_state, norm=gnorm)
         return gnorm, False
+
+    # ---- offload (the reference's :732-815, :844) ------------------------
+    def _configure_offload_optimizer(self, off, schedule_fn) -> None:
+        """ZeRO-Offload / Infinity: the host optimizer over this engine's
+        params; ``zero_optimization.zenflow`` turns on the overlapped step
+        or the selective split."""
+        from deepspeed_tpu_torch.offload import (HostOffloadOptimizer,
+                                                 ZenFlowSelectiveOptimizer)
+
+        zf = self.config.zero_optimization.zenflow
+        overlap = bool(zf is not None and zf.overlap_step)
+        selective = bool(zf is not None and zf.topk_ratio > 0)
+        if (overlap or selective) and self.fp16_enabled:
+            raise NotImplementedError(
+                "zenflow needs the overflow-skip decision at step "
+                "time; it does not compose with fp16 dynamic loss scaling "
+                "(use bf16)")
+        p = dict(self.config.optimizer.params) if self.config.optimizer else {}
+        aio = self.config.offload.aio
+        common = dict(
+            lr=p.get("lr", 1e-3), betas=tuple(p.get("betas", (0.9, 0.999))),
+            eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0),
+            gradient_clipping=self.config.gradient_clipping,
+            schedule_fn=schedule_fn,
+            nvme_path=off.nvme_path if off.device == "nvme" else None,
+            # offload.aio owns how bytes move; 0 threads falls back to the
+            # autotuner (when on) or offload_optimizer.buffer_count
+            aio_threads=(aio.threads if aio.threads > 0
+                         else (0 if aio.autotune else off.buffer_count)),
+            aio_chunk_mb=aio.chunk_mb,
+            prefetch_depth=aio.prefetch_depth,
+            aio_autotune=aio.autotune,
+            aio_autotune_cache=aio.autotune_cache,
+            aio_o_direct=aio.o_direct,
+            upload_overlap=aio.upload_overlap)
+        if selective:
+            self._offload = ZenFlowSelectiveOptimizer(
+                self.params, topk_ratio=zf.topk_ratio,
+                select_interval=zf.resolved_select_interval(),
+                update_interval=zf.resolved_update_interval(),
+                full_warm_up_rounds=zf.full_warm_up_rounds, **common)
+        else:
+            self._offload = HostOffloadOptimizer(
+                self.params, overlap_step=overlap, **common)
+
+    def _offload_apply(self, grads) -> Tuple[float, bool]:
+        """The host step on the unscaled gradients (leaf order). With
+        ``overlap_step`` the previous async step is collected first, this
+        one is launched, and the previous step's norm is reported (its
+        skip decision lags one step by design: ZenFlow's bounded
+        staleness)."""
+        off = self._offload
+        named = dict(zip(flatten_tree(self.params), grads))
+        if off.overlap:
+            self._collect_offload()
+            # read before launching: the worker overwrites _last_gnorm
+            gnorm_prev = off._last_gnorm
+            off.step_async(named, self.params, self.global_steps)
+            return gnorm_prev, False
+        _, skipped = off.step(named, self.params, self.global_steps)
+        if self.fp16_enabled:
+            self.scaler_state = self._scaler_update(self.scaler_state,
+                                                    not skipped)
+        return off._last_gnorm, skipped
+
+    def _collect_offload(self) -> None:
+        """Apply the previous async offload step's params (ZenFlow overlap:
+        the host Adam of step N-1 ran during step N's forward and
+        backward)."""
+        prev = self._offload.finish_pending()
+        if prev is not None and prev[1]:
+            # the launch-time commit counted this as a successful step;
+            # restate it as skipped so the counters match the synchronous
+            # path (the one LR-schedule tick it took is not unwound)
+            self.skipped_steps += 1
+            self.global_steps = max(0, self.global_steps - 1)
+
+    def _drain_offload(self) -> None:
+        if self._offload is not None and self._offload.overlap:
+            self._collect_offload()
+
+    def offload_report(self) -> Dict[str, Any]:
+        """The offload data path in one call: tier layout, pipeline depth
+        and overlap flags, the last step's grad-copy, Adam and upload
+        times, the stall fraction and the swapper's counters."""
+        if self._offload is None:
+            return {"enabled": False}
+        return {"enabled": True, **self._offload.report()}
 
     def step(self, *args, **kwargs) -> None:
         """Optimizer step at the GA boundary (reference :778)."""
@@ -684,6 +810,7 @@ class DeepSpeedTpuEngine:
         ``resilience/ckpt_save_ms``."""
         from deepspeed_tpu_torch.runtime.checkpoint import save_checkpoint
 
+        self._drain_offload()  # the async step lands before the snapshot
         t0 = time.perf_counter()
         if self._resilience_enabled():
             self._resilience_manager(save_dir).save(
@@ -700,6 +827,7 @@ class DeepSpeedTpuEngine:
         (reference :1147); returns ``(path, client_state)``."""
         from deepspeed_tpu_torch.runtime.checkpoint import load_checkpoint
 
+        self._drain_offload()
         if self._resilience_enabled():
             return self._resilience_manager(load_dir).load(
                 self, tag=tag, load_optimizer_states=load_optimizer_states)
@@ -804,6 +932,7 @@ class DeepSpeedTpuEngine:
         mgr, guard = self._primary_mgr, self._guard
         if self._coordinator is None:
             if mgr is not None and mgr.preempted:
+                self._drain_offload()
                 mgr.maybe_emergency_save(self)
                 rc = self.config.resilience.checkpoint
                 if rc.exit_on_preempt:
@@ -848,6 +977,10 @@ class DeepSpeedTpuEngine:
                          "DSTPU_CHECKPOINT_DIR or save once first); "
                          "skipping the emergency save")
             return
+        # the boundary is the consistent point, but an overlapped offload
+        # step may still be in flight: drain it so the snapshot matches
+        # global_steps
+        self._drain_offload()
         mgr.preempted = False  # consumed, signaled here or not
         tag = f"preempt_step{self.global_steps}"
         path = mgr.save(self, tag=tag, emergency=True,
@@ -991,10 +1124,16 @@ class DeepSpeedTpuEngine:
         return path
 
     def shutdown(self) -> None:
-        """Orderly teardown: finish an in-flight async save and its commit,
-        stop the heartbeat and watchdog threads, an in-flight profile
-        capture and the ``/metrics`` server. Idempotent."""
+        """Orderly teardown: collect an in-flight offload step and close
+        the host optimizer (its AIO handle and page-locked buffers), finish
+        an in-flight async save and its commit, stop the heartbeat and
+        watchdog threads, an in-flight profile capture and the
+        ``/metrics`` server. Idempotent."""
         from deepspeed_tpu_torch.runtime.checkpoint import finalize_pending
+
+        if self._offload is not None:
+            self._drain_offload()
+            self._offload.close()
 
         for mgr in self._ckpt_managers.values():
             mgr.drain(raise_on_error=False)

@@ -54,6 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "import deepspeed_tpu_torch.inference.kv_tier\n"
         "import deepspeed_tpu_torch.inference.speculative\n"
         "import deepspeed_tpu_torch.offload.swap\n"
+        "import deepspeed_tpu_torch.offload.cpu_adam\n"
+        "import deepspeed_tpu_torch.offload.optimizer\n"
+        "import deepspeed_tpu_torch.tools.offload_drill\n"
         "import deepspeed_tpu_torch.tools.hbm_bandwidth\n"
         "import deepspeed_tpu_torch.config, deepspeed_tpu_torch.runtime\n"
         "import deepspeed_tpu_torch.runtime.engine\n"

@@ -107,10 +107,10 @@ def _roadmap_section_1() -> str:
 
 
 @pytest.mark.parametrize("raw", [
-    {"elasticity": {}}, {"pipeline": {}}, {"offload": {}},
+    {"elasticity": {}}, {"pipeline": {}}, {"autotuning": {}},
     {"sequence_parallel": {}}, {"monitor_config": {}}, {"compression": {}},
     {"mesh": {"tp": 2}}, {"mesh": "auto"},
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    {"zero_optimization": {"zero_hpz_partition_size": 2}},
     {"zero_optimization": {"zero_quantized_weights": True}}],
     ids=lambda r: "-".join(str(k) for k in r) + "-" + "-".join(
         str(k) for v in r.values() if isinstance(v, dict) for k in v))

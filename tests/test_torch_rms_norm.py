@@ -78,9 +78,10 @@ def test_closed_form_backward_matches_autograd_of_the_plain_version(dtype):
 
 
 def test_the_registry_lists_the_reference_ops():
-    # the reference's registry, then its native AIO builder
-    # (``deepspeed_tpu/ops/op_builder.AsyncIOBuilder``) as ``async_io``
-    want = list(jops.ALL_OPS) + ["async_io"]
+    # the reference's registry, then its native AIO and host Adam builders
+    # (``deepspeed_tpu/ops/op_builder.AsyncIOBuilder`` and
+    # ``CPUAdamBuilder``) as ``async_io`` and ``cpu_adam``
+    want = list(jops.ALL_OPS) + ["async_io", "cpu_adam"]
     assert list(tops.ALL_OPS) == want
     assert [n for n, _ in tops.op_report()] == want
     assert tops.get_op_builder("rms_norm").load() is fused_rms_norm
@@ -90,7 +91,7 @@ def test_the_registry_lists_the_reference_ops():
     assert dict(tops.op_report()) == {"flash_attn": True, "rms_norm": True,
                                       "quantizer": False,
                                       "ring_attention": False,
-                                      "async_io": True}
+                                      "async_io": True, "cpu_adam": True}
     # each refusal names its ROADMAP section 1 item by title (numbers go
     # stale as items close), and that title is an item of section 1
     roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md"

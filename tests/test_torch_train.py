@@ -308,8 +308,8 @@ def test_misspelled_key_names_the_field(raw, where):
 
 
 @pytest.mark.parametrize("raw,where", [
-    ({"zero_optimization": {"stage": 2, "offload_optimizer":
-                            {"device": "cpu"}}}, "offload_optimizer"),
+    ({"zero_optimization": {"stage": 2, "zero_hpz_partition_size": 2}},
+     "zero_hpz_partition_size"),
     ({"zero_optimization": {"zero_pp": {"enabled": True}}}, "zero_pp"),
     ({"zero_optimization": {"zero_quantized_weights": True}},
      "zero_quantized_weights"),
